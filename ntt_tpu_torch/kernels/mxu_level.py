@@ -1,0 +1,150 @@
+"""Kernels K2 and K3: one four-step level with its decomposition twiddle
+(port of ``ntt_tpu.kernels.mxu_level``).
+
+- ``fused_level_stack`` (K2): the twiddle is folded into a stack of conv
+  matrices As[NT, D*m, D*m]; batch column b uses ``As[b // rep]``; an
+  optional batch-resolution residual twiddle T3 [W, m, B] multiplies the
+  output.
+- ``fused_subntt`` (K3, single-level m <= 32): one conv matrix, then the
+  decomposition twiddle by a Montgomery product from T3 [W, m, B]
+  (rep == 1) or from the i2-resolution table T3 [W, B // rep, m] (rep > 1).
+
+On a CUDA tensor each launches its hand-written kernel
+(``csrc/mxu_level.cu``); on a CPU tensor it runs its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import digits
+from ..fields import Field
+from . import _build
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("mxu_level")
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.mxu_fused_level_stack.argtypes = [
+        vp, vp, ll, vp, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, vp]
+    lib.mxu_fused_level_stack.restype = ctypes.c_int
+    lib.mxu_fused_subntt.argtypes = [
+        vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, vp]
+    lib.mxu_fused_subntt.restype = ctypes.c_int
+    return lib
+
+
+def _zmax_bits(field: Field, m: int) -> int:
+    return (m * digits.n_digits(field) * digits.DIGIT_MASK ** 2).bit_length()
+
+
+def _fold_mul_matrix(field: Field, device):
+    return torch.from_numpy(digits.fold_mul_matrix(field)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# K2: the twiddle folded into a conv-matrix stack
+# ---------------------------------------------------------------------------
+
+def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
+                            T3=None):
+    """Plain PyTorch version of K2."""
+    W, m, B = x3.shape
+    D = digits.n_digits(field)
+    d = digits.extract_digits(x3, field).reshape(D * m, B)
+    Z = torch.empty((digits.out_planes(field) * m, B), dtype=torch.int64,
+                    device=x3.device)
+    for s in range(As.shape[0]):
+        cols = slice(s * rep, (s + 1) * rep)
+        Z[:, cols] = digits.matmul_exact(As[s], d[:, cols])
+    y = digits.recompose_reduce(Z.reshape(-1, m, B), field,
+                                _zmax_bits(field, m), fold_mat=F)
+    if T3 is not None:
+        y = digits.mont_mul_fold(y, T3, field,
+                                 _fold_mul_matrix(field, x3.device))
+    return y
+
+
+def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
+    """m-point level on uint32[W, m, B] with the decomposition twiddle
+    folded into the conv-matrix stack ``As`` (int8[NT, D*m, D*m],
+    NT * rep == B). ``T3``: optional uint32[W, m, B] residual twiddle.
+    ``F``: the fold matrix, which only the plain version reads."""
+    W, m, B = x3.shape
+    NT = As.shape[0]
+    if NT * rep != B:
+        raise ValueError(f"stack of {NT} entries x rep {rep} != B = {B}")
+    if x3.device.type == "cpu":
+        return fused_level_stack_plain(x3, field, As, rep, F, T3)
+    _build.check_level(x3, field)
+    D = digits.n_digits(field)
+    _build.check_operand(As, "As", torch.int8, (NT, D * m, D * m), x3.device)
+    if T3 is not None:
+        _build.check_operand(T3, "T3", torch.uint32, (W, m, B), x3.device)
+    out = torch.empty_like(x3)
+    rc = _lib().mxu_fused_level_stack(
+        _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), _build.ptr(out),
+        m, B, *_build.field_args(field), _build.stream(x3))
+    _build.check(rc, "fused_level_stack")
+    _build.launches["fused_level_stack"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: sub-NTT (single level) then the decomposition twiddle
+# ---------------------------------------------------------------------------
+
+def _expand_twiddle(T3, rep: int, B: int):
+    """The twiddle at batch resolution [W, m, B]: T3 itself for rep == 1,
+    else the i2-resolution table [W, B // rep, m] repeated over rep."""
+    if rep == 1:
+        return T3
+    W, n2, m = T3.shape
+    return T3.transpose(1, 2)[:, :, :, None].expand(W, m, n2, rep).reshape(
+        W, m, B)
+
+
+def fused_subntt_plain(x3, field: Field, mats, T3=None, rep: int = 1):
+    """Plain PyTorch version of K3."""
+    W, m, B = x3.shape
+    y = digits.apply_matrix(mats[m], x3, field, m, _zmax_bits(field, m),
+                            fold_mat=mats.get(-m))
+    if T3 is None:
+        return y
+    F2 = mats.get(-1)
+    if F2 is None:
+        F2 = _fold_mul_matrix(field, x3.device)
+    return digits.mont_mul_fold(y, _expand_twiddle(T3, rep, B), field, F2)
+
+
+def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1):
+    """m-point sub-NTT (m <= 32) along axis 1 of uint32[W, m, B], then the
+    optional decomposition twiddle ``T3``: [W, m, B] for rep == 1, the
+    i2-resolution table [W, B // rep, m] for rep > 1. ``mats``: {m: conv
+    matrix, -m: fold matrix, -1: twiddle fold matrix}; the kernel reads
+    only the conv matrix."""
+    W, m, B = x3.shape
+    if T3 is not None:
+        want = (W, m, B) if rep == 1 else (W, B // rep, m)
+        if B % rep or tuple(T3.shape) != want:
+            raise ValueError(f"rep {rep}: T3 must be {want}, "
+                             f"got {tuple(T3.shape)}")
+    if x3.device.type == "cpu":
+        return fused_subntt_plain(x3, field, mats, T3, rep)
+    _build.check_level(x3, field)
+    D = digits.n_digits(field)
+    A = mats[m]
+    _build.check_operand(A, "A", torch.int8, (D * m, D * m), x3.device)
+    if T3 is not None:
+        _build.check_operand(T3, "T3", torch.uint32, T3.shape, x3.device)
+    out = torch.empty_like(x3)
+    rc = _lib().mxu_fused_subntt(
+        _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep, _build.ptr(out),
+        m, B, *_build.field_args(field), _build.stream(x3))
+    _build.check(rc, "fused_subntt")
+    _build.launches["fused_subntt"] += 1
+    return out

@@ -1,0 +1,212 @@
+"""Multi-limb Montgomery field arithmetic in plain PyTorch.
+
+The port's counterpart of ``ntt_tpu.limbs``: an element is a stack of word
+planes ``torch.uint32[W, *batch]`` (limb-major, little-endian), and the
+Montgomery arithmetic is planned onto 16-bit half-limbs exactly as in the
+JAX package (lazy-carry CIOS, ``np0 = -p^{-1} mod 2^16``).
+
+PyTorch has no uint32 add, shift or compare on the CPU, so every function
+here computes on int64 planes and casts to ``torch.uint32`` only at its
+boundary. Half-limb intermediates are int64 planes holding values < 2^16
+(lazy sums a few bits wider). Every public op takes canonical inputs (< p)
+and returns canonical outputs.
+
+These are the plain arithmetic the kernels' plain versions are built from,
+and the ``mont_io=False`` conversion passes of the API; none is a kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fields import HALF_BITS, HALF_MASK, Field
+
+_I64 = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# Host <-> tensor conversions
+# ---------------------------------------------------------------------------
+
+def from_ints(values, field: Field) -> torch.Tensor:
+    """Pack python ints (canonical, < p) into the limb-leading layout
+    ``torch.uint32[W, n]`` (on the CPU)."""
+    W = field.n_words
+    arr = np.empty((W, len(values)), dtype=np.uint32)
+    for j, v in enumerate(values):
+        for w in range(W):
+            arr[w, j] = (v >> (32 * w)) & 0xFFFFFFFF
+    return torch.from_numpy(arr)
+
+
+def to_ints(x, field: Field) -> list:
+    """Unpack a ``uint32[W, *batch]`` tensor back to a flat list of ints
+    (batch dims flattened in C order)."""
+    a = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    flat = a.astype(np.uint64).reshape(field.n_words, -1)
+    out = []
+    for j in range(flat.shape[1]):
+        v = 0
+        for w in range(field.n_words):
+            v |= int(flat[w, j]) << (32 * w)
+        out.append(v)
+    return out
+
+
+def const_planes(value: int, field: Field, ndim: int = 1,
+                 device=None) -> torch.Tensor:
+    """A broadcastable constant element: int64[W, 1, ..., 1] with ``ndim``
+    trailing singleton dims."""
+    words = field.int_to_words(value)
+    return torch.tensor(words, dtype=_I64, device=device).reshape(
+        (field.n_words,) + (1,) * ndim)
+
+
+# ---------------------------------------------------------------------------
+# Half-limb pack/unpack
+# ---------------------------------------------------------------------------
+
+def unpack(x) -> list:
+    """uint32 (or int64) [W, *b] word planes -> list of 2W int64[*b]
+    16-bit half planes (little-endian)."""
+    x = x.to(_I64)
+    halves = []
+    for w in range(x.shape[0]):
+        halves.append(x[w] & HALF_MASK)
+        halves.append(x[w] >> HALF_BITS)
+    return halves
+
+
+def pack(halves: list) -> torch.Tensor:
+    """Inverse of :func:`unpack`: canonical half planes -> uint32 words."""
+    words = [halves[2 * w] | (halves[2 * w + 1] << HALF_BITS)
+             for w in range(len(halves) // 2)]
+    return torch.stack(words, dim=0).to(torch.uint32)
+
+
+def _halves_stacked(x) -> torch.Tensor:
+    """uint32[W, *b] -> int64[2W, *b] stacked half planes."""
+    x = x.to(_I64)
+    stacked = torch.stack([x & HALF_MASK, x >> HALF_BITS], dim=1)
+    return stacked.reshape((2 * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def _p_halves(field: Field, ndim: int, device) -> torch.Tensor:
+    """int64[L, 1, ..., 1] half-limbs of p, broadcastable over a batch."""
+    return torch.tensor(field.p_halves, dtype=_I64, device=device).reshape(
+        (field.n_halves,) + (1,) * ndim)
+
+
+# ---------------------------------------------------------------------------
+# Carry/borrow chains on half-limb lists
+# ---------------------------------------------------------------------------
+
+def _sub_halves(a: list, b: list):
+    """(a - b) wrapped over L half-limbs -> (limbs, borrow-out in {0,1})."""
+    out = []
+    brw = 0
+    for j in range(len(a)):
+        s = a[j] - b[j] - brw
+        out.append(s & HALF_MASK)
+        brw = (s >> HALF_BITS) & 1      # arithmetic shift: -1 on borrow
+    return out, brw
+
+
+def _cond_sub_p(t: list, top, field: Field) -> list:
+    """Given t (L half-limbs) + top word (value = t + top*2^(16L)) with
+    value < 2p, return value mod p as L canonical half-limbs."""
+    u, brw = _sub_halves(t, list(field.p_halves))
+    ge = top >= brw
+    return [torch.where(ge, u[j], t[j]) for j in range(len(t))]
+
+
+# ---------------------------------------------------------------------------
+# Montgomery ops
+# ---------------------------------------------------------------------------
+
+def mont_mul(x, y, field: Field) -> torch.Tensor:
+    """Montgomery product x*y*R^{-1} mod p, canonical in/out (uint32 word
+    planes, broadcasting over the batch dims): the lazy-carry CIOS of
+    ``ntt_tpu.limbs.mont_mul`` with the half-limb axis vectorised."""
+    L = field.n_halves
+    a = _halves_stacked(x)
+    b = _halves_stacked(y)
+    bb = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    p_h = _p_halves(field, len(bb), a.device)
+    t = torch.zeros((L + 1,) + tuple(bb), dtype=_I64, device=a.device)
+    for i in range(L):
+        prod = a[i] * b                       # exact: both < 2^16
+        t[:L] += prod & HALF_MASK
+        t[1:] += prod >> HALF_BITS
+        m = (t[0] * field.np0) & HALF_MASK
+        mp = m * p_h
+        t[:L] += mp & HALF_MASK
+        t[1:] += mp >> HALF_BITS
+        carry0 = t[0] >> HALF_BITS            # low half is 0 by choice of m
+        t = torch.cat([(t[1] + carry0)[None], t[2:],
+                       torch.zeros_like(t[:1])], dim=0)
+    out = []
+    c = 0
+    for j in range(L):
+        s = t[j] + c
+        out.append(s & HALF_MASK)
+        c = s >> HALF_BITS
+    top = t[L] + c
+    return pack(_cond_sub_p(out, top, field))
+
+
+def mont_reduce_wide(halves: list, field: Field, iters: int) -> torch.Tensor:
+    """Montgomery-reduce a wide value given as a list of int64 half-limb
+    planes (little-endian base 2^16; entries may be lazy): returns
+    ``value * 2^(-16*iters) mod p`` as canonical uint32 word planes.
+
+    Precondition: value < 2^(16*iters) * p."""
+    L = field.n_halves
+    p_h = field.p_halves
+    t = [h.to(_I64) for h in halves]
+    zero = torch.zeros_like(t[0])
+    for _ in range(iters):
+        m = (t[0] * field.np0) & HALF_MASK
+        add_lo = [(m * p_h[j]) & HALF_MASK for j in range(L)]
+        add_hi = [(m * p_h[j]) >> HALF_BITS for j in range(L)]
+        carry0 = (t[0] + add_lo[0]) >> HALF_BITS
+        nt = []
+        for j in range(1, max(len(t), L + 1)):
+            v = t[j] if j < len(t) else zero
+            if j < L:
+                v = v + add_lo[j]
+            if j - 1 < L:
+                v = v + add_hi[j - 1]
+            if j == 1:
+                v = v + carry0
+            nt.append(v)
+        t = nt
+    out = []
+    c = 0
+    for j in range(L):
+        s = t[j] + c
+        out.append(s & HALF_MASK)
+        c = s >> HALF_BITS
+    top = c
+    for j in range(L, len(t)):
+        top = top + t[j]
+    return pack(_cond_sub_p(out, top, field))
+
+
+def to_mont(x, field: Field) -> torch.Tensor:
+    """Standard -> Montgomery form: x*R mod p = mont_mul(x, R^2)."""
+    r2 = const_planes(field.R2, field, ndim=x.dim() - 1, device=x.device)
+    return mont_mul(x, r2, field)
+
+
+def from_mont(x, field: Field) -> torch.Tensor:
+    """Montgomery -> standard form: mont_mul(x, 1)."""
+    one = const_planes(1, field, ndim=x.dim() - 1, device=x.device)
+    return mont_mul(x, one, field)
+
+
+def is_canonical(x, field: Field) -> torch.Tensor:
+    """Elementwise check: every element < p."""
+    _, brw = _sub_halves(unpack(x), list(field.p_halves))
+    return brw != 0
