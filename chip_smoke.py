@@ -2,20 +2,37 @@
 """Chip smoke test of ntt_tpu_torch on one NVIDIA GPU (written for an H100).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+``--quick`` stops after the kernel checks at small shapes (a short first
+call after a kernel change) and prints no result line.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
    parallel).
 2. Holds each kernel, word for word, against its plain PyTorch version on
-   the card at the shapes the 2^18 BLS12-381 forward transform gives it,
-   plus K3 at rep = 32 and K2 with a residual twiddle, and times kernel,
-   plain version and ``torch._int_mm`` on the same int8 operands; then at
-   small shapes for every m of the slice (ragged batches, odd reps).
-3. Drives the main path, ``ntt_tpu_torch.ntt(..., mont_io=True)``, and
-   checks every output word against the hostlib golden NTT: BLS12-381 Fr
-   2^18 on the ramp and on a random input, BN254 Fr 2^18, BLS 2^14 and
-   BLS 2^20 (random inputs from fixed seeds). The launch counts of the
-   2^18 ramp transform show which kernels it ran.
+   the card and times kernel, plain version and ``torch._int_mm`` on the
+   same int8 operands:
+   - K1, K2, K3 (single-level) at the shapes the 2^18 BLS12-381 forward
+     transform gives them, plus K3 at rep = 32 and K2 with a residual
+     twiddle;
+   - K3 multi-level at the shapes of the narrow-field transforms:
+     Goldilocks 2^18 and 2^24, small-proth 2^22;
+   - at small shapes: K1-K3 for every m from 2 to 32 on all four fields
+     (ragged batches, odd reps), K3 multi-level for m = 64 .. 512 on both
+     narrow fields and on BLS12-381 Fr, forward and inverse.
+3. Drives the entry points of ``ntt_tpu_torch`` on the card and checks
+   every output word against the hostlib golden result:
+   - the 256-bit path: BLS12-381 Fr 2^18 forward on the ramp (launch
+     counts asserted) and on random input, BN254 Fr 2^18, BLS 2^14, BLS
+     2^20; BLS 2^18 ``intt`` and ``coset_ntt`` (the coset folded into the
+     same four launches, asserted), BLS 2^12 ``coset_ntt``;
+   - the narrow path: Goldilocks 2^18 and 2^24 and small-proth 2^22
+     forward (launch counts asserted: 2, 3 and 2 + 1); Goldilocks 2^20
+     ``intt(ntt(x)) == x``, ``intt`` and ``coset_ntt``; ``lde`` blowup 4
+     from 2^18; ``polymul`` at n = 2^17;
+   and times each transform and the elementwise passes around it; for
+   the two 2^18 forward transforms it prints where the time goes (the
+   transposes between levels timed alone, and device time by kernel from
+   ``torch.profiler`` where that traces the card).
 4. Prints a ``kernels`` JSON line, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -74,19 +91,66 @@ def random_words(field, shape, rng) -> np.ndarray:
     return x.astype(np.uint32)
 
 
-def planes_to_rows(planes: np.ndarray) -> np.ndarray:
-    """uint32[8, n] word planes -> uint64[n, 4] hostlib limb rows."""
-    return np.ascontiguousarray(planes.T).view(np.uint64)
-
-
 def bound(bytes_moved: int, int8_macs: int) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * int8_macs / INT8_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels(f, aux, rng, dev) -> dict:
-    """Every kernel against its plain version, at the main path's shapes."""
+def int_mm(A, d):
+    """A call of ``torch._int_mm`` on int8 A[r, c] and d[c, N], the
+    operands padded with zeros to shapes the library takes: more than 16
+    rows, c and N multiples of 8, and for the small matrices whatever
+    larger multiple cuBLAS accepts (tried once, here)."""
+    r, c = A.shape
+    Np = -(-d.shape[1] // 8) * 8
+    for mult in (8, 16, 32, 64):
+        rp, cp = max(-(-r // mult) * mult, 24), -(-c // mult) * mult
+        Ap = torch.nn.functional.pad(A, (0, cp - c, 0, rp - r)).contiguous()
+        dp = torch.nn.functional.pad(
+            d, (0, Np - d.shape[1], 0, cp - c)).contiguous()
+        try:
+            torch._int_mm(Ap, dp)
+        except RuntimeError:
+            if mult == 64:
+                raise
+            continue
+        return lambda: torch._int_mm(Ap, dp)
+
+
+def measure(cases, results, plain_iters: int = 5) -> None:
+    """Runs each case (kernel name, label, kernel call, plain call, bytes
+    read and written, MACs, library call or None, on the main path) once
+    against its plain version, word for word, then times it."""
+    for name, label, kern, plain, nbytes, macs, lib, on_path in cases:
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"{name} ({label}): kernel != plain, "
+                                 f"max abs err {err}")
+        del got, want
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
+        lib_ms = time_ms(lib) if lib is not None else None
+        b_ms, b_by = bound(nbytes, macs)
+        print(f"check {name:18s} {label:44s} word-equal  kernel {ms:.4f} ms"
+              f"  plain {plain_ms:.4f} ms  _int_mm "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        call = {"shape": label, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "max_abs_err": err, "bytes": nbytes, "int8_macs": macs}
+        r = results.setdefault(name, {"calls": [], "path": []})
+        r["calls"].append(call)
+        if on_path:
+            r["path"].append(call)
+
+
+def check_kernels(f, aux, rng, dev, results) -> None:
+    """K1, K2 and single-level K3 against their plain versions, at the
+    256-bit main path's shapes."""
     from ntt_tpu_torch import digits
     from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
 
@@ -97,14 +161,11 @@ def check_kernels(f, aux, rng, dev) -> dict:
     def rand(*shape):
         return torch.from_numpy(random_words(f, shape, rng)).to(dev)
 
-    def int_mm(A, x):
+    def mm(A, x):
         m = x.shape[1]
-        d = digits.extract_digits(x, f).reshape(D * m, -1).contiguous()
-        return lambda: torch._int_mm(A, d)
+        return int_mm(A, digits.extract_digits(x, f).reshape(D * m, -1))
 
     cases = []
-    # (kernel, label, kernel call, plain call, bytes read+written, MACs,
-    #  int8 operands of the library yardstick, on the main path)
     x = rand(32, 8192)
     A = stack0.As
     cases.append(("fused_level_stack", "level 0 [8,32,8192] stack 32 rep 256",
@@ -112,7 +173,7 @@ def check_kernels(f, aux, rng, dev) -> dict:
                   lambda: mxu_level.fused_level_stack_plain(
                       x, f, A, 256, mats[-32]),
                   2 * x.numel() * 4 + A.numel(), A.numel() * 256,
-                  int_mm(A[0], x), True))
+                  mm(A[0], x), True))
     x1 = rand(32, 8192)
     T1 = batch1.T4.reshape(8, 32, 8192)
     sub = {k: mats[k] for k in (32, -32, -1)}
@@ -120,7 +181,7 @@ def check_kernels(f, aux, rng, dev) -> dict:
                   lambda: mxu_level.fused_subntt(x1, f, sub, T1, rep=1),
                   lambda: mxu_level.fused_subntt_plain(x1, f, sub, T1, rep=1),
                   3 * x1.numel() * 4 + mats[32].numel(),
-                  mats[32].numel() * 8192, int_mm(mats[32], x1), True))
+                  mats[32].numel() * 8192, mm(mats[32], x1), True))
     x2 = rand(32, 8192)
     A2 = stack2.As
     cases.append(("fused_level_stack", "level 2 [8,32,8192] stack 8 rep 1024",
@@ -129,13 +190,13 @@ def check_kernels(f, aux, rng, dev) -> dict:
                   lambda: mxu_level.fused_level_stack_plain(
                       x2, f, A2, 1024, mats[-32]),
                   2 * x2.numel() * 4 + A2.numel(), A2.numel() * 1024,
-                  int_mm(A2[0], x2), True))
+                  mm(A2[0], x2), True))
     x3 = rand(8, 32768)
     cases.append(("base_ntt_mxu", "base [8,8,32768]",
                   lambda: mxu_ntt.base_ntt_mxu(x3, f, mats[8], mats[-8]),
                   lambda: mxu_ntt.base_ntt_mxu_plain(x3, f, mats[8], mats[-8]),
                   2 * x3.numel() * 4 + mats[8].numel(),
-                  mats[8].numel() * 32768, int_mm(mats[8], x3), True))
+                  mats[8].numel() * 32768, mm(mats[8], x3), True))
     # off the 2^18 path: K3 at rep = 32 (2^14 level 1), K2 with a residual
     x4 = rand(32, 512)
     T4 = rand(16, 32)
@@ -154,38 +215,82 @@ def check_kernels(f, aux, rng, dev) -> dict:
                       x5, f, A5, 128, mats[-32], T3=T5),
                   3 * x5.numel() * 4 + A5.numel(), A5.numel() * 128,
                   None, False))
+    measure(cases, results)
 
-    results = {}
-    for name, label, kern, plain, nbytes, macs, lib, on_path in cases:
-        got = kern()
-        torch.cuda.synchronize()
-        want = plain()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"{name} ({label}): kernel != plain, "
-                                 f"max abs err {err}")
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain, iters=5)
-        lib_ms = time_ms(lib) if lib is not None else None
-        b_ms, b_by = bound(nbytes, macs)
-        print(f"check {name:18s} {label:40s} word-equal  kernel {ms:.4f} ms"
-              f"  plain {plain_ms:.4f} ms  _int_mm "
-              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-              f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
-        call = {"shape": label, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "max_abs_err": err, "bytes": nbytes, "int8_macs": macs}
-        r = results.setdefault(name, {"calls": [], "path": []})
-        r["calls"].append(call)
-        if on_path:
-            r["path"].append(call)
-    return results
+
+def sub_mats_on(f, sizes, inverse, dev) -> dict:
+    """{m: conv matrix, -m: fold matrix, -1: twiddle fold matrix} on the
+    card for the sizes given (fold matrices for wide fields only)."""
+    from ntt_tpu_torch.transforms import mxu
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in mxu._mats_for(f, sizes, inverse).items()}
+
+
+def check_multi_level(rng, dev, results) -> None:
+    """K3 multi-level (and the single-level last base of small-proth 2^22)
+    against the plain version at the shapes the narrow-field transforms
+    give them. ``on_path`` marks the two launches of Goldilocks 2^18."""
+    from ntt_tpu_torch import GOLDILOCKS, SMALL, digits
+    from ntt_tpu_torch.kernels import mxu_level
+
+    # (field, m, B, twiddle: None / 1 / rep, what, on the 2^18 path)
+    shapes = [
+        (GOLDILOCKS, 512, 512, 1, "goldilocks 2^18 level 0", True),
+        (GOLDILOCKS, 512, 512, None, "goldilocks 2^18 base", True),
+        (GOLDILOCKS, 512, 32768, 1, "goldilocks 2^24 level 0", False),
+        (GOLDILOCKS, 512, 32768, 512, "goldilocks 2^24 level 1", False),
+        (GOLDILOCKS, 64, 1 << 18, None, "goldilocks 2^24 base", False),
+        (SMALL, 512, 8192, 1, "small-proth 2^22 level 0", False),
+        (SMALL, 512, 8192, 512, "small-proth 2^22 level 1", False),
+        (SMALL, 16, 1 << 18, None, "small-proth 2^22 base", False),
+    ]
+    for f, m, B, tw, what, on_path in shapes:
+        W, D, E = f.n_words, digits.n_digits(f), digits.out_planes(f)
+        sizes = {m} if m <= 32 else {32, m // 32}
+        mats = sub_mats_on(f, sizes, False, dev)
+        x = torch.from_numpy(random_words(f, (m, B), rng)).to(dev)
+        rep = 1 if tw is None else tw
+        T3 = None
+        if tw is not None:
+            shape = (m, B) if rep == 1 else (B // rep, m)
+            T3 = torch.from_numpy(random_words(f, shape, rng)).to(dev)
+        nbytes = 2 * x.numel() * 4 + (T3.numel() * 4 if tw else 0)
+        if m <= 32:
+            name = "fused_subntt"
+            nbytes += mats[m].numel()
+            macs = mats[m].numel() * B
+            d = digits.extract_digits(x, f).reshape(D * m, -1)
+            libs = [int_mm(mats[m], d)]
+        else:
+            name = "fused_subntt_multi"
+            m2 = m // 32
+            nbytes += mats[32].numel() + mats[m2].numel() + W * m * 4
+            macs = (mats[32].numel() * m2 + mats[m2].numel() * 32) * B
+            # the two matmuls on digit operands of the right shapes (the
+            # second one's values are stand-ins: the time is the point)
+            d1 = digits.extract_digits(x, f).reshape(D, 32, m2 * B).reshape(
+                D * 32, -1)
+            d2 = d1.reshape(-1)[:D * m2 * 32 * B].reshape(D * m2, 32 * B)
+            libs = [int_mm(mats[32], d1), int_mm(mats[m2], d2)]
+            del d1, d2
+        label = (f"{what} [{W},{m},{B}] "
+                 + ("no twiddle" if tw is None else f"rep {rep}"))
+        big = x.numel() >= 1 << 24
+        measure([(name, label,
+                  lambda: mxu_level.fused_subntt(x, f, mats, T3, rep=rep),
+                  lambda: mxu_level.fused_subntt_plain(x, f, mats, T3,
+                                                       rep=rep),
+                  nbytes, macs, lambda: [g() for g in libs], on_path)],
+                results, plain_iters=2 if big else 5)
+        del x, T3, libs
+        torch.cuda.empty_cache()
 
 
 def check_small_shapes(f, rng, dev) -> int:
-    """Every kernel against its plain version at every m of the slice, with
-    ragged batch sizes (masked columns), reps that split a warp between
-    stack entries, and both twiddle layouts. Returns the number of checks."""
+    """K1-K3 (single-level) against their plain versions at every m from 2
+    to 32, with ragged batch sizes (masked columns), reps that split a warp
+    between stack entries, and both twiddle layouts. Returns the number of
+    checks."""
     from ntt_tpu_torch import digits
     from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
     from ntt_tpu_torch.transforms import mxu
@@ -198,17 +303,16 @@ def check_small_shapes(f, rng, dev) -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"{f.name} {label}: kernel != plain")
 
-    D = digits.n_digits(f)
+    D, E = digits.n_digits(f), digits.out_planes(f)
+    wide = digits.fold_active(f)
     checks = 0
     for m in (2, 4, 8, 16, 32):
-        mats = {m: mxu._base_matrix(f, m), -m: mxu._fold_matrix(f, m),
-                -1: digits.fold_mul_matrix(f)}
-        mats = {k: torch.from_numpy(v).to(dev) for k, v in mats.items()}
+        mats = sub_mats_on(f, {m}, False, dev)
         for B in (1, 37, 300):
             x, T = rand(m, B), rand(m, B)
             same(f"base m={m} B={B}",
-                 mxu_ntt.base_ntt_mxu(x, f, mats[m], mats[-m]),
-                 mxu_ntt.base_ntt_mxu_plain(x, f, mats[m], mats[-m]))
+                 mxu_ntt.base_ntt_mxu(x, f, mats[m], mats.get(-m)),
+                 mxu_ntt.base_ntt_mxu_plain(x, f, mats[m], mats.get(-m)))
             same(f"subntt m={m} B={B}",
                  mxu_level.fused_subntt(x, f, mats, T),
                  mxu_level.fused_subntt_plain(x, f, mats, T))
@@ -221,36 +325,356 @@ def check_small_shapes(f, rng, dev) -> int:
             checks += 1
         for NT, rep in ((3, 16), (4, 7)):
             x, T = rand(m, NT * rep), rand(m, NT * rep)
-            As = torch.from_numpy(rng.integers(
-                0, 128, size=(NT, D * m, D * m), dtype=np.int8)).to(dev)
+            if wide:
+                # any digit matrix is within the folded reduction's window
+                As = torch.from_numpy(rng.integers(
+                    0, 128, size=(NT, E * m, D * m), dtype=np.int8)).to(dev)
+            else:
+                # a banded stack must hold entries below p: random twiddles
+                tvals = [[int(v) % f.p for v in rng.integers(
+                    1, 1 << 62, size=m)] for _ in range(NT)]
+                As = torch.from_numpy(
+                    mxu.twiddle_matrix_stack(f, m, tvals)).to(dev)
             for T3 in (None, T):
                 same(f"stack m={m} NT={NT} rep={rep} T3={T3 is not None}",
-                     mxu_level.fused_level_stack(x, f, As, rep, mats[-m], T3),
+                     mxu_level.fused_level_stack(x, f, As, rep, mats.get(-m),
+                                                 T3),
                      mxu_level.fused_level_stack_plain(x, f, As, rep,
-                                                       mats[-m], T3))
+                                                       mats.get(-m), T3))
                 checks += 1
     return checks
 
 
-def verify(f, y_mont, x_std_planes) -> None:
-    """Every output word against the hostlib golden NTT."""
-    from ntt_tpu_torch import hostlib, limbs
-    want = hostlib.host_planes(
-        hostlib.ntt_np(planes_to_rows(x_std_planes), f), f.n_words)
-    got = limbs.from_mont(y_mont, f).cpu().numpy()
+def check_small_multi(f, ms, rng, dev) -> int:
+    """K3 multi-level against its plain version for every m in ``ms``:
+    B in {1, 37, 300}, no twiddle and rep 1; rep 25 at B = 300 (a rep that
+    divides no block's columns) and rep 128 at B = 512; forward and
+    inverse. Returns the number of checks."""
+    from ntt_tpu_torch.kernels import mxu_level
+
+    def rand(*shape):
+        return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    checks = 0
+    for inverse in (False, True):
+        for m in ms:
+            mats = sub_mats_on(f, {32, m // 32}, inverse, dev)
+            todo = [(B, tw) for B in (1, 37, 300) for tw in (None, 1)]
+            todo += [(300, 25), (512, 128)]
+            for B, tw in todo:
+                x = rand(m, B)
+                rep = tw or 1
+                T3 = None
+                if tw is not None:
+                    T3 = rand(m, B) if rep == 1 else rand(B // rep, m)
+                got = mxu_level.fused_subntt(x, f, mats, T3, rep=rep,
+                                             inverse=inverse)
+                torch.cuda.synchronize()
+                want = mxu_level.fused_subntt_plain(x, f, mats, T3, rep=rep,
+                                                    inverse=inverse)
+                if not torch.equal(got, want):
+                    bad = int((got != want).any(dim=0).sum())
+                    raise AssertionError(
+                        f"{f.name} multi m={m} B={B} tw={tw} "
+                        f"inverse={inverse}: kernel != plain at {bad} "
+                        f"of {m * B} elements")
+                checks += 1
+    return checks
+
+
+# ---------------------------------------------------------------------------
+# Golden results from the hostlib (standard form in and out, word planes)
+# ---------------------------------------------------------------------------
+
+def golden_ntt(f, x, inverse=False) -> np.ndarray:
+    from ntt_tpu_torch import hostlib
+    return hostlib.host_planes(
+        hostlib.ntt_np(hostlib.planes_to_rows(x), f, inverse=inverse),
+        f.n_words)
+
+
+def golden_mul(f, a, b) -> np.ndarray:
+    from ntt_tpu_torch import hostlib
+    return hostlib.host_planes(hostlib.mul_mod_vec_np(
+        hostlib.planes_to_rows(a), hostlib.planes_to_rows(b), f), f.n_words)
+
+
+def golden_coset_ntt(f, x, shift) -> np.ndarray:
+    from ntt_tpu_torch import hostlib
+    pw = hostlib.powers_np(shift, x.shape[1], f)
+    return golden_ntt(f, golden_mul(f, x, pw))
+
+
+def same_words(what, got, want) -> None:
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
     if got.shape != want.shape or not np.array_equal(got, want):
         bad = int((got != want).any(axis=0).sum()) if got.shape == want.shape \
             else -1
-        raise AssertionError(f"{f.name}: {bad} positions differ from golden")
+        raise AssertionError(f"{what}: {bad} positions differ from golden")
+
+
+def verify(f, y_mont, x_std_planes) -> None:
+    """Every output word of a forward transform against the golden NTT."""
+    from ntt_tpu_torch import limbs
+    same_words(f.name, limbs.from_mont(y_mont, f),
+               golden_ntt(f, x_std_planes))
+
+
+def counted(fn) -> tuple:
+    """(fn(), launch counts of that call)."""
+    from ntt_tpu_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.launches)
+
+
+def expect_counts(what, counts, want) -> None:
+    print(f"launches {what}: {counts}", flush=True)
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts} != {want}")
+
+
+def wide_paths(rng, dev, run, aux, path_ms) -> dict:
+    """The 256-bit path. Returns the launch counts of the 2^18 ramp
+    transform."""
+    from ntt_tpu_torch import BLS12_381_FR, BN254_FR, limbs
+    from ntt_tpu_torch.api import (coset_ntt, get_runner, intt, ntt,
+                                   ramp_mont)
+
+    f, n = BLS12_381_FR, 1 << 18
+    x = ramp_mont(f, n, device=dev)
+    y, counts = counted(lambda: ntt(x, f, mont_io=True, device=dev))
+    want_counts = {"base_ntt_mxu": 1, "fused_level_stack": 2,
+                   "fused_subntt": 1}
+    expect_counts("bls12-381-fr 2^18 forward", counts, want_counts)
+    ramp = np.zeros((8, n), dtype=np.uint32)
+    ramp[0] = np.arange(n, dtype=np.uint32)
+    verify(f, y, ramp)
+    ms = path_ms["bls12-381-fr 2^18 ramp"] = time_ms(lambda: run(x, aux))
+    print(f"path bls12-381-fr 2^18 ramp    golden-equal  "
+          f"{ms:.4f} ms/transform (tables resident)", flush=True)
+
+    for f, log_n in [(BLS12_381_FR, 18), (BN254_FR, 18), (BLS12_381_FR, 14),
+                     (BLS12_381_FR, 20)]:
+        n = 1 << log_n
+        xs = random_words(f, (n,), rng)
+        xm = limbs.to_mont(torch.from_numpy(xs).to(dev), f)
+        y = ntt(xm, f, mont_io=True, device=dev)
+        verify(f, y, xs)
+        r, a = get_runner(f, n, device=dev)
+        ms = path_ms[f"{f.name} 2^{log_n} random"] = time_ms(lambda: r(xm, a))
+        print(f"path {f.name} 2^{log_n} random  golden-equal  {ms:.4f} "
+              f"ms/transform (tables resident)", flush=True)
+
+    # inverse and coset on the 256-bit path
+    f, n = BLS12_381_FR, 1 << 18
+    xs = random_words(f, (n,), rng)
+    xd = torch.from_numpy(xs).to(dev)
+    y, c = counted(lambda: intt(xd, f, device=dev))
+    expect_counts("bls12-381-fr 2^18 intt", c, want_counts)
+    same_words("bls12-381-fr 2^18 intt", y, golden_ntt(f, xs, inverse=True))
+    y, c = counted(lambda: coset_ntt(xd, f, device=dev))
+    expect_counts("bls12-381-fr 2^18 coset_ntt (folded into the stack)", c,
+                  want_counts)
+    same_words("bls12-381-fr 2^18 coset_ntt", y,
+               golden_coset_ntt(f, xs, f.generator))
+    xm = limbs.to_mont(xd, f)
+    for what, kw in (("intt", {"inverse": True}),
+                     ("coset_ntt", {"coset_shift": f.generator})):
+        r, a = get_runner(f, n, device=dev, **kw)
+        ms = path_ms[f"{f.name} 2^18 {what}"] = time_ms(lambda: r(xm, a))
+        print(f"path {f.name} 2^18 {what}  golden-equal  {ms:.4f} "
+              f"ms/transform (Montgomery I/O, tables resident)", flush=True)
+    n = 1 << 12
+    xs = random_words(f, (n,), rng)
+    y, c = counted(lambda: coset_ntt(torch.from_numpy(xs).to(dev), f,
+                                     device=dev))
+    expect_counts("bls12-381-fr 2^12 coset_ntt (coset in the first matrix)",
+                  c, {"fused_subntt": 2, "base_ntt_mxu": 1})
+    same_words("bls12-381-fr 2^12 coset_ntt", y,
+               golden_coset_ntt(f, xs, f.generator))
+    print("path bls12-381-fr 2^12 coset_ntt  golden-equal", flush=True)
+    return counts
+
+
+def narrow_paths(rng, dev, path_ms) -> dict:
+    """The narrow-field path. Returns the launch counts of the Goldilocks
+    2^18 forward transform."""
+    from ntt_tpu_torch import GOLDILOCKS, SMALL, limbs
+    from ntt_tpu_torch.api import (coset_ntt, get_runner, intt, lde, ntt,
+                                   polymul)
+
+    gold_counts = None
+    for f, log_n, want in [
+            (GOLDILOCKS, 18, {"fused_subntt_multi": 2}),
+            (GOLDILOCKS, 24, {"fused_subntt_multi": 3}),
+            (SMALL, 22, {"fused_subntt_multi": 2, "fused_subntt": 1})]:
+        n = 1 << log_n
+        xs = random_words(f, (n,), rng)
+        xd = torch.from_numpy(xs).to(dev)
+        t0 = time.time()
+        r, a = get_runner(f, n, device=dev)
+        t_tab = time.time() - t0
+        y, c = counted(lambda: ntt(xd, f, algorithm="auto", device=dev))
+        expect_counts(f"{f.name} 2^{log_n} forward", c, want)
+        if gold_counts is None:
+            gold_counts = c
+        same_words(f"{f.name} 2^{log_n} forward", y, golden_ntt(f, xs))
+        xm = limbs.to_mont(xd, f)
+        ms = path_ms[f"{f.name} 2^{log_n} random"] = time_ms(lambda: r(xm, a))
+        print(f"path {f.name} 2^{log_n} random  golden-equal  {ms:.4f} "
+              f"ms/transform (Montgomery I/O, tables resident; tables built "
+              f"in {t_tab:.1f} s)", flush=True)
+        del xd, xm, y, r, a
+        torch.cuda.empty_cache()
+
+    f, n = GOLDILOCKS, 1 << 20
+    g = f.generator
+    xs = random_words(f, (n,), rng)
+    xd = torch.from_numpy(xs).to(dev)
+    back = intt(ntt(xd, f, device=dev), f, device=dev)
+    same_words("goldilocks 2^20 intt(ntt(x))", back, xs)
+    same_words("goldilocks 2^20 intt", intt(xd, f, device=dev),
+               golden_ntt(f, xs, inverse=True))
+    same_words("goldilocks 2^20 coset_ntt", coset_ntt(xd, f, device=dev),
+               golden_coset_ntt(f, xs, g))
+    xm = limbs.to_mont(xd, f)
+    for what, kw in (("ntt", {}), ("intt", {"inverse": True}),
+                     ("coset_ntt", {"coset_shift": g})):
+        r, a = get_runner(f, n, device=dev, **kw)
+        ms = path_ms[f"goldilocks 2^20 {what}"] = time_ms(lambda: r(xm, a))
+        print(f"path goldilocks 2^20 {what}  golden-equal  {ms:.4f} "
+              f"ms/transform (Montgomery I/O, tables resident)", flush=True)
+    # the elementwise passes around a transform (plain PyTorch on limbs)
+    ninv = limbs.const_planes(3, f, ndim=1, device=dev)
+    cs = a["coset"] if "coset" in a else xm
+    for what, fn in (("to_mont", lambda: limbs.to_mont(xd, f)),
+                     ("from_mont", lambda: limbs.from_mont(xm, f)),
+                     ("1/n scale", lambda: limbs.mont_mul(xm, ninv, f)),
+                     ("coset or pointwise product",
+                      lambda: limbs.mont_mul(xm, cs, f))):
+        ms = path_ms[f"goldilocks 2^20 pass {what}"] = time_ms(fn, iters=10)
+        print(f"pass goldilocks 2^20 {what}: {ms:.4f} ms (plain PyTorch)",
+              flush=True)
+
+    n = 1 << 18
+    xs = random_words(f, (n,), rng)
+    xd = torch.from_numpy(xs).to(dev)
+    coeffs = golden_ntt(f, xs, inverse=True)
+    padded = np.concatenate(
+        [coeffs, np.zeros((f.n_words, 3 * n), dtype=np.uint32)], axis=1)
+    same_words("goldilocks lde 2^18 x4", lde(xd, f, blowup=4, device=dev),
+               golden_coset_ntt(f, padded, g))
+    ms = path_ms["goldilocks lde 2^18 x4"] = time_ms(
+        lambda: lde(xd, f, blowup=4, device=dev), iters=10)
+    print(f"path goldilocks lde 2^18 blowup 4  golden-equal  {ms:.4f} ms "
+          "(standard-form I/O)", flush=True)
+
+    n = 1 << 17
+    a_s, b_s = random_words(f, (n,), rng), random_words(f, (n,), rng)
+    zero = np.zeros_like(a_s)
+    fa = golden_ntt(f, np.concatenate([a_s, zero], axis=1))
+    fb = golden_ntt(f, np.concatenate([b_s, zero], axis=1))
+    want = golden_ntt(f, golden_mul(f, fa, fb), inverse=True)
+    ad, bd = torch.from_numpy(a_s).to(dev), torch.from_numpy(b_s).to(dev)
+    same_words("goldilocks polymul 2^17", polymul(ad, bd, f, device=dev),
+               want)
+    ms = path_ms["goldilocks polymul 2^17"] = time_ms(
+        lambda: polymul(ad, bd, f, device=dev), iters=10)
+    print(f"path goldilocks polymul n = 2^17 (full product)  golden-equal  "
+          f"{ms:.4f} ms (standard-form I/O)", flush=True)
+    return gold_counts
+
+
+def breakdown(f, n, rng, dev) -> None:
+    """Where the time of one forward transform (Montgomery I/O, tables
+    resident) goes: the transposes between levels timed alone with CUDA
+    events, then the device time of each kernel from ``torch.profiler``
+    over ten transforms. The trace may drop events, so a kernel's time is
+    its average over the launches captured, times the launches one
+    transform makes (the wrappers' counts)."""
+    from ntt_tpu_torch import limbs
+    from ntt_tpu_torch.api import get_runner
+    from ntt_tpu_torch.transforms import fourstep, mxu
+
+    W = f.n_words
+    tag = f"breakdown {f.name} 2^{n.bit_length() - 1}"
+    run, aux = get_runner(f, n, device=dev)
+    xm = limbs.to_mont(torch.from_numpy(random_words(f, (n,), rng)).to(dev), f)
+    base_max = mxu.BASE if W >= 8 else mxu.effective_subbase(f)
+    total, m, R = 0.0, n, 1
+    while m > base_max:
+        n1, n2 = fourstep._split(m, base_max)
+        y = xm.reshape(W, n1, n2, R)
+        ms = time_ms(lambda: y.transpose(1, 2).contiguous())
+        print(f"{tag}: transpose [{W},{n1},{n2},{R}] {ms:.4f} ms", flush=True)
+        total += ms
+        m, R = n2, R * n1
+    transform_ms = time_ms(lambda: run(xm, aux))
+    print(f"{tag}: transposes {total:.4f} ms of {transform_ms:.4f} ms",
+          flush=True)
+    _, launches = counted(lambda: run(xm, aux))
+    expected = {f"{name}_kernel<": c for name, c in launches.items()}
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        iters = 10
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run(xm, aux)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+        rows = [(e.key, e.self_device_time_total / 1e3 / max(e.count, 1),
+                 e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count]
+        if not rows or sum(r[1] for r in rows) <= 0:
+            print(f"{tag}: the profiler shows no device time", flush=True)
+            return
+        busy = 0.0
+        for key, avg_ms, cnt in sorted(rows, key=lambda r: -r[1] * r[2]):
+            # the port's kernels by their wrappers' counts, PyTorch's own
+            # (the levels' copies) as captured
+            per = next((c for k, c in expected.items() if k in key),
+                       cnt / iters)
+            busy += avg_ms * per
+            print(f"  {avg_ms:.4f} ms/launch x {per:g} launches = "
+                  f"{avg_ms * per:.4f} ms ({cnt} of {per * iters:g} launches "
+                  f"captured)  {key[:70]}")
+        print(f"{tag}: device time {busy:.4f} ms of the {transform_ms:.4f} "
+              f"ms transform, gaps {transform_ms - busy:.4f} ms (share "
+              f"{max(0.0, 1 - busy / transform_ms):.3f}); with the profiler "
+              f"on the host clock reads {wall:.4f} ms/transform", flush=True)
+    except Exception as e:      # the tracer is optional tooling
+        print(f"{tag}: profiler unavailable ({type(e).__name__}: {e})",
+              flush=True)
+
+
+#: kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "base_ntt_mxu": ("ntt_tpu_torch/csrc/mxu_ntt.cu",
+                     "ntt_tpu/kernels/mxu_ntt.py:128"),
+    "fused_level_stack": ("ntt_tpu_torch/csrc/mxu_level.cu",
+                          "ntt_tpu/kernels/mxu_level.py:410"),
+    "fused_subntt": ("ntt_tpu_torch/csrc/mxu_level.cu",
+                     "ntt_tpu/kernels/mxu_level.py:144"),
+    "fused_subntt_multi": ("ntt_tpu_torch/csrc/mxu_sub.cu",
+                           "ntt_tpu/kernels/mxu_level.py:144"),
+}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    quick = "--quick" in sys.argv[1:]
     t_start = time.time()
-    from ntt_tpu_torch import BLS12_381_FR, BN254_FR, limbs
-    from ntt_tpu_torch.api import get_runner, ntt, ramp_mont
+    from ntt_tpu_torch import (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL)
+    from ntt_tpu_torch.api import get_runner
     from ntt_tpu_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -264,63 +688,48 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.LIBRARIES)})")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
+    for f in (SMALL, GOLDILOCKS):
+        print(f"small shapes {f.name}: "
+              f"{check_small_multi(f, (64, 128, 256, 512), rng, dev)} "
+              "multi-level kernel calls word-equal to the plain version",
+              flush=True)
+    print(f"small shapes {BLS12_381_FR.name}: "
+          f"{check_small_multi(BLS12_381_FR, (64, 128, 256, 512), rng, dev)} "
+          "multi-level kernel calls word-equal to the plain version",
+          flush=True)
+    for f in (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL):
+        print(f"small shapes {f.name}: {check_small_shapes(f, rng, dev)} "
+              "single-level kernel calls word-equal to their plain versions",
+              flush=True)
+    if quick:
+        print(f"quick: kernel checks passed in {time.time() - t_start:.1f} s")
+        return 0
+
     t0 = time.time()
     run, aux = get_runner(BLS12_381_FR, 1 << 18, device=dev)
     print(f"tables: bls12-381-fr 2^18 built and resident in "
           f"{time.time() - t0:.1f} s", flush=True)
+    results = {}
+    check_kernels(BLS12_381_FR, aux, rng, dev, results)
+    check_multi_level(rng, dev, results)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
 
-    results = check_kernels(BLS12_381_FR, aux, rng, dev)
-    for f in (BLS12_381_FR, BN254_FR):
-        print(f"small shapes {f.name}: {check_small_shapes(f, rng, dev)} "
-              "kernel calls word-equal to their plain versions", flush=True)
+    path_ms = {}
+    counts = wide_paths(rng, dev, run, aux, path_ms)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    counts.update(narrow_paths(rng, dev, path_ms))
+    breakdown(GOLDILOCKS, 1 << 18, rng, dev)
+    breakdown(BLS12_381_FR, 1 << 18, rng, dev)
+    for name in KERNELS:
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"{name} was not launched on its main path")
 
-    # --- the main path: counts from a run of the 2^18 ramp transform ------
-    f, n = BLS12_381_FR, 1 << 18
-    x = ramp_mont(f, n, device=dev)
-    torch.cuda.synchronize()
-    _build.launches.clear()
-    y = ntt(x, f, mont_io=True, device=dev)
-    torch.cuda.synchronize()
-    counts = dict(_build.launches)
-    print(f"main path bls12-381-fr 2^18 launches: {counts}")
-    want_counts = {"base_ntt_mxu": 1, "fused_level_stack": 2,
-                   "fused_subntt": 1}
-    if counts != want_counts:
-        raise AssertionError(f"launch counts {counts} != {want_counts}")
-    ramp = np.zeros((8, n), dtype=np.uint32)
-    ramp[0] = np.arange(n, dtype=np.uint32)
-    verify(f, y, ramp)
-    transform_ms = time_ms(lambda: run(x, aux))
-    print(f"path bls12-381-fr 2^18 ramp    golden-equal  "
-          f"{transform_ms:.4f} ms/transform (tables resident)", flush=True)
-
-    runs = [(BLS12_381_FR, 18), (BN254_FR, 18), (BLS12_381_FR, 14),
-            (BLS12_381_FR, 20)]
-    path_ms = {"bls12-381-fr 2^18 ramp": transform_ms}
-    for f, log_n in runs:
-        n = 1 << log_n
-        xs = random_words(f, (n,), rng)
-        xm = limbs.to_mont(torch.from_numpy(xs).to(dev), f)
-        y = ntt(xm, f, mont_io=True, device=dev)
-        verify(f, y, xs)
-        r, a = get_runner(f, n, device=dev)
-        ms = time_ms(lambda: r(xm, a))
-        path_ms[f"{f.name} 2^{log_n} random"] = ms
-        print(f"path {f.name} 2^{log_n} random  golden-equal  {ms:.4f} "
-              f"ms/transform (tables resident)", flush=True)
-
-    sources = {"base_ntt_mxu": ("ntt_tpu_torch/csrc/mxu_ntt.cu",
-                                "ntt_tpu/kernels/mxu_ntt.py:128"),
-               "fused_level_stack": ("ntt_tpu_torch/csrc/mxu_level.cu",
-                                     "ntt_tpu/kernels/mxu_level.py:410"),
-               "fused_subntt": ("ntt_tpu_torch/csrc/mxu_level.cu",
-                                "ntt_tpu/kernels/mxu_level.py:144")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in KERNELS.items():
         path = results[name]["path"]
         t_bytes = sum(c["bytes"] for c in path) / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * sum(c["int8_macs"] for c in path) / INT8_OPS_PER_S * 1e3
@@ -336,7 +745,11 @@ def main() -> int:
             "library_ms": sum(c["library_ms"] for c in path),
             "library_call": "torch._int_mm on the same int8 digit operands "
                             "(the matmul part only; a stack level times one "
-                            "entry over all columns)",
+                            "entry over all columns, a multi-level call its "
+                            "two matmuls)",
+            "main_path": ("goldilocks 2^18 forward"
+                          if name == "fused_subntt_multi"
+                          else "bls12-381-fr 2^18 forward"),
             "calls": results[name]["calls"]})
     print(json.dumps({"path_ms": path_ms,
                       "seconds": round(time.time() - t_start, 1)}))

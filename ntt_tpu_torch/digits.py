@@ -20,8 +20,9 @@ product is < 2^14 and every sum < 2^25, so float64 holds it exactly in any
 summation order, on the CPU and on the card alike.
 
 The JAX package's ``NTT_MXU_FOLD`` knob is hard-wired on: wide fields take
-the fold (D output planes, fold-matmul reduction); the narrow-field CIOS
-reduction is not on this slice's path.
+the fold (matrix rows pre-folded mod p, D output planes, fold-matmul
+reduction); narrow fields (n_halves < 12) take the unfolded banded matrices
+(E = 2D-1 planes) and the plain wide Montgomery reduction.
 """
 
 from __future__ import annotations
@@ -57,13 +58,6 @@ def out_planes(field: Field) -> int:
     return D if fold_active(field) else 2 * D - 1
 
 
-def _require_fold(field: Field) -> None:
-    if not fold_active(field):
-        raise NotImplementedError(
-            f"{field.name}: the narrow-field CIOS reduction is not ported "
-            "yet (ROADMAP.md, Queue 1 item 4)")
-
-
 # ---------------------------------------------------------------------------
 # Host-side constructors (numpy; byte-equal to ntt_tpu.digits)
 # ---------------------------------------------------------------------------
@@ -83,10 +77,20 @@ def digits_of_ints(vals, n_digits: int) -> np.ndarray:
 
 def conv_matrix(entries, field: Field) -> np.ndarray:
     """Digit convolution matrix of the map M̃ (m x m nested list of ints,
-    already pre-scaled by R*2^16 mod p): int8[D*m, D*m], pre-folded (the
-    unfolded 2D-1-plane form of the narrow fields is not ported)."""
-    _require_fold(field)
-    return conv_matrix_folded(entries, field)
+    already pre-scaled by R*2^16 mod p): int8[E*m, D*m] with
+    A[(e*m + k), (d2*m + i)] = digit_{e-d2}(M̃[k][i]). Wide fields get the
+    pre-folded form (E = D); narrow fields the banded one (E = 2D-1)."""
+    if fold_active(field):
+        return conv_matrix_folded(entries, field)
+    m = len(entries)
+    D = n_digits(field)
+    E = 2 * D - 1
+    digs = digits_of_ints(
+        [v for row in entries for v in row], D).reshape(m, m, D)
+    A = np.zeros((E, m, D, m), dtype=np.int8)
+    for d2 in range(D):
+        A[d2:d2 + D, :, d2, :] = digs.transpose(2, 0, 1)
+    return A.reshape(E * m, D * m)
 
 
 def conv_matrix_folded(entries, field: Field) -> np.ndarray:
@@ -260,12 +264,14 @@ def _fold_reduce(halves: list, hbits: int, field: Field, F) -> torch.Tensor:
 
 def recompose_reduce(Z, field: Field, zmax_bits: int,
                      fold_mat=None) -> torch.Tensor:
-    """int64[D, m, *b] digit-plane sums (< 2^zmax_bits) -> canonical
-    Montgomery uint32[W, m, *b]: re-base to 16-bit halves, then the fold
-    reduction by 2^(16*(L+1)). ``fold_mat`` defaults to the host-built
-    :func:`fold_reduce_matrix`."""
-    _require_fold(field)
+    """int64[E, m, *b] digit-plane sums (< 2^zmax_bits) -> canonical
+    Montgomery uint32[W, m, *b]: re-base to 16-bit halves, then reduce by
+    2^(16*(L+1)): the fold reduction for wide fields (``fold_mat`` defaults
+    to the host-built :func:`fold_reduce_matrix`), the plain wide
+    Montgomery reduction for narrow ones."""
     halves, hbits = _planes_to_halves(Z.to(torch.int64), zmax_bits)
+    if not fold_active(field):
+        return limbs.mont_reduce_wide(halves, field, reduce_iters(field))
     if fold_mat is None:
         fold_mat = torch.from_numpy(fold_reduce_matrix(
             field, len(halves), hbits, zmax_bits))
@@ -275,8 +281,7 @@ def recompose_reduce(Z, field: Field, zmax_bits: int,
 def mont_mul_fold(x, y, field: Field, F) -> torch.Tensor:
     """Montgomery product x·y·R^{-1} mod p via schoolbook half products,
     the fold matmul against ``F`` (:func:`fold_mul_matrix`) and the
-    2-step tail. Word-equal to limbs.mont_mul."""
-    _require_fold(field)
+    2-step tail (wide fields). Word-equal to limbs.mont_mul."""
     a = limbs.unpack(x)
     b = limbs.unpack(y)
     L = field.n_halves

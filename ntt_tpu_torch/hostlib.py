@@ -55,6 +55,8 @@ def _load() -> ctypes.CDLL:
     lib.hf_powers.argtypes = [u64p, u64p, ctypes.c_uint64, ctypes.c_uint64,
                               u64p]
     lib.hf_powers.restype = None
+    lib.hf_mul_mod_vec.argtypes = [u64p, u64p, u64p, ctypes.c_uint64, u64p]
+    lib.hf_mul_mod_vec.restype = None
     return lib
 
 
@@ -73,15 +75,37 @@ def _check_width(field: Field) -> None:
             f"hostfield elements are 4x64 bits — {field.name} is too wide")
 
 
-def ntt_np(data: np.ndarray, field: Field) -> np.ndarray:
-    """Golden forward NTT (standard form in and out) on np.uint64[n, 4]
-    limb rows."""
+def ntt_np(data: np.ndarray, field: Field,
+           inverse: bool = False) -> np.ndarray:
+    """Golden NTT (standard form in and out) on np.uint64[n, 4] limb rows;
+    ``inverse`` runs the inverse roots and scales by 1/n."""
     _check_width(field)
     inp = np.ascontiguousarray(data, dtype=np.uint64)
     out = np.empty_like(inp)
     p, g = _fe(field.p), _fe(field.generator)
-    _load().hf_ntt(_p64(p), _p64(inp), inp.shape[0], _p64(g), 0, _p64(out))
+    _load().hf_ntt(_p64(p), _p64(inp), inp.shape[0], _p64(g),
+                   1 if inverse else 0, _p64(out))
     return out
+
+
+def mul_mod_vec_np(a: np.ndarray, b: np.ndarray, field: Field) -> np.ndarray:
+    """Elementwise a*b mod p on np.uint64[n, 4] limb rows."""
+    _check_width(field)
+    aa = np.ascontiguousarray(a, dtype=np.uint64)
+    ba = np.ascontiguousarray(b, dtype=np.uint64)
+    out = np.empty_like(aa)
+    p = _fe(field.p)
+    _load().hf_mul_mod_vec(_p64(p), _p64(aa), _p64(ba), aa.shape[0],
+                           _p64(out))
+    return out
+
+
+def planes_to_rows(planes: np.ndarray) -> np.ndarray:
+    """np.uint32[W, n] word planes (W <= 8) -> np.uint64[n, 4] limb rows."""
+    W, n = planes.shape
+    words = np.zeros((n, 8), dtype=np.uint32)
+    words[:, :W] = planes.T
+    return words.view(np.uint64)
 
 
 def host_planes(rows: np.ndarray, n_words: int) -> np.ndarray:

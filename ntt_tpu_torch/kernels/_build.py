@@ -34,13 +34,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: library -> its source; every library also includes the shared header
-LIBRARIES = {"mxu_ntt": "mxu_ntt.cu", "mxu_level": "mxu_level.cu"}
+LIBRARIES = {"mxu_ntt": "mxu_ntt.cu", "mxu_level": "mxu_level.cu",
+             "mxu_sub": "mxu_sub.cu"}
 _HEADERS = ("mxu_core.cuh",)
 
 launches: collections.Counter = collections.Counter()
 
-#: argtypes of the field constants every entry point takes: p's words, np0_32
-FIELD_ARGTYPES = [ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32]
+#: argtypes of the field constants every entry point takes: p's words
+#: (padded to eight), np0_32, and the field's word count W
+FIELD_ARGTYPES = [ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32,
+                  ctypes.c_int]
+
+#: field widths (32-bit words per element) the kernels are instantiated for
+KERNEL_WORDS = (1, 2, 8)
 
 
 def _nvcc() -> str:
@@ -115,27 +121,33 @@ def stream(t) -> ctypes.c_void_p:
 
 
 def field_args(field: Field) -> tuple:
-    return ((ctypes.c_uint32 * 8)(*field.int_to_words(field.p)),
-            ctypes.c_uint32(field.np0_32))
+    words = field.int_to_words(field.p)
+    return ((ctypes.c_uint32 * 8)(*(words + [0] * (8 - len(words)))),
+            ctypes.c_uint32(field.np0_32), ctypes.c_int(field.n_words))
 
 
-def check_level(x, field: Field) -> None:
-    """Checks the data operand of a kernel: uint32[8, m, B] on a CUDA
-    device, contiguous, m a power of two <= 32, a 256-bit field."""
+def check_level(x, field: Field, max_m: int = 32) -> None:
+    """Checks the data operand of a kernel: uint32[W, m, B] on a CUDA
+    device, contiguous, m a power of two in [2, max_m], W one of the
+    widths the kernels are built for, the matrices folded exactly for
+    W = 8."""
     if x.device.type != "cuda":
         raise ValueError(
             f"the kernels run on a CUDA device and their plain versions on "
             f"the CPU; got a tensor on {x.device}")
-    if field.n_words != 8 or not digits.fold_active(field):
+    W = field.n_words
+    if W not in KERNEL_WORDS or digits.fold_active(field) != (W == 8):
         raise NotImplementedError(
-            f"{field.name}: the kernels are specialised to 256-bit fields "
-            "(ROADMAP.md, Queue 1 item 4)")
+            f"{field.name}: the kernels are built for {KERNEL_WORDS}-word "
+            "fields (folded matrices for 8 words, banded ones below)")
+    if x.dim() != 3 or x.shape[0] != W:
+        raise ValueError(f"x must be uint32[{W}, m, B], "
+                         f"got {tuple(x.shape)}")
     check_operand(x, "x", torch.uint32, x.shape, x.device)
     m = x.shape[1]
-    if m & (m - 1) or m > 32:
-        raise NotImplementedError(
-            f"m = {m}: the kernels take single-level m <= 32; the multi-level "
-            "sub-NTT is not ported yet (ROADMAP.md, Queue 2)")
+    if m & (m - 1) or not 2 <= m <= max_m:
+        raise ValueError(
+            f"m = {m}: this kernel takes a power of two in [2, {max_m}]")
 
 
 def check_operand(t, what: str, dtype, shape, device) -> None:

@@ -5,12 +5,16 @@
   matrices As[NT, D*m, D*m]; batch column b uses ``As[b // rep]``; an
   optional batch-resolution residual twiddle T3 [W, m, B] multiplies the
   output.
-- ``fused_subntt`` (K3, single-level m <= 32): one conv matrix, then the
-  decomposition twiddle by a Montgomery product from T3 [W, m, B]
-  (rep == 1) or from the i2-resolution table T3 [W, B // rep, m] (rep > 1).
+- ``fused_subntt`` (K3): an m-point sub-NTT, then the decomposition
+  twiddle by a Montgomery product from T3 [W, m, B] (rep == 1) or from the
+  i2-resolution table T3 [W, B // rep, m] (rep > 1). Single-level for
+  m <= 32 (one conv matrix); multi-level for m = 64 .. 512: the peel-32
+  recursion with its two inner matmul levels and the inner twiddle
+  ω_m^{k1·i2} between them, all in one kernel.
 
 On a CUDA tensor each launches its hand-written kernel
-(``csrc/mxu_level.cu``); on a CPU tensor it runs its plain PyTorch version.
+(``csrc/mxu_level.cu``, ``csrc/mxu_sub.cu``); on a CPU tensor it runs its
+plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -20,9 +24,14 @@ import functools
 
 import torch
 
-from .. import digits
+from .. import digits, limbs
 from ..fields import Field
+from ..transforms.core import host_power_matrix
 from . import _build
+
+#: the peel of the multi-level sub-NTT and its largest transform length
+BASE = 32
+MAX_SUB = 512
 
 
 @functools.cache
@@ -35,6 +44,17 @@ def _lib() -> ctypes.CDLL:
     lib.mxu_fused_subntt.argtypes = [
         vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, vp]
     lib.mxu_fused_subntt.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_sub() -> ctypes.CDLL:
+    lib = _build.load("mxu_sub")
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.mxu_fused_subntt_multi.argtypes = [
+        vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
+        vp]
+    lib.mxu_fused_subntt_multi.restype = ctypes.c_int
     return lib
 
 
@@ -63,9 +83,11 @@ def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
         Z[:, cols] = digits.matmul_exact(As[s], d[:, cols])
     y = digits.recompose_reduce(Z.reshape(-1, m, B), field,
                                 _zmax_bits(field, m), fold_mat=F)
-    if T3 is not None:
+    if T3 is not None and digits.fold_active(field):
         y = digits.mont_mul_fold(y, T3, field,
                                  _fold_mul_matrix(field, x3.device))
+    elif T3 is not None:
+        y = limbs.mont_mul(y, T3, field)
     return y
 
 
@@ -81,8 +103,8 @@ def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
     if x3.device.type == "cpu":
         return fused_level_stack_plain(x3, field, As, rep, F, T3)
     _build.check_level(x3, field)
-    D = digits.n_digits(field)
-    _build.check_operand(As, "As", torch.int8, (NT, D * m, D * m), x3.device)
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    _build.check_operand(As, "As", torch.int8, (NT, E * m, D * m), x3.device)
     if T3 is not None:
         _build.check_operand(T3, "T3", torch.uint32, (W, m, B), x3.device)
     out = torch.empty_like(x3)
@@ -95,7 +117,7 @@ def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
 
 
 # ---------------------------------------------------------------------------
-# K3: sub-NTT (single level) then the decomposition twiddle
+# K3: sub-NTT (single- or multi-level) then the decomposition twiddle
 # ---------------------------------------------------------------------------
 
 def _expand_twiddle(T3, rep: int, B: int):
@@ -108,43 +130,106 @@ def _expand_twiddle(T3, rep: int, B: int):
         W, m, B)
 
 
-def fused_subntt_plain(x3, field: Field, mats, T3=None, rep: int = 1):
-    """Plain PyTorch version of K3."""
+_inner_cache: dict = {}
+
+
+def inner_twiddle(field: Field, m: int, inverse: bool, device):
+    """The inner twiddle ω_m^{k1·i2} of a multi-level m-point sub-NTT
+    (the inverse root when ``inverse``): Montgomery uint32[W, 32, m // 32],
+    built on the host once per (field, m, direction) and kept on
+    ``device``."""
+    key = (field.name, m, inverse, str(device))
+    got = _inner_cache.get(key)
+    if got is None:
+        root = field.root_of_unity(m)
+        if inverse:
+            root = field.inv_root_of_unity(m)
+        got = _inner_cache[key] = torch.from_numpy(
+            host_power_matrix(field, root, BASE, m // BASE)).to(device)
+    return got
+
+
+def _subntt_plain(x3, field: Field, mats, inverse: bool):
+    """The m-point sub-NTT alone: one matrix for m <= 32, else the peel-32
+    recursion (32-point transforms over i1, the inner twiddle, transpose,
+    (m/32)-point transforms over i2; output row k2*32 + k1)."""
     W, m, B = x3.shape
-    y = digits.apply_matrix(mats[m], x3, field, m, _zmax_bits(field, m),
-                            fold_mat=mats.get(-m))
+    if m <= BASE:
+        return digits.apply_matrix(mats[m], x3, field, m,
+                                   _zmax_bits(field, m),
+                                   fold_mat=mats.get(-m))
+    m2 = m // BASE
+    y = digits.apply_matrix(mats[BASE], x3.reshape(W, BASE, m2, B), field,
+                            BASE, _zmax_bits(field, BASE),
+                            fold_mat=mats.get(-BASE))
+    Tin = inner_twiddle(field, m, inverse, x3.device)
+    y = limbs.mont_mul(y, Tin[:, :, :, None], field)
+    y = digits.apply_matrix(mats[m2], y.transpose(1, 2).contiguous(), field,
+                            m2, _zmax_bits(field, m2),
+                            fold_mat=mats.get(-m2))
+    return y.reshape(W, m, B)
+
+
+def fused_subntt_plain(x3, field: Field, mats, T3=None, rep: int = 1,
+                       inverse: bool = False):
+    """Plain PyTorch version of K3, single- and multi-level."""
+    B = x3.shape[2]
+    y = _subntt_plain(x3, field, mats, inverse)
     if T3 is None:
         return y
+    T = _expand_twiddle(T3, rep, B)
+    if not digits.fold_active(field):
+        return limbs.mont_mul(y, T, field)
     F2 = mats.get(-1)
     if F2 is None:
         F2 = _fold_mul_matrix(field, x3.device)
-    return digits.mont_mul_fold(y, _expand_twiddle(T3, rep, B), field, F2)
+    return digits.mont_mul_fold(y, T, field, F2)
 
 
-def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1):
-    """m-point sub-NTT (m <= 32) along axis 1 of uint32[W, m, B], then the
-    optional decomposition twiddle ``T3``: [W, m, B] for rep == 1, the
-    i2-resolution table [W, B // rep, m] for rep > 1. ``mats``: {m: conv
-    matrix, -m: fold matrix, -1: twiddle fold matrix}; the kernel reads
-    only the conv matrix."""
+def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
+                 inverse: bool = False):
+    """m-point sub-NTT along axis 1 of uint32[W, m, B] (m a power of two
+    up to 512), then the optional decomposition twiddle ``T3``: [W, m, B]
+    for rep == 1, the i2-resolution table [W, B // rep, m] for rep > 1.
+    ``mats``: {size: conv matrix, -size: fold matrix, -1: twiddle fold
+    matrix} built for the direction ``inverse``; the kernels read only the
+    conv matrices (of m itself for m <= 32, of 32 and m // 32 above)."""
     W, m, B = x3.shape
+    if m == 1:
+        return x3
     if T3 is not None:
         want = (W, m, B) if rep == 1 else (W, B // rep, m)
         if B % rep or tuple(T3.shape) != want:
             raise ValueError(f"rep {rep}: T3 must be {want}, "
                              f"got {tuple(T3.shape)}")
     if x3.device.type == "cpu":
-        return fused_subntt_plain(x3, field, mats, T3, rep)
-    _build.check_level(x3, field)
-    D = digits.n_digits(field)
-    A = mats[m]
-    _build.check_operand(A, "A", torch.int8, (D * m, D * m), x3.device)
+        return fused_subntt_plain(x3, field, mats, T3, rep, inverse)
+    _build.check_level(x3, field, max_m=MAX_SUB)
+    D, E = digits.n_digits(field), digits.out_planes(field)
     if T3 is not None:
         _build.check_operand(T3, "T3", torch.uint32, T3.shape, x3.device)
     out = torch.empty_like(x3)
-    rc = _lib().mxu_fused_subntt(
-        _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep, _build.ptr(out),
-        m, B, *_build.field_args(field), _build.stream(x3))
-    _build.check(rc, "fused_subntt")
-    _build.launches["fused_subntt"] += 1
+    if m <= BASE:
+        A = mats[m]
+        _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
+        rc = _lib().mxu_fused_subntt(
+            _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep,
+            _build.ptr(out), m, B, *_build.field_args(field),
+            _build.stream(x3))
+        _build.check(rc, "fused_subntt")
+        _build.launches["fused_subntt"] += 1
+        return out
+    m2 = m // BASE
+    A1, A2 = mats[BASE], mats[m2]
+    _build.check_operand(A1, "A[32]", torch.int8, (E * BASE, D * BASE),
+                         x3.device)
+    _build.check_operand(A2, f"A[{m2}]", torch.int8, (E * m2, D * m2),
+                         x3.device)
+    Tin = inner_twiddle(field, m, inverse, x3.device)
+    rc = _lib_sub().mxu_fused_subntt_multi(
+        _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
+        _build.ptr(T3), rep, _build.ptr(out), m, B,
+        *_build.field_args(field), _build.stream(x3))
+    _build.check(rc, "fused_subntt_multi")
+    _build.launches["fused_subntt_multi"] += 1
     return out

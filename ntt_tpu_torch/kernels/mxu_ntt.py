@@ -47,8 +47,8 @@ def base_ntt_mxu(x, field: Field, A, F=None):
     if x.device.type == "cpu":
         return base_ntt_mxu_plain(x, field, A, F)
     _build.check_level(x, field)
-    D = digits.n_digits(field)
-    _build.check_operand(A, "A", torch.int8, (D * m, D * m), x.device)
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    _build.check_operand(A, "A", torch.int8, (E * m, D * m), x.device)
     out = torch.empty_like(x)
     rc = _lib().mxu_base_ntt(_build.ptr(x), _build.ptr(A), _build.ptr(out),
                              m, B, *_build.field_args(field),

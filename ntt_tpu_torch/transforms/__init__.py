@@ -1,2 +1,2 @@
 """Transforms of the port: host tables, the four-step recursion and the
-digit-matmul (``mxu_chunked``) transform."""
+digit-matmul transforms (``mxu_chunked``, ``mxu_sub``)."""

@@ -1,14 +1,17 @@
-"""Digit-matmul NTT (``mxu_chunked``) — the port of the parts of
-``ntt_tpu.transforms.mxu`` that the 256-bit forward main path takes.
+"""Digit-matmul NTT: ``mxu_chunked`` (256-bit fields) and ``mxu_sub``
+(narrow fields) — the port of the parts of ``ntt_tpu.transforms.mxu`` that
+the two ``auto`` paths take, forward, inverse and coset.
 
 The four-step recursion peels BASE = 32 columns per level. A level's
 32-point column transforms are ONE int8 digit matmul against a conv matrix
 (:mod:`ntt_tpu_torch.digits`), with the decomposition twiddle either folded
 into a stack of conv matrices (:class:`~.fourstep.TwMatStack`) or applied by
 a Montgomery product inside the same kernel. The last base transform
-(m <= 32) is one more matmul. The JAX package's knobs are hard-wired to
-their defaults: NTT_MXU_BASE_LOG=5, NTT_TW_MATFOLD=1, NTT_FUSE_TW=1,
-NTT_RESIDENT_SPLIT=0.
+(m <= 32) is one more matmul. ``mxu_sub`` peels SUBBASE = 512 columns per
+level instead, and a whole 512-point sub-NTT (two inner matmul levels) is
+one kernel. The JAX package's knobs are hard-wired to their defaults:
+NTT_MXU_BASE_LOG=5, NTT_TW_MATFOLD=1, NTT_FUSE_TW=1, NTT_RESIDENT_SPLIT=0,
+NTT_MXU_SUBBASE_LOG=9, NTT_MXU_SUB256_LOG=0.
 
 The host-side constructors here return the aux tables in their numpy
 form (see ``api.aux_from_numpy``), byte-equal to the JAX package's.
@@ -17,12 +20,13 @@ form (see ``api.aux_from_numpy``), byte-equal to the JAX package's.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .. import digits
+from .. import digits, limbs
 from ..fields import Field
 from ..kernels.mxu_level import fused_level_stack, fused_subntt
 from ..kernels.mxu_ntt import base_ntt_mxu
-from .core import host_power_matrix
+from .core import host_power_matrix, host_powers_fast
 from .fourstep import TwMatStack, ntt_axis_fourstep, twiddle_requests
 
 BASE_LOG = 5
@@ -38,32 +42,54 @@ TW_MERGED_MAX = 1 << 24
 _matrix_cache: dict = {}
 
 
-def _base_matrix(field: Field, m: int) -> np.ndarray:
-    """Digit conv matrix of the forward m-point DFT, entries
-    ω_m^{ik} * R * 2^16 mod p."""
-    got = _matrix_cache.get((field.name, m))
+def _root(field: Field, m: int, inverse: bool) -> int:
+    return field.inv_root_of_unity(m) if inverse else field.root_of_unity(m)
+
+
+def _dft_entries(field: Field, m: int, inverse: bool,
+                 col_shift: int | None = None) -> list:
+    """M̃[k][i] = ω_m^{ik} (· col_shift^i) · R · 2^16 mod p."""
+    p = field.p
+    w = _root(field, m, inverse)
+    scale = digits.matrix_prescale(field)
+    wp = [pow(w, j, p) for j in range(m)]
+    if col_shift is None:
+        return [[wp[(i * k) % m] * scale % p for i in range(m)]
+                for k in range(m)]
+    cp = [pow(col_shift % p, i, p) for i in range(m)]
+    return [[wp[(i * k) % m] * cp[i] % p * scale % p for i in range(m)]
+            for k in range(m)]
+
+
+def _base_matrix(field: Field, m: int, inverse: bool = False) -> np.ndarray:
+    """Digit conv matrix of the m-point DFT (the inverse roots when
+    ``inverse``), entries ω_m^{ik} * R * 2^16 mod p."""
+    got = _matrix_cache.get((field.name, m, inverse))
     if got is None:
-        p = field.p
-        w = field.root_of_unity(m)
-        scale = digits.matrix_prescale(field)
-        wp = [pow(w, j, p) for j in range(m)]
-        entries = [[wp[(i * k) % m] * scale % p for i in range(m)]
-                   for k in range(m)]
-        got = _matrix_cache[(field.name, m)] = digits.conv_matrix(
-            entries, field)
+        got = _matrix_cache[(field.name, m, inverse)] = digits.conv_matrix(
+            _dft_entries(field, m, inverse), field)
     return got
 
 
-def twiddle_matrix_stack(field: Field, m: int, tvals) -> np.ndarray:
-    """Stack of conv matrices ``diag(t_s) @ DFT_m``: int8[NT, E*m, D*m],
+def coset_base_matrix(field: Field, m: int, inverse: bool,
+                      col_shift: int) -> np.ndarray:
+    """Conv matrix of the m-point DFT with the coset column scaling
+    ``col_shift^i`` absorbed into the input side: entries
+    ω_m^{ik} · col_shift^i · R · 2^16 mod p. A diagonal on the contraction
+    index folds into the matrix exactly, so a coset NTT's first level costs
+    the same matmul as the plain one."""
+    return digits.conv_matrix(_dft_entries(field, m, inverse, col_shift),
+                              field)
+
+
+def twiddle_matrix_stack(field: Field, m: int, tvals, inverse: bool = False,
+                         col_shift: int | None = None) -> np.ndarray:
+    """Stack of conv matrices ``diag(t_s) @ DFT_m`` (optionally
+    ``@ diag(col_shift^i)`` on the input side): int8[NT, E*m, D*m],
     ``tvals[s][k]`` the plain twiddle value multiplying output row k of
     stack entry s."""
     p = field.p
-    w = field.root_of_unity(m)
-    scale = digits.matrix_prescale(field)
-    wp = [pow(w, j, p) for j in range(m)]
-    base = [[wp[(i * k) % m] * scale % p for i in range(m)]
-            for k in range(m)]
+    base = _dft_entries(field, m, inverse, col_shift)
     mats = []
     for ts in tvals:
         entries = [[base[k][i] * ts[k] % p for i in range(m)]
@@ -72,10 +98,26 @@ def twiddle_matrix_stack(field: Field, m: int, tvals) -> np.ndarray:
     return np.stack(mats, axis=0)
 
 
-def matfold_tw_tables(field: Field, n: int):
+def _mont_mul_np(T: np.ndarray, v: np.ndarray, field: Field) -> np.ndarray:
+    """T[W, r, c] times the row vector v[W, c] (Montgomery product), on the
+    host in row chunks so that the CIOS temporaries stay small."""
+    vt = torch.from_numpy(np.ascontiguousarray(v))[:, None, :]
+    out = np.empty_like(T)
+    step = max(1, (1 << 16) // max(T.shape[2], 1))
+    for r0 in range(0, T.shape[1], step):
+        blk = torch.from_numpy(np.ascontiguousarray(T[:, r0:r0 + step]))
+        out[:, r0:r0 + step] = limbs.mont_mul(blk, vt, field).numpy()
+    return out
+
+
+def matfold_tw_tables(field: Field, n: int, inverse: bool = False,
+                      coset_shift: int | None = None):
     """Twiddle tables (numpy form) with the decomposition twiddles folded
     into conv-matrix stacks where the geometry allows, or None when
-    nothing folds:
+    nothing folds. ``coset_shift`` (forward only) folds the coset
+    premultiply c^i in exactly: c^{i1*n2_0} as the level-0 stack's
+    input-side diagonal, c^{a*s0} as a per-stack-entry scalar, c^b into the
+    merged level-1 table, so the coset costs no extra pass:
 
     - level 0 (when level 1 exists and s0 = n2_0/BASE >= 128): a BASE-entry
       stack over the high digit a of i2 = a*s0 + b; the residual w^{k*b}
@@ -93,6 +135,7 @@ def matfold_tw_tables(field: Field, n: int):
             "level 0 (TwStackResid), not ported yet (ROADMAP.md, Queue 1 "
             "item 3)")
     p = field.p
+    shift = None if coset_shift is None else coset_shift % p
     D = digits.n_digits(field)
     E = digits.out_planes(field)
     s0 = requests[0][2] // BASE
@@ -109,15 +152,22 @@ def matfold_tw_tables(field: Field, n: int):
 
     out = []
     for l, (m_l, n1, n2_l) in enumerate(requests):
-        w = field.root_of_unity(m_l)
+        w = _root(field, m_l, inverse)
         if l == 0 and fold0:
-            tvals = [[pow(w, (k * a * s0) % m_l, p) for k in range(BASE)]
-                     for a in range(BASE)]
+            lam = [1] * BASE if shift is None else [
+                pow(shift, a * s0, p) for a in range(BASE)]
+            tvals = [[pow(w, (k * a * s0) % m_l, p) * lam[a] % p
+                      for k in range(BASE)] for a in range(BASE)]
+            col = None if shift is None else pow(shift, m_l // BASE, p)
             out.append({"kind": "stack", "rep": s0,
-                        "As": twiddle_matrix_stack(field, BASE, tvals)})
+                        "As": twiddle_matrix_stack(field, BASE, tvals,
+                                                   inverse, col_shift=col)})
         elif l == 1 and fold0:
             BB = BASE * BASE
-            M = host_power_matrix(field, field.root_of_unity(n), BB, n2_l)
+            M = host_power_matrix(field, _root(field, n, inverse), BB, n2_l)
+            if shift is not None:
+                M = _mont_mul_np(M, host_powers_fast(field, shift, n2_l),
+                                 field)
             M = M.reshape(field.n_words, BASE, BASE, n2_l).transpose(
                 0, 1, 3, 2)                                # [W, k1, b, k0]
             out.append({"kind": "batch", "T4": np.ascontiguousarray(M)})
@@ -125,10 +175,22 @@ def matfold_tw_tables(field: Field, n: int):
             tvals = [[pow(w, (k * s) % m_l, p) for k in range(BASE)]
                      for s in range(n2_l)]
             out.append({"kind": "stack", "rep": n // m_l,
-                        "As": twiddle_matrix_stack(field, BASE, tvals)})
+                        "As": twiddle_matrix_stack(field, BASE, tvals,
+                                                   inverse)})
         else:
-            out.append(host_power_matrix(field, w, n1, n2_l))
+            out.append(plain_table(field, n, inverse, m_l, n1, n2_l))
     return out
+
+
+def plain_table(field: Field, n: int, inverse: bool, m: int, n1: int,
+                n2: int):
+    """The plain decomposition twiddle ω_m^{k1·i2} of one level in numpy
+    form: the table [W, n1, n2] itself at the top level (m == n), and
+    ``{"kind": "deep", "T": table}`` below it, which ``aux_from_numpy``
+    lays out once in the i2-resolution form [W, n2, n1] that a deep level
+    hands to its kernel."""
+    T = host_power_matrix(field, _root(field, m, inverse), n1, n2)
+    return T if m == n else {"kind": "deep", "T": T}
 
 
 def _zmax_bits(field: Field, m: int) -> int:
@@ -136,8 +198,11 @@ def _zmax_bits(field: Field, m: int) -> int:
     return (m * digits.n_digits(field) * digits.DIGIT_MASK ** 2).bit_length()
 
 
-def _fold_matrix(field: Field, m: int) -> np.ndarray:
-    """Montgomery fold matrix of the m-point conv-matmul reduction."""
+def _fold_matrix(field: Field, m: int):
+    """Montgomery fold matrix of the m-point conv-matmul reduction, or
+    None for a narrow field (no fold)."""
+    if not digits.fold_active(field):
+        return None
     zb = _zmax_bits(field, m)
     J, hbits = digits.halves_info(digits.out_planes(field), zb)
     return digits.fold_reduce_matrix(field, J, hbits, zb)
@@ -150,34 +215,113 @@ def base_sizes(n: int) -> set:
     return base_sizes(BASE) | base_sizes(n // BASE)
 
 
-def base_mats(field: Field, n: int) -> dict:
-    """{m: conv matrix, -m: its fold matrix} for every base size m > 1,
-    plus the twiddle-product fold matrix keyed -1 (numpy)."""
-    sizes = [m for m in base_sizes(n) if m > 1]
-    out = {m: _base_matrix(field, m) for m in sizes}
-    out.update({-m: _fold_matrix(field, m) for m in sizes})
-    out[-1] = digits.fold_mul_matrix(field)
+def _mats_for(field: Field, sizes, inverse: bool) -> dict:
+    sizes = [m for m in sizes if m > 1]
+    out = {m: _base_matrix(field, m, inverse) for m in sizes}
+    if digits.fold_active(field):
+        out.update({-m: _fold_matrix(field, m) for m in sizes})
+        out[-1] = digits.fold_mul_matrix(field)
     return out
 
 
-def ntt_mxu_chunked(x, field: Field, tws, mats):
-    """Forward NTT along axis 1 of uint32[W, n, *batch] (Montgomery form in
-    and out): the peel-BASE four-step whose levels run the stack kernel
-    (:func:`fused_level_stack`) or the sub-NTT-with-twiddle kernel
-    (:func:`fused_subntt`), and whose last base runs
+def base_mats(field: Field, n: int, inverse: bool = False) -> dict:
+    """{m: conv matrix, -m: its fold matrix} for every base size m > 1,
+    plus the twiddle-product fold matrix keyed -1 (numpy; the fold
+    matrices only for wide fields)."""
+    return _mats_for(field, base_sizes(n), inverse)
+
+
+#: peel size of the multi-level sub-NTT transform: a whole SUBBASE-point
+#: transform runs in one kernel, so n = SUBBASE^2 needs two passes over
+#: the data
+SUBBASE = 512
+
+
+def effective_subbase(field: Field) -> int:
+    """The peel size of ``mxu_sub``. The multi-level kernel keeps a
+    column's W·m words in shared memory for every batch column of its
+    block: a narrow field (W <= 4) at m = SUBBASE is at most 8 KiB a
+    column, so a block of 4 to 32 columns fits beside the digit tile and
+    the whole 512-point sub-NTT is one launch. The 256-bit fields stay at
+    the single-level BASE, as in the JAX package by default (their
+    multi-level kernel exists but no default path takes it)."""
+    return SUBBASE if field.n_halves <= 8 else BASE
+
+
+def sub_base_sizes(n: int, sub: int) -> set:
+    """Every kernel transform length the sub-peel recursion hits,
+    expanded to the inner matmul base sizes."""
+    outer = set()
+    m = n
+    while m > sub:
+        outer.add(sub)
+        m //= sub
+    outer.add(m)
+    inner = set()
+    for s in outer:
+        inner |= base_sizes(s)
+    return inner
+
+
+def sub_mats(field: Field, n: int, inverse: bool = False) -> dict:
+    """The mats dict of the multi-level sub-NTT transform (numpy)."""
+    return _mats_for(field, sub_base_sizes(n, effective_subbase(field)),
+                     inverse)
+
+
+def _drive(x, field: Field, tws, mats, inverse, pre_col, first_mats,
+           base_max: int, base_kernel):
+    """The four-step over ``base_max``-point columns: every level is the
+    stack kernel (:func:`fused_level_stack`) or the sub-NTT-with-twiddle
+    kernel (:func:`fused_subntt`), the last base is
+    ``base_kernel(c3 [W, m, B], md)``. ``first_mats`` overrides conv
+    matrices for the top level only (the coset fusion,
+    :func:`coset_base_matrix`)."""
+
+    def make(md):
+        def base(c, f):
+            W, m = c.shape[0], c.shape[1]
+            return base_kernel(c.reshape(W, m, -1), md).reshape(c.shape)
+
+        def tw_base(c3, t3, rep=1):
+            if isinstance(t3, TwMatStack):
+                return fused_level_stack(c3, field, t3.As, t3.rep,
+                                         md.get(-c3.shape[1]))
+            return fused_subntt(c3, field, md, t3, rep=rep, inverse=inverse)
+        return base, tw_base
+
+    base, tw_base = make(mats)
+    first_base = first_tw = None
+    if first_mats is not None:
+        first_base, first_tw = make({**mats, **first_mats})
+    return ntt_axis_fourstep(x, field, base, base_max, tws, tw_base,
+                             pre_col=pre_col, first_base_fn=first_base,
+                             first_tw_base_fn=first_tw)
+
+
+def ntt_mxu_chunked(x, field: Field, tws, mats, inverse: bool = False,
+                    pre_col=None, first_mats=None):
+    """NTT along axis 1 of uint32[W, n, *batch] (Montgomery form in and
+    out, no 1/n scale) by the peel-BASE four-step; the last base runs
     :func:`base_ntt_mxu`. ``tws``: iterator over the level tables;
-    ``mats``: the :func:`base_mats` dict, as device tensors."""
+    ``mats``: the :func:`base_mats` dict, as device tensors (built for
+    ``inverse``)."""
+    def base(c3, md):
+        m = c3.shape[1]
+        return base_ntt_mxu(c3, field, md.get(m), md.get(-m))
+    return _drive(x, field, tws, mats, inverse, pre_col, first_mats, BASE,
+                  base)
 
-    def base(c, f):
-        W, m = c.shape[0], c.shape[1]
-        y = base_ntt_mxu(c.reshape(W, m, -1), f, mats.get(m), mats.get(-m))
-        return y.reshape(c.shape)
 
-    def tw_base(c3, t3, rep=1):
-        mm = c3.shape[1]
-        if isinstance(t3, TwMatStack):
-            return fused_level_stack(c3, field, t3.As, t3.rep, mats[-mm])
-        return fused_subntt(c3, field, {k: mats[k] for k in (mm, -mm, -1)},
-                            t3, rep=rep)
-
-    return ntt_axis_fourstep(x, field, base, BASE, tws, tw_base)
+def ntt_mxu_sub(x, field: Field, tws, mats, inverse: bool = False,
+                pre_col=None, first_mats=None):
+    """NTT along axis 1 of uint32[W, n, *batch] (Montgomery form in and
+    out, no 1/n scale) by the four-step with SUBBASE-point single-kernel
+    sub-NTTs: every level and the last base is one launch of
+    :func:`fused_subntt` (its multi-level kernel for m > 32), so
+    n = 2^18 is two passes over the data. ``mats``: the :func:`sub_mats`
+    dict as device tensors."""
+    def base(c3, md):
+        return fused_subntt(c3, field, md, None, inverse=inverse)
+    return _drive(x, field, tws, mats, inverse, pre_col, first_mats,
+                  effective_subbase(field), base)

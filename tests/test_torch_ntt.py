@@ -154,13 +154,12 @@ def test_batched_and_small_sizes_equal_golden():
 
 def test_outside_the_slice_raises():
     x = torch.from_numpy(_words(BLS, 64, 1))
-    for kw in ({"inverse": True}, {"coset_shift": 7},
-               {"algorithm": "fourstep"}):
+    for alg in ("fourstep", "mxu_fused", "mxu_sub"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnt.ntt(x, BLS, device="cpu", **kw)
+            tnt.ntt(x, BLS, device="cpu", algorithm=alg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnt.ntt(torch.zeros((1, 64), dtype=torch.uint32), tnt.SMALL,
-                device="cpu")
+                algorithm="mxu_chunked", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.get_runner(BLS, 1 << 25, device="cpu")
     with pytest.raises(ValueError):
