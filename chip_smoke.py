@@ -16,9 +16,16 @@ call after a kernel change) and prints no result line.
      twiddle;
    - K3 multi-level at the shapes of the narrow-field transforms:
      Goldilocks 2^18 and 2^24, small-proth 2^22;
+   - K4 (``fused_level``), K5 (``stage_ntt``), K6 (``fused_stage_level``)
+     and the five stages of K7 (``fused_level_probe``) at the shapes the
+     BLS12-381 Fr 2^18 transforms give them under ``mxu_fused``, ``pallas``
+     and ``pallas_fused``, K5/K6 also at the Goldilocks 2^20 shapes; a
+     ``probe`` JSON line says what each stage of the fused level adds;
    - at small shapes: K1-K3 for every m from 2 to 32 on all four fields
      (ragged batches, odd reps), K3 multi-level for m = 64 .. 512 on both
-     narrow fields and on BLS12-381 Fr, forward and inverse.
+     narrow fields and on BLS12-381 Fr, K4 and K7 for every m from 2 to
+     32, K5 and K6 for every m from 2 to 256, with and without T3, both
+     store orders, forward and inverse.
 3. Drives the entry points of ``ntt_tpu_torch`` on the card and checks
    every output word against the hostlib golden result:
    - the 256-bit path: BLS12-381 Fr 2^18 forward on the ramp (launch
@@ -29,6 +36,13 @@ call after a kernel change) and prints no result line.
      forward (launch counts asserted: 2, 3 and 2 + 1); Goldilocks 2^20
      ``intt(ntt(x)) == x``, ``intt`` and ``coset_ntt``; ``lde`` blowup 4
      from 2^18; ``polymul`` at n = 2^17;
+   - every explicit algorithm name (``naive``, ``stockham``, ``fourstep``,
+     ``fourstep_st``, ``pallas``, ``pallas_fused``, ``mxu``,
+     ``mxu_pallas``, ``mxu_fused`` and the cross pairs ``mxu_sub`` on a
+     256-bit field, ``mxu_chunked`` on a narrow one) forward at BLS12-381
+     Fr 2^18 and Goldilocks 2^20 (launch counts asserted), the three
+     kernel-backed ladders also on the ramp, through ``intt(ntt(x)) == x``
+     and ``coset_ntt``; the probe entry through its five stages;
    and times each transform and the elementwise passes around it; for
    the two 2^18 forward transforms it prints where the time goes (the
    transposes between levels timed alone, and device time by kernel from
@@ -54,6 +68,10 @@ import torch
 #: NVIDIA H100 SXM data-sheet peaks (dense): device memory and int8 tensor rate
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+#: 32-bit integer multiply-adds a second outside the tensor cores: 132 SMs x
+#: 64 int32 lanes x 1.98 GHz boost clock (half the card's 67 TFLOP/s float32
+#: rate counted as multiply-adds)
+INT32_MADS_PER_S = 132 * 64 * 1.98e9
 SEED = 2026
 
 
@@ -91,10 +109,20 @@ def random_words(field, shape, rng) -> np.ndarray:
     return x.astype(np.uint32)
 
 
-def bound(bytes_moved: int, int8_macs: int) -> tuple:
+def bound(bytes_moved: int, int8_macs: int, int32_mads: int = 0) -> tuple:
+    """The least time in ms the card could take: bytes at the memory rate
+    against int8 MACs at the tensor rate plus 32-bit multiply-adds at the
+    int32 rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * int8_macs / INT8_OPS_PER_S * 1e3
+    t_ops = (2 * int8_macs / INT8_OPS_PER_S
+             + int32_mads / INT32_MADS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mont_mul_mads(f) -> int:
+    """32-bit multiply-adds of one Montgomery product of W-word elements
+    (CIOS: W^2 for a*b, W^2 + W for the reduction)."""
+    return 2 * f.n_words ** 2 + f.n_words
 
 
 def int_mm(A, d):
@@ -120,9 +148,11 @@ def int_mm(A, d):
 
 def measure(cases, results, plain_iters: int = 5) -> None:
     """Runs each case (kernel name, label, kernel call, plain call, bytes
-    read and written, MACs, library call or None, on the main path) once
+    read and written, int8 MACs, library call or None, launches of this
+    shape on the main path, and optionally 32-bit multiply-adds) once
     against its plain version, word for word, then times it."""
-    for name, label, kern, plain, nbytes, macs, lib, on_path in cases:
+    for name, label, kern, plain, nbytes, macs, lib, on_path, *more in cases:
+        mads = more[0] if more else 0
         got = kern()
         torch.cuda.synchronize()
         want = plain()
@@ -134,18 +164,18 @@ def measure(cases, results, plain_iters: int = 5) -> None:
         ms = time_ms(kern)
         plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
         lib_ms = time_ms(lib) if lib is not None else None
-        b_ms, b_by = bound(nbytes, macs)
+        b_ms, b_by = bound(nbytes, macs, mads)
         print(f"check {name:18s} {label:44s} word-equal  kernel {ms:.4f} ms"
               f"  plain {plain_ms:.4f} ms  _int_mm "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
               f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
         call = {"shape": label, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "max_abs_err": err, "bytes": nbytes, "int8_macs": macs}
+                "max_abs_err": err, "bytes": nbytes, "int8_macs": macs,
+                "int32_mads": mads, "path_launches": int(on_path)}
         r = results.setdefault(name, {"calls": [], "path": []})
         r["calls"].append(call)
-        if on_path:
-            r["path"].append(call)
+        r["path"].extend([call] * int(on_path))
 
 
 def check_kernels(f, aux, rng, dev, results) -> None:
@@ -216,6 +246,91 @@ def check_kernels(f, aux, rng, dev, results) -> None:
                   3 * x5.numel() * 4 + A5.numel(), A5.numel() * 128,
                   None, False))
     measure(cases, results)
+
+
+def check_ladder_kernels(rng, dev, results) -> None:
+    """K4, K5, K6 and the five stages of K7 against their plain versions
+    at the shapes the BLS12-381 Fr 2^18 transforms give them (``mxu_fused``:
+    three levels [8,32,8192] with T3 and the transposed store, a last one
+    [8,8,32768]; ``pallas``: three [8,64,4096]; ``pallas_fused``: two
+    levels [8,64,4096] with T3 and the transposed store, a last one
+    without), and K5/K6 at the Goldilocks 2^20 shapes. K5 and K6 have no
+    library line: no single PyTorch call computes a butterfly ladder."""
+    from ntt_tpu_torch import BLS12_381_FR, GOLDILOCKS, digits
+    from ntt_tpu_torch.kernels import mxu_level, vmem_ntt
+
+    f = BLS12_381_FR
+    D = digits.n_digits(f)
+    mats = sub_mats_on(f, {8, 32}, False, dev)
+
+    def rand(fld, *shape):
+        return torch.from_numpy(random_words(fld, shape, rng)).to(dev)
+
+    def mm(A, x):
+        m = x.shape[1]
+        return int_mm(A, digits.extract_digits(x, f).reshape(D * m, -1))
+
+    x, T = rand(f, 32, 8192), rand(f, 32, 8192)
+    A, F, F2 = mats[32], mats[-32], mats[-1]
+    lib = mm(A, x)
+    nb, macs = x.numel() * 4, A.numel() * 8192
+    cases = [("fused_level", "level [8,32,8192] T3, transposed store",
+              lambda: mxu_level.fused_level(x, f, A, T, True, F, F2),
+              lambda: mxu_level.fused_level_plain(x, f, A, T, True, F, F2),
+              3 * nb + A.numel(), macs, lib, 3)]
+    x8 = rand(f, 8, 32768)
+    cases.append(("fused_level", "last level [8,8,32768] no T3, direct store",
+                  lambda: mxu_level.fused_level(x8, f, mats[8], None, False,
+                                                mats[-8]),
+                  lambda: mxu_level.fused_level_plain(x8, f, mats[8], None,
+                                                      False, mats[-8]),
+                  2 * nb + mats[8].numel(), mats[8].numel() * 32768,
+                  mm(mats[8], x8), 1))
+    # the probe: bytes and MACs of what each truncation still does
+    work = {"stream": (2 * nb, 0, None), "digits": (2 * nb, 0, None),
+            "matmul": (2 * nb + A.numel(), macs, lib),
+            "reduce": (2 * nb + A.numel(), macs, lib),
+            "tw": (3 * nb + A.numel(), macs, lib)}
+    for stage in mxu_level.PROBE_STAGES:
+        T3 = T if stage == "tw" else None
+        b, ops, libfn = work[stage]
+        cases.append(("fused_level_probe", f"{stage} [8,32,8192]",
+                      lambda st=stage, T3=T3: mxu_level.fused_level_probe(
+                          x, f, A, st, T3),
+                      lambda st=stage, T3=T3:
+                      mxu_level.fused_level_probe_plain(x, f, A, st, T3),
+                      b, ops, libfn, 1))
+    measure(cases, results)
+    del x, T, x8, cases
+
+    # (field, m, B, launches on the path as K5, as K6 with T3 and the
+    # transposed store, as K6 without)
+    for fld, m, B, n5, n6t, n6 in ((BLS12_381_FR, 64, 4096, 3, 2, 1),
+                                   (GOLDILOCKS, 256, 4096, 0, 0, 0),
+                                   (GOLDILOCKS, 128, 8192, 0, 0, 0),
+                                   (GOLDILOCKS, 64, 16384, 0, 0, 0)):
+        W = fld.n_words
+        x, T = rand(fld, m, B), rand(fld, m, B)
+        nb = x.numel() * 4
+        ladder = (m.bit_length() - 2) * (m // 2) * B * mont_mul_mads(fld)
+        tw = m * B * mont_mul_mads(fld)
+        shape = f"[{W},{m},{B}]"
+        measure([
+            ("stage_ntt", f"{fld.name} {shape}",
+             lambda: vmem_ntt.stage_ntt(x, fld),
+             lambda: vmem_ntt.stage_ntt_plain(x, fld),
+             2 * nb, 0, None, n5, ladder),
+            ("fused_stage_level", f"{fld.name} {shape} T3, transposed store",
+             lambda: vmem_ntt.fused_stage_level(x, fld, False, T, True),
+             lambda: vmem_ntt.fused_stage_level_plain(x, fld, False, T, True),
+             3 * nb, 0, None, n6t, ladder + tw),
+            ("fused_stage_level", f"{fld.name} {shape} no T3, direct store",
+             lambda: vmem_ntt.fused_stage_level(x, fld, False, None, False),
+             lambda: vmem_ntt.fused_stage_level_plain(x, fld, False, None,
+                                                      False),
+             2 * nb, 0, None, n6, ladder)], results)
+        del x, T
+        torch.cuda.empty_cache()
 
 
 def sub_mats_on(f, sizes, inverse, dev) -> dict:
@@ -379,6 +494,92 @@ def check_small_multi(f, ms, rng, dev) -> int:
                         f"inverse={inverse}: kernel != plain at {bad} "
                         f"of {m * B} elements")
                 checks += 1
+    return checks
+
+
+def check_small_level(f, rng, dev) -> int:
+    """K4 and every stage of K7 against their plain versions at every m
+    from 2 to 32: ragged batch sizes, with and without T3, both store
+    orders, forward and inverse matrices. Returns the number of checks."""
+    from ntt_tpu_torch.kernels import mxu_level
+
+    def rand(*shape):
+        return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    checks = 0
+    for inverse in (False, True):
+        for m in (2, 4, 8, 16, 32):
+            mats = sub_mats_on(f, {m}, inverse, dev)
+            A, F, F2 = mats[m], mats.get(-m), mats.get(-1)
+            for B in (1, 37, 300):
+                x, T = rand(m, B), rand(m, B)
+                for T3 in (None, T):
+                    for tr in (False, True):
+                        got = mxu_level.fused_level(x, f, A, T3, tr, F, F2)
+                        torch.cuda.synchronize()
+                        want = mxu_level.fused_level_plain(x, f, A, T3, tr,
+                                                           F, F2)
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{f.name} fused_level m={m} B={B} "
+                                f"T3={T3 is not None} transpose={tr} "
+                                f"inverse={inverse}: kernel != plain")
+                        checks += 1
+                if inverse or B == 1:
+                    continue
+                for stage in mxu_level.PROBE_STAGES:
+                    T3 = T if stage == "tw" else None
+                    got = mxu_level.fused_level_probe(x, f, A, stage, T3)
+                    torch.cuda.synchronize()
+                    want = mxu_level.fused_level_probe_plain(x, f, A, stage,
+                                                             T3)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"{f.name} fused_level_probe {stage} m={m} "
+                            f"B={B}: kernel != plain")
+                    checks += 1
+    return checks
+
+
+def check_small_stages(f, rng, dev) -> int:
+    """K5 and K6 against their plain versions at every m the kernels take
+    (2 to 256; to 128 on the 256-bit fields, twice what their transforms
+    use): ragged batch sizes, with and without T3, both store orders,
+    forward and inverse. Returns the number of checks."""
+    from ntt_tpu_torch.kernels import vmem_ntt
+
+    def rand(*shape):
+        return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    checks = 0
+    top = 128 if f.n_words >= 8 else vmem_ntt.MAX_M
+    for inverse in (False, True):
+        m = 2
+        while m <= top:
+            for B in (1, 37, 300):
+                x, T = rand(m, B), rand(m, B)
+                got = vmem_ntt.stage_ntt(x, f, inverse)
+                torch.cuda.synchronize()
+                if not torch.equal(got, vmem_ntt.stage_ntt_plain(
+                        x, f, inverse)):
+                    raise AssertionError(
+                        f"{f.name} stage_ntt m={m} B={B} inverse={inverse}: "
+                        "kernel != plain")
+                checks += 1
+                for T3 in (None, T):
+                    for tr in (False, True):
+                        got = vmem_ntt.fused_stage_level(x, f, inverse, T3,
+                                                         tr)
+                        torch.cuda.synchronize()
+                        want = vmem_ntt.fused_stage_level_plain(
+                            x, f, inverse, T3, tr)
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{f.name} fused_stage_level m={m} B={B} "
+                                f"T3={T3 is not None} transpose={tr} "
+                                f"inverse={inverse}: kernel != plain")
+                        checks += 1
+            m *= 2
     return checks
 
 
@@ -588,7 +789,125 @@ def narrow_paths(rng, dev, path_ms) -> dict:
     return gold_counts
 
 
-def breakdown(f, n, rng, dev) -> None:
+#: launches of one forward transform under each explicit algorithm name:
+#: BLS12-381 Fr 2^18 (with the cross pair mxu_sub) and Goldilocks 2^20
+#: (with the cross pair mxu_chunked)
+LADDER_COUNTS = {
+    "bls12-381-fr": {
+        "naive": {}, "stockham": {}, "fourstep": {}, "fourstep_st": {},
+        "mxu": {}, "pallas": {"stage_ntt": 3},
+        "pallas_fused": {"fused_stage_level": 3},
+        "mxu_pallas": {"base_ntt_mxu": 4}, "mxu_fused": {"fused_level": 4},
+        "mxu_sub": {"fused_level_stack": 2, "fused_subntt": 2}},
+    "goldilocks": {
+        "naive": {}, "stockham": {}, "fourstep": {}, "fourstep_st": {},
+        "mxu": {}, "pallas": {"stage_ntt": 3},
+        "pallas_fused": {"fused_stage_level": 3},
+        "mxu_pallas": {"base_ntt_mxu": 4}, "mxu_fused": {"fused_level": 4},
+        "mxu_chunked": {"fused_subntt": 3, "base_ntt_mxu": 1}},
+}
+
+
+def ladder_paths(rng, dev, path_ms) -> dict:
+    """Every explicit algorithm name through ``ntt_tpu_torch.api`` at
+    BLS12-381 Fr 2^18 and Goldilocks 2^20, forward on random input, every
+    output word against the golden NTT, launch counts asserted; the three
+    kernel-backed ladder algorithms also on the ramp, and through
+    ``intt(ntt(x)) == x`` and ``coset_ntt``. Returns the launch counts of
+    the BLS 2^18 ``pallas``, ``pallas_fused`` and ``mxu_fused``
+    transforms, merged."""
+    from ntt_tpu_torch import BLS12_381_FR, GOLDILOCKS, limbs
+    from ntt_tpu_torch.api import (coset_ntt, get_runner, intt, ntt,
+                                   ramp_mont)
+
+    merged = {}
+    for f, log_n in ((BLS12_381_FR, 18), (GOLDILOCKS, 20)):
+        n = 1 << log_n
+        xs = random_words(f, (n,), rng)
+        want = golden_ntt(f, xs)
+        xd = torch.from_numpy(xs).to(dev)
+        xm = limbs.to_mont(xd, f)
+        ramp = np.zeros((f.n_words, n), dtype=np.uint32)
+        ramp[0] = np.arange(n, dtype=np.uint32)
+        want_ramp = None
+        for alg, expect in LADDER_COUNTS[f.name].items():
+            tag = f"{f.name} 2^{log_n} {alg}"
+            y, c = counted(lambda: ntt(xm, f, algorithm=alg, mont_io=True,
+                                       device=dev))
+            expect_counts(tag, c, expect)
+            same_words(tag, limbs.from_mont(y, f), want)
+            if f is BLS12_381_FR and alg in ("pallas", "pallas_fused",
+                                             "mxu_fused"):
+                merged.update(c)
+            if expect and alg not in ("mxu_sub", "mxu_chunked"):
+                if want_ramp is None:
+                    want_ramp = golden_ntt(f, ramp)
+                y = ntt(ramp_mont(f, n, device=dev), f, algorithm=alg,
+                        mont_io=True, device=dev)
+                same_words(tag + " ramp", limbs.from_mont(y, f), want_ramp)
+            r, a = get_runner(f, n, algorithm=alg, device=dev)
+            slow = not expect or alg == "pallas"
+            ms = path_ms[tag] = time_ms(lambda: r(xm, a),
+                                        iters=3 if slow else 20,
+                                        warmup=1 if slow else 2)
+            print(f"path {tag}  golden-equal  {ms:.4f} ms/transform "
+                  "(Montgomery I/O, tables resident)", flush=True)
+            del r, a, y
+            torch.cuda.empty_cache()
+        # inverse round trip and coset through the three kernel ladders
+        algs = (("pallas_fused",) if f is BLS12_381_FR
+                else ("pallas", "mxu_fused"))
+        for alg in algs:
+            tag = f"{f.name} 2^{log_n} {alg}"
+            back = intt(ntt(xd, f, algorithm=alg, device=dev), f,
+                        algorithm=alg, device=dev)
+            same_words(tag + " intt(ntt(x))", back, xs)
+            same_words(tag + " coset_ntt",
+                       coset_ntt(xd, f, algorithm=alg, device=dev),
+                       golden_coset_ntt(f, xs, f.generator))
+            print(f"path {tag} intt(ntt(x)) == x, coset_ntt golden-equal",
+                  flush=True)
+    return merged
+
+
+def probe_path(rng, dev) -> dict:
+    """Drives the probe entry once through its five stages at the BLS12-381
+    Fr 2^18 level shape, as a caller attributing the level's time would;
+    ``tw`` must equal the fused level itself. Returns the launch counts."""
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch.kernels import mxu_level
+
+    mats = sub_mats_on(f, {32}, False, dev)
+    x = torch.from_numpy(random_words(f, (32, 8192), rng)).to(dev)
+    T = torch.from_numpy(random_words(f, (32, 8192), rng)).to(dev)
+
+    def drive():
+        return [mxu_level.fused_level_probe(
+            x, f, mats[32], stage, T if stage == "tw" else None)
+            for stage in mxu_level.PROBE_STAGES]
+    outs, c = counted(drive)
+    expect_counts("probe bls12-381-fr [8,32,8192]", c,
+                  {"fused_level_probe": 5})
+    if not torch.equal(outs[0], x) or not torch.equal(
+            outs[4], mxu_level.fused_level(x, f, mats[32], T, False)):
+        raise AssertionError("probe: stream != x or tw != fused_level")
+    return c
+
+
+def probe_line(results) -> None:
+    """The five truncations of the fused level at [8,32,8192] and what
+    each stage adds, from the timed checks of ``fused_level_probe``."""
+    calls = results["fused_level_probe"]["calls"]
+    ms = {c["shape"].split()[0]: c["ms"] for c in calls}
+    prev, adds = 0.0, {}
+    for stage in ("stream", "digits", "matmul", "reduce", "tw"):
+        adds[stage] = ms[stage] - prev
+        prev = ms[stage]
+    print(json.dumps({"probe": {"shape": "bls12-381-fr [8,32,8192]",
+                                "ms": ms, "added_ms": adds}}), flush=True)
+
+
+def breakdown(f, n, rng, dev, algorithm="auto") -> None:
     """Where the time of one forward transform (Montgomery I/O, tables
     resident) goes: the transposes between levels timed alone with CUDA
     events, then the device time of each kernel from ``torch.profiler``
@@ -601,20 +920,23 @@ def breakdown(f, n, rng, dev) -> None:
 
     W = f.n_words
     tag = f"breakdown {f.name} 2^{n.bit_length() - 1}"
-    run, aux = get_runner(f, n, device=dev)
+    if algorithm != "auto":
+        tag += f" {algorithm}"
+    run, aux = get_runner(f, n, algorithm=algorithm, device=dev)
     xm = limbs.to_mont(torch.from_numpy(random_words(f, (n,), rng)).to(dev), f)
     base_max = mxu.BASE if W >= 8 else mxu.effective_subbase(f)
     total, m, R = 0.0, n, 1
-    while m > base_max:
+    while algorithm == "auto" and m > base_max:
         n1, n2 = fourstep._split(m, base_max)
         y = xm.reshape(W, n1, n2, R)
         ms = time_ms(lambda: y.transpose(1, 2).contiguous())
         print(f"{tag}: transpose [{W},{n1},{n2},{R}] {ms:.4f} ms", flush=True)
         total += ms
         m, R = n2, R * n1
-    transform_ms = time_ms(lambda: run(xm, aux))
-    print(f"{tag}: transposes {total:.4f} ms of {transform_ms:.4f} ms",
-          flush=True)
+    transform_ms = time_ms(lambda: run(xm, aux), iters=10)
+    if algorithm == "auto":
+        print(f"{tag}: transposes {total:.4f} ms of {transform_ms:.4f} ms",
+              flush=True)
     _, launches = counted(lambda: run(xm, aux))
     expected = {f"{name}_kernel<": c for name, c in launches.items()}
     try:
@@ -635,16 +957,22 @@ def breakdown(f, n, rng, dev) -> None:
         if not rows or sum(r[1] for r in rows) <= 0:
             print(f"{tag}: the profiler shows no device time", flush=True)
             return
-        busy = 0.0
+        busy, shown, others = 0.0, 0, 0.0
         for key, avg_ms, cnt in sorted(rows, key=lambda r: -r[1] * r[2]):
             # the port's kernels by their wrappers' counts, PyTorch's own
-            # (the levels' copies) as captured
-            per = next((c for k, c in expected.items() if k in key),
-                       cnt / iters)
+            # (the levels' copies, the plain passes) as captured
+            ours = next((c for k, c in expected.items() if k in key), None)
+            per = cnt / iters if ours is None else ours
             busy += avg_ms * per
+            if ours is None and shown >= 6:
+                others += avg_ms * per
+                continue
+            shown += 1
             print(f"  {avg_ms:.4f} ms/launch x {per:g} launches = "
                   f"{avg_ms * per:.4f} ms ({cnt} of {per * iters:g} launches "
                   f"captured)  {key[:70]}")
+        if others:
+            print(f"  {others:.4f} ms in PyTorch's other kernels")
         print(f"{tag}: device time {busy:.4f} ms of the {transform_ms:.4f} "
               f"ms transform, gaps {transform_ms - busy:.4f} ms (share "
               f"{max(0.0, 1 - busy / transform_ms):.3f}); with the profiler "
@@ -664,7 +992,29 @@ KERNELS = {
                      "ntt_tpu/kernels/mxu_level.py:144"),
     "fused_subntt_multi": ("ntt_tpu_torch/csrc/mxu_sub.cu",
                            "ntt_tpu/kernels/mxu_level.py:144"),
+    "fused_level": ("ntt_tpu_torch/csrc/mxu_level.cu",
+                    "ntt_tpu/kernels/mxu_level.py:67"),
+    "stage_ntt": ("ntt_tpu_torch/csrc/vmem_ntt.cu",
+                  "ntt_tpu/kernels/vmem_ntt.py:87"),
+    "fused_stage_level": ("ntt_tpu_torch/csrc/vmem_ntt.cu",
+                          "ntt_tpu/kernels/vmem_ntt.py:93"),
+    "fused_level_probe": ("ntt_tpu_torch/csrc/mxu_level.cu",
+                          "ntt_tpu/kernels/mxu_level.py:562"),
 }
+
+#: the run whose launches each kernel's line counts
+MAIN_PATH = {
+    "fused_subntt_multi": "goldilocks 2^18 forward",
+    "fused_level": "bls12-381-fr 2^18 forward, algorithm mxu_fused",
+    "stage_ntt": "bls12-381-fr 2^18 forward, algorithm pallas",
+    "fused_stage_level": "bls12-381-fr 2^18 forward, algorithm pallas_fused",
+    "fused_level_probe": "the five probe stages at the bls12-381-fr 2^18 "
+                         "level shape [8,32,8192]",
+}
+INT_MM_NOTE = ("torch._int_mm on the same int8 digit operands (the matmul "
+               "part only; a stack level times one entry over all columns, "
+               "a multi-level call its two matmuls)")
+NO_LIBRARY_NOTE = "none: no single PyTorch call computes a butterfly ladder"
 
 
 def main() -> int:
@@ -705,6 +1055,11 @@ def main() -> int:
         print(f"small shapes {f.name}: {check_small_shapes(f, rng, dev)} "
               "single-level kernel calls word-equal to their plain versions",
               flush=True)
+    for f in (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL):
+        print(f"small shapes {f.name}: {check_small_level(f, rng, dev)} "
+              "fused_level and probe calls, "
+              f"{check_small_stages(f, rng, dev)} stage-kernel calls "
+              "word-equal to their plain versions", flush=True)
     if quick:
         print(f"quick: kernel checks passed in {time.time() - t_start:.1f} s")
         return 0
@@ -716,14 +1071,22 @@ def main() -> int:
     results = {}
     check_kernels(BLS12_381_FR, aux, rng, dev, results)
     check_multi_level(rng, dev, results)
+    check_ladder_kernels(rng, dev, results)
+    probe_line(results)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
 
     path_ms = {}
     counts = wide_paths(rng, dev, run, aux, path_ms)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(narrow_paths(rng, dev, path_ms))
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    counts.update(ladder_paths(rng, dev, path_ms))
+    counts.update(probe_path(rng, dev))
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     breakdown(GOLDILOCKS, 1 << 18, rng, dev)
     breakdown(BLS12_381_FR, 1 << 18, rng, dev)
+    for alg in ("mxu_fused", "pallas_fused", "pallas"):
+        breakdown(BLS12_381_FR, 1 << 18, rng, dev, algorithm=alg)
     for name in KERNELS:
         if counts.get(name, 0) < 1:
             raise AssertionError(f"{name} was not launched on its main path")
@@ -731,8 +1094,14 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         path = results[name]["path"]
-        t_bytes = sum(c["bytes"] for c in path) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * sum(c["int8_macs"] for c in path) / INT8_OPS_PER_S * 1e3
+        if len(path) != counts[name]:
+            raise AssertionError(
+                f"{name}: {counts[name]} launches on its main path, "
+                f"{len(path)} of them timed")
+        b_ms, b_by = bound(sum(c["bytes"] for c in path),
+                           sum(c["int8_macs"] for c in path),
+                           sum(c["int32_mads"] for c in path))
+        libs = [c["library_ms"] for c in path if c["library_ms"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
@@ -740,16 +1109,10 @@ def main() -> int:
                                for c in results[name]["calls"]),
             "ms": sum(c["ms"] for c in path),
             "plain_ms": sum(c["plain_ms"] for c in path),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sum(c["library_ms"] for c in path),
-            "library_call": "torch._int_mm on the same int8 digit operands "
-                            "(the matmul part only; a stack level times one "
-                            "entry over all columns, a multi-level call its "
-                            "two matmuls)",
-            "main_path": ("goldilocks 2^18 forward"
-                          if name == "fused_subntt_multi"
-                          else "bls12-381-fr 2^18 forward"),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": sum(libs) if libs else None,
+            "library_call": INT_MM_NOTE if libs else NO_LIBRARY_NOTE,
+            "main_path": MAIN_PATH.get(name, "bls12-381-fr 2^18 forward"),
             "calls": results[name]["calls"]})
     print(json.dumps({"path_ms": path_ms,
                       "seconds": round(time.time() - t_start, 1)}))

@@ -1,11 +1,13 @@
 """ntt_tpu_torch — the PyTorch/CUDA port of ntt_tpu for an NVIDIA H100.
 
 Forward, inverse and coset NTT, low-degree extension and polynomial product
-over BN254 Fr, BLS12-381 Fr (``mxu_chunked``, n up to 2^24), Goldilocks and
-the small Proth prime (``mxu_sub``), word-equal to ``ntt_tpu``. Its
-digit-matmul kernels are hand-written CUDA C++ for sm_90a
-(``ntt_tpu_torch/csrc``); on the CPU (``device="cpu"``) the same functions
-run as plain PyTorch. This package imports neither JAX nor ``ntt_tpu``.
+over BN254 Fr, BLS12-381 Fr, Goldilocks and the small Proth prime, under
+every algorithm name of ``ntt_tpu`` (``auto``: ``mxu_chunked`` on the 256-bit
+fields, n up to 2^24, ``mxu_sub`` on the narrow ones), word-equal to
+``ntt_tpu``. Its digit-matmul and butterfly-stage kernels are hand-written
+CUDA C++ for sm_90a (``ntt_tpu_torch/csrc``); on the CPU (``device="cpu"``)
+the same functions run as plain PyTorch. This package imports neither JAX
+nor ``ntt_tpu``.
 """
 
 from .api import (coset_intt, coset_ntt, intt, lde, ntt, polymul, ramp_mont)

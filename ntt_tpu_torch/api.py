@@ -1,5 +1,6 @@
 """Public API of the port: forward, inverse and coset NTT, low-degree
-extension and polynomial product on the two ``auto`` paths.
+extension and polynomial product, under every algorithm name of the JAX
+package.
 
 Conventions are ``ntt_tpu.api``'s: natural order in and out, limb-leading
 ``torch.uint32[W, n, *batch]``, forward ``X[k] = Σ_i x[i]·ω_n^{ik} mod p``
@@ -10,9 +11,14 @@ which runs the kernels' plain versions.
 
 ``algorithm="auto"`` resolves to ``mxu_chunked`` on the 256-bit fields
 (BN254 Fr, BLS12-381 Fr) and to ``mxu_sub`` on the narrow ones (Goldilocks,
-the small Proth prime), for n up to 2^24 on the 256-bit fields. The other
-algorithms of the JAX package raise NotImplementedError pointing at
-ROADMAP.md.
+the small Proth prime). Every other name of :data:`ALGORITHMS` runs on all
+four fields too: the butterfly ladders ``naive``, ``stockham``,
+``fourstep``, ``fourstep_st`` (plain PyTorch), ``pallas`` and
+``pallas_fused`` (the shared-memory stage kernels), and the digit-matmul
+transforms ``mxu``, ``mxu_pallas`` and ``mxu_fused``. ``mxu_chunked`` and
+``mxu_sub`` on a 256-bit field take n up to 2^24 and raise
+NotImplementedError above (ROADMAP.md); ``mxu_fused`` and ``pallas_fused``
+take unbatched input only.
 """
 
 from __future__ import annotations
@@ -22,19 +28,15 @@ import torch
 
 from . import limbs
 from .fields import Field, get_field, inv_mod
+from .transforms import core as _core
 from .transforms import fourstep as _fourstep
 from .transforms import mxu as _mxu
-from .transforms.core import host_powers_fast
+from .transforms.core import host_power_matrix, host_powers_fast
+from .transforms.naive import ntt_naive
 
 #: the largest n of the 256-bit path: above it level 0 needs the periodic
 #: residual
 MAX_N = _mxu.TW_MERGED_MAX
-
-#: every algorithm name of the JAX package; the port runs the two that
-#: ``auto`` resolves to
-ALGORITHMS = ("naive", "stockham", "fourstep", "fourstep_st", "pallas",
-              "mxu", "mxu_pallas", "mxu_fused", "pallas_fused",
-              "mxu_chunked", "mxu_sub")
 
 
 def _device(device) -> torch.device:
@@ -56,28 +58,119 @@ def resolve_algorithm(algorithm: str, field: Field, n: int) -> str:
     return "mxu_chunked" if field.n_words >= 8 else "mxu_sub"
 
 
-def _tw_tables(field: Field, n: int, inverse: bool, requests) -> list:
-    """Plain decomposition-twiddle tables (numpy form), built on the
-    host."""
-    return [_mxu.plain_table(field, n, inverse, m, n1, n2)
-            for (m, n1, n2) in requests]
+def _tw_tables(field: Field, n: int, inverse: bool, requests,
+               deep: bool = False) -> list:
+    """Plain decomposition-twiddle tables ω_m^{k1·i2} as np.uint32
+    [W, n1, n2], built on the host. With ``deep`` the levels below the top
+    come in the form the level kernels read (``mxu.plain_table``)."""
+    if deep:
+        return [_mxu.plain_table(field, n, inverse, m, n1, n2)
+                for (m, n1, n2) in requests]
+    return [host_power_matrix(
+        field, field.inv_root_of_unity(m) if inverse
+        else field.root_of_unity(m), n1, n2) for (m, n1, n2) in requests]
+
+
+def _prep_none(field: Field, n: int, inverse: bool = False):
+    return [], {}
+
+
+def _prep_fourstep(base_max):
+    """``base_max``: an int, or a callable(field) -> int."""
+    def prep(field: Field, n: int, inverse: bool = False):
+        bm = base_max(field) if callable(base_max) else base_max
+        return _tw_tables(field, n, inverse,
+                          _fourstep.twiddle_requests(n, bm)), {}
+    return prep
+
+
+def _prep_mxu(field: Field, n: int, inverse: bool = False):
+    return (_tw_tables(field, n, inverse, _mxu.twiddle_requests(n)),
+            _mxu.base_mats(field, n, inverse))
+
+
+def _prep_mxu_fused(field: Field, n: int, inverse: bool = False):
+    return (_mxu.expanded_twiddles(field, n, inverse),
+            _mxu.base_mats(field, n, inverse))
+
+
+def _prep_pallas_fused(field: Field, n: int, inverse: bool = False):
+    return _mxu.expanded_twiddles(field, n, inverse,
+                                  base=_fourstep.fused_m(field)), {}
+
+
+def _matfold_tws(field: Field, n: int, inverse: bool, base_max: int,
+                 coset_shift=None):
+    """The matrix-fold table list where it applies: the peel-BASE
+    single-level transforms on a 256-bit field. None otherwise."""
+    if field.n_words < 8 or base_max != _mxu.BASE:
+        return None
+    return _mxu.matfold_tw_tables(field, n, inverse, coset_shift=coset_shift)
 
 
 def _prep_mxu_chunked(field: Field, n: int, inverse: bool = False):
     """(tws, mats) in numpy form (see :func:`aux_from_numpy`)."""
-    tws = _mxu.matfold_tw_tables(field, n, inverse)
+    tws = _matfold_tws(field, n, inverse, _mxu.BASE)
     if tws is None:
         tws = _tw_tables(field, n, inverse,
-                         _fourstep.twiddle_requests(n, _mxu.BASE))
+                         _fourstep.twiddle_requests(n, _mxu.BASE), deep=True)
     return tws, _mxu.base_mats(field, n, inverse)
 
 
 def _prep_mxu_sub(field: Field, n: int, inverse: bool = False):
-    """(tws, mats) in numpy form for the narrow-field path: plain tables
-    only (the matrix fold targets the 256-bit fields)."""
+    """(tws, mats) in numpy form: plain tables for the narrow fields, the
+    matrix fold for the 256-bit ones, whose peel is the single-level
+    BASE."""
     sub = _mxu.effective_subbase(field)
-    tws = _tw_tables(field, n, inverse, _fourstep.twiddle_requests(n, sub))
+    tws = _matfold_tws(field, n, inverse, sub)
+    if tws is None:
+        tws = _tw_tables(field, n, inverse,
+                         _fourstep.twiddle_requests(n, sub), deep=True)
     return tws, _mxu.sub_mats(field, n, inverse)
+
+
+def _fourstep_run(fn):
+    return lambda x, field, inverse, aux: fn(
+        x, field, inverse, iter(aux["tws"]), pre_col=aux.get("coset_col"))
+
+
+def _mxu_run(fn):
+    return lambda x, field, inverse, aux: fn(
+        x, field, iter(aux["tws"]), aux["mats"])
+
+
+def _level_run(fn):
+    return lambda x, field, inverse, aux: fn(
+        x, field, iter(aux["tws"]), aux["mats"], inverse=inverse,
+        pre_col=aux.get("coset_col"), first_mats=aux.get("first_mats"))
+
+
+#: algorithm -> (fn(x, field, inverse, aux), prepare(field, n, inverse) ->
+#: (tws, mats) in numpy form), every name of the JAX package's registry
+ALGORITHMS = {
+    "naive": (lambda x, field, inverse, aux: ntt_naive(
+        x, field, inverse=inverse), _prep_none),
+    "stockham": (lambda x, field, inverse, aux: _core.ntt_along_axis_stockham(
+        x, field, inverse=inverse), _prep_none),
+    "fourstep": (_fourstep_run(_fourstep.ntt_fourstep),
+                 _prep_fourstep(_fourstep.BASE_MAX)),
+    "fourstep_st": (_fourstep_run(_fourstep.ntt_fourstep_stockham),
+                    _prep_fourstep(_fourstep.BASE_MAX)),
+    "pallas": (_fourstep_run(_fourstep.ntt_fourstep_pallas),
+               _prep_fourstep(_fourstep.pallas_base_max)),
+    "mxu": (_mxu_run(_mxu.ntt_mxu), _prep_mxu),
+    "mxu_pallas": (_mxu_run(_mxu.ntt_mxu_pallas), _prep_mxu),
+    "mxu_fused": (_mxu_run(_mxu.ntt_mxu_fused), _prep_mxu_fused),
+    "pallas_fused": (
+        lambda x, field, inverse, aux: _fourstep.ntt_fourstep_pallas_fused(
+            x, field, inverse, iter(aux["tws"])), _prep_pallas_fused),
+    "mxu_chunked": (_level_run(_mxu.ntt_mxu_chunked), _prep_mxu_chunked),
+    "mxu_sub": (_level_run(_mxu.ntt_mxu_sub), _prep_mxu_sub),
+}
+
+#: the algorithms whose table list may hold a matrix fold built for an
+#: unbatched suffix (256-bit fields): a batch runs column by column
+_MATFOLD_ALGORITHMS = ("mxu_chunked", "mxu_sub")
 
 
 def aux_from_numpy(tws, mats, device=None, first_mats=None, coset_col=None,
@@ -89,7 +182,8 @@ def aux_from_numpy(tws, mats, device=None, first_mats=None, coset_col=None,
     once as [W, n2, n1]) or plain ndarray tables; ``mats`` a dict
     {m: ndarray or None}; ``first_mats`` the top level's coset matrices,
     ``coset_col`` [W, n1] and ``coset`` [W, n] the coset vectors. Arrays
-    may be tensors already. Returns {"tws": [...], "mats": {...}, ...} on
+    may be tensors already; ``mats`` may be empty (the ladder transforms
+    have none). Returns {"tws": [...], "mats": {...}, ...} on
     ``device``."""
     dev = _device(device)
 
@@ -124,17 +218,17 @@ def aux_from_numpy(tws, mats, device=None, first_mats=None, coset_col=None,
     return aux
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to ntt_tpu_torch yet; see ROADMAP.md")
-
-
 def _first_level(algorithm: str, field: Field, n: int):
-    """(n1, n2, index into tws) of the top four-step level, or None when n
-    fits one base transform."""
-    base_max = (_mxu.BASE if algorithm == "mxu_chunked"
-                else _mxu.effective_subbase(field))
-    if n <= base_max:
+    """(n1, n2, index into tws) of the top four-step level for the
+    algorithms whose table list follows ``fourstep.twiddle_requests``: the
+    targets of the coset fusion. None for the others (the flat transforms,
+    ``naive``, ``stockham``) and when n fits one base transform."""
+    base_max = {"fourstep": _fourstep.BASE_MAX,
+                "fourstep_st": _fourstep.BASE_MAX,
+                "pallas": _fourstep.pallas_base_max(field),
+                "mxu_chunked": _mxu.BASE,
+                "mxu_sub": _mxu.effective_subbase(field)}.get(algorithm)
+    if base_max is None or n <= base_max:
         return None
     n1, n2 = _fourstep._split(n, base_max)
     return n1, n2, len(_fourstep.twiddle_requests(n1, base_max))
@@ -148,18 +242,15 @@ def get_runner(field: Field, n: int, inverse: bool = False,
     if n & (n - 1) or n < 1:
         raise ValueError(f"transform size must be a power of two, got {n}")
     algorithm = resolve_algorithm(algorithm, field, n)
-    if algorithm not in ALGORITHMS:
-        raise KeyError(algorithm)
-    wide = field.n_words >= 8
-    if algorithm != ("mxu_chunked" if wide else "mxu_sub"):
-        raise _not_ported(f"algorithm {algorithm!r} ({field.name})")
-    if wide and n > MAX_N:
-        raise _not_ported(f"n = 2^{n.bit_length() - 1} (above 2^24)")
+    fn, prepare = ALGORITHMS[algorithm]
+    matfold = algorithm in _MATFOLD_ALGORITHMS and field.n_words >= 8
+    if matfold and n > MAX_N:
+        raise NotImplementedError(
+            f"n = 2^{n.bit_length() - 1} (above 2^24) is not ported to "
+            "ntt_tpu_torch yet; see ROADMAP.md")
     dev = _device(device)
     p = field.p
-    prep, fn = ((_prep_mxu_chunked, _mxu.ntt_mxu_chunked) if wide
-                else (_prep_mxu_sub, _mxu.ntt_mxu_sub))
-    tws, mats = prep(field, n, inverse)
+    tws, mats = prepare(field, n, inverse)
     extra = {}
     fused_coset = False
     if coset_shift is not None:
@@ -201,9 +292,7 @@ def get_runner(field: Field, n: int, inverse: bool = False,
         if coset_shift is not None and not inverse and not fused_coset:
             cs = aux["coset"]
             c = limbs.mont_mul(c, cs.reshape(tuple(cs.shape) + tail), field)
-        y = fn(c, field, iter(aux["tws"]), aux["mats"], inverse=inverse,
-               pre_col=aux.get("coset_col"),
-               first_mats=aux.get("first_mats"))
+        y = fn(c, field, inverse, aux)
         if inverse:
             y = limbs.mont_mul(y, limbs.const_planes(
                 ninv, field, ndim=y.dim() - 1, device=y.device), field)
@@ -214,7 +303,7 @@ def get_runner(field: Field, n: int, inverse: bool = False,
         return y if mont_io else limbs.from_mont(y, field)
 
     def run(x, aux):
-        if x.dim() == 2 or not wide:
+        if x.dim() == 2 or not matfold:
             return one(x, aux)
         # 256-bit batch columns run one transform each: the level-0 matrix
         # fold is built for an unbatched suffix

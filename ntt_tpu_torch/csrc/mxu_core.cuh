@@ -4,7 +4,12 @@
 //   mxu_level.cu  mxu_fused_level_stack  K2, replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
 //                 mxu_fused_subntt       K3, replaces ntt_tpu/kernels/mxu_level.py::_kernel_sub
 //                                            in its single-level form, m <= 32
+//                 mxu_fused_level        K4, replaces ntt_tpu/kernels/mxu_level.py::_kernel_level
+//                 mxu_fused_level_probe  K7, replaces ntt_tpu/kernels/mxu_level.py::_kernel_probe
 //   mxu_sub.cu    mxu_fused_subntt_multi K3 in its multi-level form, m = 64 .. 512
+//
+// (vmem_ntt.cu, the butterfly-stage kernels K5 and K6, takes only the field
+// arithmetic from here: FieldConst, cond_sub_p, mont_mul.)
 //
 // Every kernel is a template over W, the 32-bit words per element: 8 for the
 // 256-bit fields, 2 for Goldilocks, 1 for the small Proth prime.

@@ -1,5 +1,5 @@
-"""Kernels K2 and K3: one four-step level with its decomposition twiddle
-(port of ``ntt_tpu.kernels.mxu_level``).
+"""Kernels K2, K3, K4 and K7: one four-step level with its decomposition
+twiddle (port of ``ntt_tpu.kernels.mxu_level``).
 
 - ``fused_level_stack`` (K2): the twiddle is folded into a stack of conv
   matrices As[NT, D*m, D*m]; batch column b uses ``As[b // rep]``; an
@@ -11,6 +11,13 @@
   m <= 32 (one conv matrix); multi-level for m = 64 .. 512: the peel-32
   recursion with its two inner matmul levels and the inner twiddle
   ω_m^{k1·i2} between them, all in one kernel.
+
+- ``fused_level`` (K4): one conv matrix, an optional full-resolution
+  twiddle T3 [W, m, B], and the store transposed to [W, B, m] on request:
+  the level of the flat-peel transform ``mxu_fused``.
+- ``fused_level_probe`` (K7): K4's level cut off after ``stream``,
+  ``digits``, ``matmul``, ``reduce`` or ``tw``, to attribute its time to
+  its stages.
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/mxu_level.cu``, ``csrc/mxu_sub.cu``); on a CPU tensor it runs its
@@ -44,6 +51,14 @@ def _lib() -> ctypes.CDLL:
     lib.mxu_fused_subntt.argtypes = [
         vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, vp]
     lib.mxu_fused_subntt.restype = ctypes.c_int
+    lib.mxu_fused_level.argtypes = [
+        vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ll,
+        *_build.FIELD_ARGTYPES, vp]
+    lib.mxu_fused_level.restype = ctypes.c_int
+    lib.mxu_fused_level_probe.argtypes = [
+        vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ll,
+        *_build.FIELD_ARGTYPES, vp]
+    lib.mxu_fused_level_probe.restype = ctypes.c_int
     return lib
 
 
@@ -66,6 +81,16 @@ def _fold_mul_matrix(field: Field, device):
     return torch.from_numpy(digits.fold_mul_matrix(field)).to(device)
 
 
+def _twiddle_product(y, T3, field: Field, F2=None):
+    """y · T3 as the level kernels' plain versions take it: the fold
+    product for wide fields, ``limbs.mont_mul`` for narrow ones."""
+    if not digits.fold_active(field):
+        return limbs.mont_mul(y, T3, field)
+    if F2 is None:
+        F2 = _fold_mul_matrix(field, y.device)
+    return digits.mont_mul_fold(y, T3, field, F2)
+
+
 # ---------------------------------------------------------------------------
 # K2: the twiddle folded into a conv-matrix stack
 # ---------------------------------------------------------------------------
@@ -83,11 +108,8 @@ def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
         Z[:, cols] = digits.matmul_exact(As[s], d[:, cols])
     y = digits.recompose_reduce(Z.reshape(-1, m, B), field,
                                 _zmax_bits(field, m), fold_mat=F)
-    if T3 is not None and digits.fold_active(field):
-        y = digits.mont_mul_fold(y, T3, field,
-                                 _fold_mul_matrix(field, x3.device))
-    elif T3 is not None:
-        y = limbs.mont_mul(y, T3, field)
+    if T3 is not None:
+        y = _twiddle_product(y, T3, field)
     return y
 
 
@@ -177,13 +199,8 @@ def fused_subntt_plain(x3, field: Field, mats, T3=None, rep: int = 1,
     y = _subntt_plain(x3, field, mats, inverse)
     if T3 is None:
         return y
-    T = _expand_twiddle(T3, rep, B)
-    if not digits.fold_active(field):
-        return limbs.mont_mul(y, T, field)
-    F2 = mats.get(-1)
-    if F2 is None:
-        F2 = _fold_mul_matrix(field, x3.device)
-    return digits.mont_mul_fold(y, T, field, F2)
+    return _twiddle_product(y, _expand_twiddle(T3, rep, B), field,
+                            mats.get(-1))
 
 
 def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
@@ -232,4 +249,102 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
         *_build.field_args(field), _build.stream(x3))
     _build.check(rc, "fused_subntt_multi")
     _build.launches["fused_subntt_multi"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: one level with a full-resolution twiddle and a transposed store
+# ---------------------------------------------------------------------------
+
+def fused_level_plain(x3, field: Field, A, T3=None,
+                      transpose_out: bool = True, F=None, F2=None):
+    """Plain PyTorch version of K4."""
+    m = x3.shape[1]
+    y = digits.apply_matrix(A, x3, field, m, _zmax_bits(field, m), fold_mat=F)
+    if T3 is not None:
+        y = _twiddle_product(y, T3, field, F2)
+    return y.transpose(1, 2).contiguous() if transpose_out else y
+
+
+def _check_level_operands(x3, field: Field, A, T3) -> None:
+    W, m, B = x3.shape
+    _build.check_level(x3, field)
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
+    if T3 is not None:
+        _build.check_operand(T3, "T3", torch.uint32, (W, m, B), x3.device)
+
+
+def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
+                F=None, F2=None):
+    """One four-step level on uint32[W, m, B] (m a power of two up to 32):
+    the m-point transform as one digit matmul against the conv matrix
+    ``A``, the optional full-resolution twiddle ``T3`` [W, m, B], stored as
+    [W, B, m] when ``transpose_out`` (else [W, m, B]). ``F``, ``F2``: the
+    fold matrices, which only the plain version reads."""
+    W, m, B = x3.shape
+    if x3.device.type == "cpu":
+        return fused_level_plain(x3, field, A, T3, transpose_out, F, F2)
+    _check_level_operands(x3, field, A, T3)
+    out = torch.empty((W, B, m) if transpose_out else (W, m, B),
+                      dtype=torch.uint32, device=x3.device)
+    rc = _lib().mxu_fused_level(
+        _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
+        int(transpose_out), m, B, *_build.field_args(field),
+        _build.stream(x3))
+    _build.check(rc, "fused_level")
+    _build.launches["fused_level"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: K4's level cut off after a stage
+# ---------------------------------------------------------------------------
+
+#: the stages of the fused-level probe, in pipeline order
+PROBE_STAGES = ("stream", "digits", "matmul", "reduce", "tw")
+
+
+def fused_level_probe_plain(x3, field: Field, A, stage: str, T3=None):
+    """Plain PyTorch version of K7."""
+    W, m, B = x3.shape
+    if stage == "stream":
+        return x3.clone()
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    d = digits.extract_digits(x3, field)                    # [D, m, B]
+    if stage == "digits":
+        acc = d.to(torch.int64).sum(dim=0)
+        return acc[None].expand(W, m, B).to(torch.uint32).contiguous()
+    Z = digits.matmul_exact(A, d.reshape(D * m, B)).reshape(E, m, B)
+    if stage == "matmul":
+        return (Z[:W] & 0xFFFFFFFF).to(torch.uint32)
+    y = digits.recompose_reduce(Z, field, _zmax_bits(field, m))
+    if stage == "tw":
+        y = _twiddle_product(y, T3, field)
+    return y
+
+
+def fused_level_probe(x3, field: Field, A, stage: str, T3=None):
+    """The fused level (K4, no transposed store) cut off after ``stage``,
+    for attributing its time: uint32[W, m, B] holding x itself
+    (``stream``), the sum of each element's digits on every word plane
+    (``digits``), the first W accumulator planes cast to uint32
+    (``matmul``), the reduced transform (``reduce``) or its product with
+    ``T3`` (``tw``, which is :func:`fused_level` with T3 and no
+    transpose)."""
+    if stage not in PROBE_STAGES:
+        raise ValueError(f"stage must be one of {PROBE_STAGES}, got {stage!r}")
+    if (stage == "tw") != (T3 is not None):
+        raise ValueError("T3 goes with stage 'tw' and only with it")
+    W, m, B = x3.shape
+    if x3.device.type == "cpu":
+        return fused_level_probe_plain(x3, field, A, stage, T3)
+    _check_level_operands(x3, field, A, T3)
+    out = torch.empty_like(x3)
+    rc = _lib().mxu_fused_level_probe(
+        _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
+        PROBE_STAGES.index(stage), m, B, *_build.field_args(field),
+        _build.stream(x3))
+    _build.check(rc, "fused_level_probe")
+    _build.launches["fused_level_probe"] += 1
     return out

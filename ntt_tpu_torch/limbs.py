@@ -102,6 +102,17 @@ def _p_halves(field: Field, ndim: int, device) -> torch.Tensor:
 # Carry/borrow chains on half-limb lists
 # ---------------------------------------------------------------------------
 
+def _add_halves(a: list, b: list):
+    """(a + b) over L half-limbs -> (L half-limbs, carry-out in {0,1})."""
+    out = []
+    c = 0
+    for j in range(len(a)):
+        s = a[j] + b[j] + c
+        out.append(s & HALF_MASK)
+        c = s >> HALF_BITS
+    return out, c
+
+
 def _sub_halves(a: list, b: list):
     """(a - b) wrapped over L half-limbs -> (limbs, borrow-out in {0,1})."""
     out = []
@@ -119,6 +130,36 @@ def _cond_sub_p(t: list, top, field: Field) -> list:
     u, brw = _sub_halves(t, list(field.p_halves))
     ge = top >= brw
     return [torch.where(ge, u[j], t[j]) for j in range(len(t))]
+
+
+# ---------------------------------------------------------------------------
+# Modular add, subtract, negate (word planes in, word planes out)
+# ---------------------------------------------------------------------------
+
+def add_mod(x, y, field: Field) -> torch.Tensor:
+    """(x + y) mod p, canonical in and out. The carry out of the top half
+    counts: for Goldilocks a + b passes 2^64."""
+    t, c = _add_halves(unpack(x), unpack(y))
+    return pack(_cond_sub_p(t, c, field))
+
+
+def _add_p_where(d: list, neg, field: Field) -> torch.Tensor:
+    """d + p where ``neg`` holds, else d (half-limb lists), packed."""
+    dp, _ = _add_halves(d, list(field.p_halves))
+    return pack([torch.where(neg, dp[j], d[j]) for j in range(len(d))])
+
+
+def sub_mod(x, y, field: Field) -> torch.Tensor:
+    """(x - y) mod p, canonical in and out."""
+    d, brw = _sub_halves(unpack(x), unpack(y))
+    return _add_p_where(d, brw != 0, field)
+
+
+def neg_mod(x, field: Field) -> torch.Tensor:
+    """(-x) mod p, canonical."""
+    a = unpack(x)
+    d, brw = _sub_halves([torch.zeros_like(a[0])] * len(a), a)
+    return _add_p_where(d, brw != 0, field)      # borrow: x != 0
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +195,28 @@ def mont_mul(x, y, field: Field) -> torch.Tensor:
         c = s >> HALF_BITS
     top = t[L] + c
     return pack(_cond_sub_p(out, top, field))
+
+
+def mont_sqr(x, field: Field) -> torch.Tensor:
+    return mont_mul(x, x, field)
+
+
+def mont_pow(x, exponent: int, field: Field) -> torch.Tensor:
+    """x^exponent (Montgomery form in and out) by square-and-multiply over
+    a Python exponent."""
+    result = None
+    base = x
+    e = int(exponent)
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mont_mul(result, base, field)
+        e >>= 1
+        if e:
+            base = mont_sqr(base, field)
+    if result is None:
+        one = const_planes(field.R, field, ndim=x.dim() - 1, device=x.device)
+        return (one + torch.zeros_like(x, dtype=_I64)).to(torch.uint32)
+    return result
 
 
 def mont_reduce_wide(halves: list, field: Field, iters: int) -> torch.Tensor:

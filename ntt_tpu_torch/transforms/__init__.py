@@ -1,2 +1,3 @@
-"""Transforms of the port: host tables, the four-step recursion and the
-digit-matmul transforms (``mxu_chunked``, ``mxu_sub``)."""
+"""Transforms of the port: host tables and the butterfly ladders (``core``,
+``naive``), the four-step recursion and its ladder transforms (``fourstep``),
+and the digit-matmul transforms (``mxu``)."""

@@ -1,22 +1,28 @@
-"""Four-step (self-sorting) NTT recursion — the port of the parts of
-``ntt_tpu.transforms.fourstep`` that the ``mxu_chunked`` and ``mxu_sub``
-paths take.
+"""Four-step (self-sorting) NTT recursion and its butterfly-ladder transforms
+(``fourstep``, ``fourstep_st``, ``pallas``, ``pallas_fused``) — the port of
+``ntt_tpu.transforms.fourstep``.
 
 With n = n1*n2, i = i1*n2 + i2, k = k2*n1 + k1 and ω the n-th root:
 
     X[k2*n1 + k1] = Σ_{i2} ω_{n2}^{i2 k2} · ω^{i2 k1} · Σ_{i1} x[i1*n2+i2] ω_{n1}^{i1 k1}
 
-so each level runs column NTTs of length n1 with the decomposition twiddle
-ω^{k1·i2} applied inside the same kernel, transposes, and recurses on rows
-of length n2. The JAX package chunks each level to fit TPU VMEM; chunking
-changes no value, so a level here is one kernel launch over the whole level
-and the transpose is a PyTorch copy between launches.
+so each level runs column NTTs of length n1, applies the decomposition
+twiddle ω^{k1·i2} (inside the same kernel where the transform has one),
+transposes, and recurses on rows of length n2. The JAX package chunks each
+level to fit TPU VMEM; chunking changes no value, so a level here is one
+pass over the whole level and the transpose is a PyTorch copy.
 """
 
 from __future__ import annotations
 
 from .. import limbs
 from ..fields import Field
+from ..kernels import vmem_ntt
+from .core import ntt_along_axis, ntt_along_axis_stockham, split_log
+
+#: largest sub-transform the ladder transforms run as one base transform;
+#: larger sizes peel BASE_MAX columns per level
+BASE_MAX = 512
 
 
 class TwMatStack:
@@ -64,14 +70,16 @@ def twiddle_requests(m: int, base_max: int) -> list:
 
 
 def ntt_axis_fourstep(x, field: Field, base_fn, base_max: int, tws,
-                      tw_base_fn, pre_col=None, first_base_fn=None,
+                      tw_base_fn=None, pre_col=None, first_base_fn=None,
                       first_tw_base_fn=None):
     """Recursive four-step NTT along axis 1 of uint32[W, m, *batch].
 
-    ``base_fn(x, field)``: the base transform for m <= base_max;
-    ``tw_base_fn(c3 [W, n1, B], t3, rep)``: a level's column transform with
-    its decomposition twiddle applied in the same kernel; ``tws``: an
-    iterator over the level tables in :func:`twiddle_requests` order.
+    ``base_fn(x, field)``: the base transform for m <= base_max (any batch
+    rank); ``tw_base_fn(c3 [W, n1, B], t3, rep)``: a level's column
+    transform with its decomposition twiddle applied in the same kernel, or
+    None for the generic level (base transform, then the twiddle as a
+    separate Montgomery product); ``tws``: an iterator over the level
+    tables in :func:`twiddle_requests` order.
 
     ``pre_col``: optional [W, n1] Montgomery column vector multiplied into
     the data before the top level's column transforms (the c^{i1·n2}
@@ -105,18 +113,19 @@ def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
     batch-resolution at the top level (R == 1); a batched input makes the
     top level deep too, and its table is then re-laid per call.
 
-    With ``pre_col`` the level runs unfused: pre-multiply, column
-    transforms without twiddle, then the twiddle as a separate Montgomery
-    product."""
+    With ``pre_col``, or without a ``tw_base_fn``, the level runs unfused
+    (the generic level): pre-multiply, column transforms without twiddle,
+    then the twiddle as a separate Montgomery product."""
     W, n1, n2 = x4.shape[0], x4.shape[1], x4.shape[2]
     rest = tuple(x4.shape[3:])
     R = 1
     for r in rest:
         R *= r
-    if pre_col is not None:
+    if pre_col is not None or tw_base_fn is None:
         assert not isinstance(T, (TwMatStack, TwBatch, TwDeep))
-        c = limbs.mont_mul(x4.reshape(W, n1, n2, R),
-                           pre_col[:, :, None, None], field)
+        c = x4.reshape(W, n1, n2, R)
+        if pre_col is not None:
+            c = limbs.mont_mul(c, pre_col[:, :, None, None], field)
         y = base_fn(c, field)
         y = limbs.mont_mul(y, T[:, :, :, None], field)
         return y.transpose(1, 2).contiguous().reshape((W, n2, n1) + rest)
@@ -137,3 +146,104 @@ def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
         y3 = tw_base_fn(c3, T, rep=1)
     y = y3.reshape(W, n1, n2, R).transpose(1, 2).contiguous()
     return y.reshape((W, n2, n1) + rest)
+
+
+# ---------------------------------------------------------------------------
+# The butterfly-ladder transforms
+# ---------------------------------------------------------------------------
+
+def ntt_fourstep(x, field: Field, inverse: bool = False, tws=None,
+                 pre_col=None):
+    """x: uint32[W, n, *batch] Montgomery form: the four-step with the
+    bit-reversed radix-2 ladder (:func:`core.ntt_along_axis`) as its base
+    transform and generic levels."""
+    if split_log(x.shape[1])[1] == 1:
+        return ntt_along_axis(x, field, inverse=inverse)
+    def base(c, f):
+        return ntt_along_axis(c, f, inverse=inverse)
+    return ntt_axis_fourstep(x, field, base, BASE_MAX, tws, pre_col=pre_col)
+
+
+def ntt_fourstep_stockham(x, field: Field, inverse: bool = False, tws=None,
+                          pre_col=None):
+    """The four-step with the Stockham self-sorting ladder as its base
+    transform: no gather or bit-reversal pass anywhere."""
+    def base(c, f):
+        return ntt_along_axis_stockham(c, f, inverse=inverse)
+    if split_log(x.shape[1])[1] == 1:
+        return base(x, field)
+    return ntt_axis_fourstep(x, field, base, BASE_MAX, tws, pre_col=pre_col)
+
+
+def pallas_base_max(field: Field) -> int:
+    """The base size of the ``pallas`` transform: the largest m whose column
+    fits the stage kernel's shared-memory tile at 32 columns a block (64
+    for the 256-bit fields, 256 for the narrow ones)."""
+    return vmem_ntt.max_m(field)
+
+
+def fused_m(field: Field) -> int:
+    """The level size of the ``pallas_fused`` transform: 64 for the 256-bit
+    fields, 128 for the narrow ones."""
+    return min(128, vmem_ntt.max_m(field))
+
+
+def ntt_fourstep_pallas(x, field: Field, inverse: bool = False, tws=None,
+                        pre_col=None):
+    """The four-step with the shared-memory stage kernel
+    (:func:`~ntt_tpu_torch.kernels.vmem_ntt.stage_ntt`) as its base
+    transform and generic levels."""
+    if x.shape[1] <= 2:
+        return ntt_along_axis(x, field, inverse=inverse)
+    def base(c, f):
+        W, m = c.shape[0], c.shape[1]
+        return vmem_ntt.stage_ntt(c.reshape(W, m, -1), f, inverse).reshape(
+            c.shape)
+    return ntt_axis_fourstep(x, field, base, pallas_base_max(field), tws,
+                             pre_col=pre_col)
+
+
+def check_unbatched(x) -> None:
+    """The flat-peel transforms take uint32[W, n] only, as in the JAX package
+    (an assertion there)."""
+    if x.dim() != 2:
+        raise AssertionError(
+            "fused flat-peel transforms take unbatched uint32[W, n]")
+
+
+def undo_peel_order(y, remaining: int, base: int, levels: int):
+    """The flat-peel transforms' last relayout. The per-level transposed
+    stores append each level's output digit after the older suffix, which
+    leaves flat order (k_L, k_1, ..., k_{L-1}); the four-step convention is
+    (k_L, k_{L-1}, ..., k_1), so the suffix digits are reversed."""
+    W = y.shape[0]
+    if levels > 1:
+        y = y.reshape((W, remaining) + (base,) * levels)
+        y = y.permute((0, 1) + tuple(range(levels + 1, 1, -1))).contiguous()
+    return y.reshape(W, -1)
+
+
+def ntt_fourstep_pallas_fused(x, field: Field, inverse: bool = False,
+                              tws=None):
+    """The fully fused ladder: one
+    :func:`~ntt_tpu_torch.kernels.vmem_ntt.fused_stage_level` launch per
+    four-step level (all stages, the decomposition twiddle, the transposed
+    store). ``tws``: iterator over ``mxu.expanded_twiddles`` built with
+    base = :func:`fused_m`. Flat peel loop as in ``mxu.ntt_mxu_fused``."""
+    check_unbatched(x)
+    W, n = x.shape
+    if n <= 2:
+        return ntt_along_axis(x, field, inverse=inverse)
+    mf = fused_m(field)
+    remaining = n
+    cur = x.reshape(W, min(mf, n), -1)
+    levels = 0
+    while remaining > mf:
+        cur = vmem_ntt.fused_stage_level(cur, field, inverse, next(tws),
+                                         transpose_out=True)
+        remaining //= mf
+        levels += 1
+        cur = cur.reshape(W, min(mf, remaining), -1)
+    y = vmem_ntt.fused_stage_level(cur, field, inverse, None,
+                                   transpose_out=False)
+    return undo_peel_order(y, remaining, mf, levels)

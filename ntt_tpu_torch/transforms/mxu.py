@@ -1,6 +1,6 @@
-"""Digit-matmul NTT: ``mxu_chunked`` (256-bit fields) and ``mxu_sub``
-(narrow fields) — the port of the parts of ``ntt_tpu.transforms.mxu`` that
-the two ``auto`` paths take, forward, inverse and coset.
+"""Digit-matmul NTT: ``mxu_chunked``, ``mxu_sub`` (the two ``auto`` paths),
+``mxu``, ``mxu_pallas`` and ``mxu_fused`` — the port of
+``ntt_tpu.transforms.mxu``, forward, inverse and coset.
 
 The four-step recursion peels BASE = 32 columns per level. A level's
 32-point column transforms are ONE int8 digit matmul against a conv matrix
@@ -9,7 +9,11 @@ into a stack of conv matrices (:class:`~.fourstep.TwMatStack`) or applied by
 a Montgomery product inside the same kernel. The last base transform
 (m <= 32) is one more matmul. ``mxu_sub`` peels SUBBASE = 512 columns per
 level instead, and a whole 512-point sub-NTT (two inner matmul levels) is
-one kernel. The JAX package's knobs are hard-wired to their defaults:
+one kernel. ``mxu`` and ``mxu_pallas`` run the plain recursion (base
+transform, separate twiddle product, transpose) with the digit matmul as a
+PyTorch product or as kernel K1; ``mxu_fused`` is the flat peel loop with one
+``fused_level`` launch per level. The JAX package's knobs are hard-wired to
+their defaults:
 NTT_MXU_BASE_LOG=5, NTT_TW_MATFOLD=1, NTT_FUSE_TW=1, NTT_RESIDENT_SPLIT=0,
 NTT_MXU_SUBBASE_LOG=9, NTT_MXU_SUB256_LOG=0.
 
@@ -24,10 +28,12 @@ import torch
 
 from .. import digits, limbs
 from ..fields import Field
-from ..kernels.mxu_level import fused_level_stack, fused_subntt
+from ..kernels.mxu_level import fused_level, fused_level_stack, fused_subntt
 from ..kernels.mxu_ntt import base_ntt_mxu
 from .core import host_power_matrix, host_powers_fast
-from .fourstep import TwMatStack, ntt_axis_fourstep, twiddle_requests
+from .fourstep import (TwMatStack, check_unbatched, ntt_axis_fourstep,
+                       undo_peel_order)
+from .fourstep import twiddle_requests as _fourstep_requests
 
 BASE_LOG = 5
 BASE = 1 << BASE_LOG
@@ -126,14 +132,14 @@ def matfold_tw_tables(field: Field, n: int, inverse: bool = False,
       M[k1, b, k0] = w_n^{(BASE*k1 + k0)*b};
     - deeper levels fold entirely into an n2-entry stack when n2 <=
       TW_STACK_MAX_NT and the stack stays below four data sizes."""
-    requests = twiddle_requests(n, BASE)
+    requests = _fourstep_requests(n, BASE)
     if not requests:
         return None
     if n > TW_MERGED_MAX:
         raise NotImplementedError(
             f"n = 2^{n.bit_length() - 1} > 2^24 needs the periodic-residual "
             "level 0 (TwStackResid), not ported yet (ROADMAP.md, Queue 1 "
-            "item 3)")
+            "item 2)")
     p = field.p
     shift = None if coset_shift is None else coset_shift % p
     D = digits.n_digits(field)
@@ -325,3 +331,112 @@ def ntt_mxu_sub(x, field: Field, tws, mats, inverse: bool = False,
         return fused_subntt(c3, field, md, None, inverse=inverse)
     return _drive(x, field, tws, mats, inverse, pre_col, first_mats,
                   effective_subbase(field), base)
+
+
+# ---------------------------------------------------------------------------
+# mxu, mxu_pallas: the plain recursion over digit-matmul base transforms
+# ---------------------------------------------------------------------------
+
+def twiddle_requests(m: int) -> list:
+    """(m, n1, n2) decomposition-twiddle tables of the peel-BASE recursion,
+    in consumption order."""
+    return _fourstep_requests(m, BASE)
+
+
+def _base_ntt(x, field: Field, mats):
+    """m <= 32 point NTT along axis 1 as one digit matmul, in plain
+    PyTorch (any batch rank)."""
+    m = x.shape[1]
+    if m == 1:
+        return x
+    return digits.apply_matrix(mats[m], x, field, m, _zmax_bits(field, m),
+                               fold_mat=mats.get(-m))
+
+
+def _base_ntt_kernel(x, field: Field, mats):
+    """The same through kernel K1, the batch flattened to one axis."""
+    W, m = x.shape[0], x.shape[1]
+    if m == 1:
+        return x
+    return base_ntt_mxu(x.reshape(W, m, -1), field, mats[m],
+                        mats.get(-m)).reshape(x.shape)
+
+
+def ntt_axis_mxu(x, field: Field, tws, mats, base_fn=_base_ntt):
+    """Natural-order NTT along axis 1 of uint32[W, m, *batch] (Montgomery
+    form in and out, no 1/n scale): base transforms over BASE columns, the
+    decomposition twiddle as a separate product, transpose, recurse.
+    ``tws``: iterator over the plain tables [W, BASE, m / BASE] of
+    :func:`twiddle_requests`; ``mats``: the :func:`base_mats` dict."""
+    W, m = x.shape[0], x.shape[1]
+    rest = tuple(x.shape[2:])
+    if m <= BASE:
+        return base_fn(x, field, mats)
+    n1, n2 = BASE, m // BASE
+    y = base_fn(x.reshape((W, n1, n2) + rest), field, mats)   # over i1
+    T = next(tws)                                             # ω_m^{k1·i2}
+    y = limbs.mont_mul(y, T.reshape(tuple(T.shape) + (1,) * len(rest)),
+                       field)
+    y = y.transpose(1, 2).contiguous()                   # [W, i2, k1, *rest]
+    y = ntt_axis_mxu(y, field, tws, mats, base_fn)            # over i2
+    return y.reshape((W, m) + rest)                           # X[k2*n1 + k1]
+
+
+def ntt_mxu(x, field: Field, tws, mats):
+    """The digit-matmul transform with its matmuls in plain PyTorch."""
+    return ntt_axis_mxu(x, field, tws, mats)
+
+
+def ntt_mxu_pallas(x, field: Field, tws, mats):
+    """The digit-matmul transform with kernel K1 as its base transform."""
+    return ntt_axis_mxu(x, field, tws, mats, base_fn=_base_ntt_kernel)
+
+
+# ---------------------------------------------------------------------------
+# mxu_fused: one fused_level launch per level
+# ---------------------------------------------------------------------------
+
+def expanded_twiddles(field: Field, n: int, inverse: bool = False,
+                      base: int = BASE) -> list:
+    """Full-resolution per-level twiddles of the flat-peel transforms (numpy):
+    level l's table [W, base, I2_l] repeated across the already processed
+    suffix S_l, so that every level's twiddle is batch-shaped
+    [W, base, n / base]."""
+    out = []
+    S = 1
+    remaining = n
+    W = field.n_words
+    while remaining > base:
+        I2 = remaining // base
+        T = host_power_matrix(field, _root(field, remaining, inverse), base,
+                              I2)
+        Te = np.broadcast_to(T[:, :, :, None], T.shape + (S,))
+        out.append(np.ascontiguousarray(Te).reshape(W, base, I2 * S))
+        remaining //= base
+        S *= base
+    return out
+
+
+def ntt_mxu_fused(x, field: Field, tws, mats):
+    """The fully fused digit-matmul transform of unbatched uint32[W, n]:
+    one :func:`fused_level` launch per level (digits, matmul, reduction,
+    twiddle, transposed store). Carving the next BASE-point axis off the
+    front of the flattened remainder is a reshape after the transposed
+    store. ``tws``: iterator over :func:`expanded_twiddles`; ``mats``: the
+    :func:`base_mats` dict."""
+    check_unbatched(x)
+    W, n = x.shape
+    remaining = n
+    cur = x.reshape(W, min(BASE, n), -1)
+    levels = 0
+    while remaining > BASE:
+        cur = fused_level(cur, field, mats[BASE], next(tws),
+                          transpose_out=True, F=mats.get(-BASE),
+                          F2=mats.get(-1))
+        remaining //= BASE
+        levels += 1
+        cur = cur.reshape(W, min(BASE, remaining), -1)
+    if remaining > 1:
+        cur = fused_level(cur, field, mats[remaining], None,
+                          transpose_out=False, F=mats.get(-remaining))
+    return undo_peel_order(cur, remaining, BASE, levels)
