@@ -2,8 +2,11 @@
 """Chip smoke test of ntt_tpu_torch on one NVIDIA GPU (written for an H100).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-``--quick`` stops after the kernel checks at small shapes (a short first
-call after a kernel change) and prints no result line.
+``--quick`` stops after the kernel checks at small shapes and K8 at its
+main-path shape (a short first call after a kernel change) and prints no
+result line. ``--cross-cards``
+runs only the multi-device forward across distinct cards (on a machine
+with two or more) and what it is compared with, and prints no result line.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
@@ -21,11 +24,15 @@ call after a kernel change) and prints no result line.
      BLS12-381 Fr 2^18 transforms give them under ``mxu_fused``, ``pallas``
      and ``pallas_fused``, K5/K6 also at the Goldilocks 2^20 shapes; a
      ``probe`` JSON line says what each stage of the fused level adds;
+   - K8 (``a2a_transpose``) at the shapes of the BLS12-381 Fr 2^22
+     distributed transform on four shards of one card, against its plain
+     version and ``permute().contiguous()`` of the stacked shards;
    - at small shapes: K1-K3 for every m from 2 to 32 on all four fields
      (ragged batches, odd reps), K3 multi-level for m = 64 .. 512 on both
      narrow fields and on BLS12-381 Fr, K4 and K7 for every m from 2 to
      32, K5 and K6 for every m from 2 to 256, with and without T3, both
-     store orders, forward and inverse.
+     store orders, forward and inverse; K8 for D in {2, 4, 8}, W in
+     {1, 2, 8}, 16-byte and word moves, unaligned shards.
 3. Drives the entry points of ``ntt_tpu_torch`` on the card and checks
    every output word against the hostlib golden result:
    - the 256-bit path: BLS12-381 Fr 2^18 forward on the ramp (launch
@@ -43,6 +50,15 @@ call after a kernel change) and prints no result line.
      Fr 2^18 and Goldilocks 2^20 (launch counts asserted), the three
      kernel-backed ladders also on the ramp, through ``intt(ntt(x)) == x``
      and ``coset_ntt``; the probe entry through its five stages;
+   - the multi-device four-step (``ntt_tpu_torch.parallel``) on a mesh of
+     four shards of one card, exchange K8: BLS12-381 Fr 2^22 (``mxu_sub``)
+     forward, ``dist_intt`` back to the input, forward coset, the
+     ``all_to_all`` and ``ring`` exchanges (same words), five random
+     inputs through K8 against the plain exchange; BLS 2^20 (``pallas``);
+     Goldilocks 2^24 forward and ``dist_lde`` 2^22 -> 2^24 (launch counts
+     asserted: K8 four times a transform); the BLS 2^22 forward across
+     distinct cards where the machine has two or more (a line says so
+     where it has one);
    and times each transform and the elementwise passes around it; for
    the two 2^18 forward transforms it prints where the time goes (the
    transposes between levels timed alone, and device time by kernel from
@@ -68,6 +84,8 @@ import torch
 #: NVIDIA H100 SXM data-sheet peaks (dense): device memory and int8 tensor rate
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+#: NVLink between the H100s of one host: 450 GB/s each way
+NVLINK_BYTES_PER_S = 450e9
 #: 32-bit integer multiply-adds a second outside the tensor cores: 132 SMs x
 #: 64 int32 lanes x 1.98 GHz boost clock (half the card's 67 TFLOP/s float32
 #: rate counted as multiply-adds)
@@ -583,6 +601,121 @@ def check_small_stages(f, rng, dev) -> int:
     return checks
 
 
+def random_shards(W, D, n1, n2_loc, rng, devs, aligned=True) -> list:
+    """D random uint32[W, n1, n2_loc] shards, shard d on devs[d %
+    len(devs)]; with ``aligned`` False each one starts 4 bytes past a
+    16-byte boundary."""
+    out = []
+    for d in range(D):
+        dev = devs[d % len(devs)]
+        host = torch.from_numpy(rng.integers(
+            0, 1 << 32, size=(W, n1, n2_loc), dtype=np.uint64).astype(
+                np.uint32))
+        if aligned:
+            out.append(host.to(dev))
+        else:
+            buf = torch.empty(host.numel() + 1, dtype=torch.uint32,
+                              device=dev)
+            t = buf[1:].view(W, n1, n2_loc)
+            t.copy_(host)
+            out.append(t)
+    return out
+
+
+def check_small_exchange(rng, devs) -> int:
+    """K8 against its plain version at small shapes on the devices
+    ``devs`` (shard d on devs[d % len(devs)]): D in {2, 4, 8}, W in
+    {1, 2, 8}, n2_loc a multiple of 4 (16-byte moves) and not (word
+    moves), and shards that are not 16-byte aligned. Returns the number of
+    checks."""
+    from ntt_tpu_torch.kernels import exchange
+
+    checks = 0
+    for D in (2, 4, 8):
+        for W in (1, 2, 8):
+            for n1, n2_loc, aligned in ((4 * D, 64, True), (2 * D, 5, True),
+                                        (3 * D, 36, False)):
+                shards = random_shards(W, D, n1, n2_loc, rng, devs, aligned)
+                got = exchange.a2a_transpose(shards, D)
+                torch.cuda.synchronize()
+                want = exchange.a2a_transpose_plain(shards, D)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(
+                        f"a2a_transpose D={D} W={W} n1={n1} n2_loc={n2_loc} "
+                        f"aligned={aligned} on {len(set(map(str, devs)))} "
+                        "card(s): kernel != plain")
+                checks += 1
+    return checks
+
+
+def kernel_device_ms(fn, key: str, iters: int = 10):
+    """Average device time of one launch of the kernel whose name holds
+    ``key``, from ``torch.profiler`` over ``iters`` calls of ``fn``; None
+    where the tracer shows no device time."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA and key in e.key
+                    and e.count and e.self_device_time_total > 0):
+                return e.self_device_time_total / 1e3 / e.count
+    except Exception as e:      # the tracer is optional tooling
+        print(f"profiler unavailable ({type(e).__name__}: {e})", flush=True)
+    return None
+
+
+def check_exchange(rng, dev, results) -> None:
+    """K8 at the main path's shapes (BLS12-381 Fr 2^22 on D = 4 shards of
+    one card: uint32[8, 2048, 512] a shard) against its plain version,
+    word for word, then timed per launch (events around the call of four
+    launches, and device time from the profiler) beside its bound, its
+    plain version and one PyTorch call that computes the same exchange,
+    ``permute().contiguous()`` of the stacked shards."""
+    from ntt_tpu_torch.kernels import exchange
+
+    D, W, n1, n2_loc = 4, 8, 2048, 512
+    n1_loc = n1 // D
+    shards = random_shards(W, D, n1, n2_loc, rng, [dev])
+    got = exchange.a2a_transpose(shards, D)
+    torch.cuda.synchronize()
+    want = exchange.a2a_transpose_plain(shards, D)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("a2a_transpose [8,2048,512] x 4: kernel != plain")
+    stacked = torch.stack(shards)                   # [s, W, n1, n2_loc]
+
+    def library():
+        return stacked.view(D, W, D, n1_loc, n2_loc).permute(
+            2, 1, 3, 0, 4).contiguous()              # [t, W, n1_loc, s, n2]
+    if not torch.equal(library().view(D, W, n1_loc, D * n2_loc),
+                       torch.stack(got)):
+        raise AssertionError("permute().contiguous() != the exchange")
+    del got, want
+    ms = time_ms(lambda: exchange.a2a_transpose(shards, D))
+    plain_ms = time_ms(lambda: exchange.a2a_transpose_plain(shards, D))
+    lib_ms = time_ms(library)
+    dev_ms = kernel_device_ms(lambda: exchange.a2a_transpose(shards, D),
+                              "a2a_pull_kernel")
+    nbytes = 2 * W * n1 * n2_loc * 4                 # one launch
+    b_ms, b_by = bound(nbytes, 0)
+    print(f"check a2a_transpose     [8,2048,512] x 4 (bls 2^22 dist)         "
+          f"word-equal  {ms:.4f} ms a call of {D} launches "
+          f"({ms / D:.4f} a launch; device time "
+          f"{'-' if dev_ms is None else f'{dev_ms:.4f}'} ms a launch)  "
+          f"plain {plain_ms:.4f} ms  permute().contiguous() {lib_ms:.4f} ms"
+          f"  bound {b_ms:.4f} ms a launch ({b_by})", flush=True)
+    call = {"shape": "[8,2048,512] x 4, one launch", "ms": ms / D,
+            "device_ms": dev_ms, "plain_ms": plain_ms / D,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms / D,
+            "max_abs_err": 0, "bytes": nbytes, "int8_macs": 0,
+            "int32_mads": 0, "path_launches": D}
+    results["a2a_transpose"] = {"calls": [call], "path": [call] * D}
+
+
 # ---------------------------------------------------------------------------
 # Golden results from the hostlib (standard form in and out, word planes)
 # ---------------------------------------------------------------------------
@@ -894,6 +1027,274 @@ def probe_path(rng, dev) -> dict:
     return c
 
 
+def gathered(y) -> torch.Tensor:
+    """A distributed output (one [W, n2, n1/D] a shard) as one flat
+    natural-order uint32[W, n] on the first shard's card."""
+    dev = y[0].device
+    full = torch.cat([t.to(dev) for t in y], dim=2)
+    return full.reshape(full.shape[0], -1)
+
+
+def same_shards(what, got, want) -> None:
+    if len(got) != len(want) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: shards differ")
+
+
+#: the runs of the dist phase: (field, log2 n, local algorithm), every one
+#: on a 1-D mesh of D = 4 shards of one card, exchange="pallas"
+DIST_RUNS = (("bls12-381-fr", 22, "mxu_sub"), ("bls12-381-fr", 20, "pallas"),
+             ("goldilocks", 24, "mxu_sub"))
+DIST_D = 4
+#: dist_lde: Goldilocks evaluations of this size, blowup 4
+DIST_LDE_LOG = 22
+
+
+def dist_counts(f, n, algorithm, D, exchange) -> dict:
+    """Launches of one distributed transform: the local transforms' kernels
+    (two local transforms a shard) and D K8 launches under exchange
+    "pallas"."""
+    from ntt_tpu_torch.kernels import mxu_level
+    from ntt_tpu_torch.transforms import core, fourstep, mxu
+
+    counts = {"a2a_transpose": D} if exchange == "pallas" else {}
+    base = (mxu.effective_subbase(f) if algorithm == "mxu_sub"
+            else fourstep.pallas_base_max(f))
+    for m in core.split_log(n):
+        sizes = []
+        while m > base:
+            sizes.append(base)
+            m //= base
+        sizes.append(m)
+        for s in sizes:
+            if s == 1:
+                continue
+            name = ("stage_ntt" if algorithm == "pallas"
+                    else "fused_subntt_multi" if s > mxu_level.BASE
+                    else "fused_subntt")
+            counts[name] = counts.get(name, 0) + D
+    return counts
+
+
+def dist_paths(rng, dev, path_ms) -> dict:
+    """The multi-device four-step (``ntt_tpu_torch.parallel``) on a mesh of
+    four shards of one card, every output word against the hostlib golden
+    result, launch counts asserted: BLS12-381 Fr 2^22 (``mxu_sub``, K3)
+    forward, ``dist_intt`` back to the input, forward ``coset_shift``, the
+    forward under the exchanges ``all_to_all`` and ``ring`` (the same
+    words), and five more random inputs through K8 against the plain
+    exchange; BLS 2^20 under the local ``pallas`` (K5); Goldilocks 2^24
+    (K3 multi-level) forward and ``dist_lde`` from 2^22 at blowup 4; then,
+    where the machine has two cards or more, the BLS 2^22 forward across
+    distinct cards. Returns the launch counts of the BLS 2^22 forward."""
+    from ntt_tpu_torch import get_field, limbs
+    from ntt_tpu_torch.parallel import (dist_lde, make_dist_ntt, make_mesh,
+                                        shard_for_ntt)
+
+    mesh = make_mesh([dev] * DIST_D)
+    main = None
+    for fname, log_n, alg in DIST_RUNS:
+        f, n = get_field(fname), 1 << log_n
+        tag = f"{fname} 2^{log_n} dist D={DIST_D} {alg}"
+        xs = random_words(f, (n,), rng)
+        want = golden_ntt(f, xs)
+        xm = limbs.to_mont(torch.from_numpy(xs).to(dev), f)
+        t0 = time.time()
+        fwd = make_dist_ntt(f, n, mesh, algorithm=alg, exchange="pallas")
+        t_tab = time.time() - t0
+        shards = shard_for_ntt(xm, f, mesh)
+        y, c = counted(lambda: fwd(shards))
+        expect_counts(tag + " exchange=pallas", c,
+                      dist_counts(f, n, alg, DIST_D, "pallas"))
+        same_words(tag, limbs.from_mont(gathered(y), f), want)
+        ms = path_ms[tag + " pallas"] = time_ms(lambda: fwd(shards), iters=5,
+                                                warmup=1)
+        print(f"path {tag} exchange=pallas  golden-equal  {ms:.4f} "
+              f"ms/transform (Montgomery I/O, tables resident; tables built "
+              f"in {t_tab:.1f} s)", flush=True)
+        if main is None:
+            main = c
+            dist_bls_extras(f, n, alg, mesh, xs, xm, y, rng, dev, path_ms)
+        del y, shards, fwd
+        torch.cuda.empty_cache()
+
+    # dist_lde: Goldilocks 2^22 evaluations -> 2^24 coset evaluations
+    f, n = get_field("goldilocks"), 1 << DIST_LDE_LOG
+    xs = random_words(f, (n,), rng)
+    coeffs = golden_ntt(f, xs, inverse=True)
+    padded = np.concatenate(
+        [coeffs, np.zeros((f.n_words, 3 * n), dtype=np.uint32)], axis=1)
+    want = golden_coset_ntt(f, padded, f.generator)
+    shards = shard_for_ntt(limbs.to_mont(torch.from_numpy(xs).to(dev), f), f,
+                           mesh)
+    y = dist_lde(shards, f, mesh, n, blowup=4, algorithm="mxu_sub")
+    tag = f"goldilocks 2^{DIST_LDE_LOG} dist_lde x4 D={DIST_D} mxu_sub"
+    same_words(tag, limbs.from_mont(gathered(y), f), want)
+    ms = path_ms[tag] = time_ms(
+        lambda: dist_lde(shards, f, mesh, n, blowup=4, algorithm="mxu_sub"),
+        iters=3, warmup=1)
+    print(f"path {tag} (to 2^{DIST_LDE_LOG + 2} points)  golden-equal  "
+          f"{ms:.4f} ms (Montgomery I/O, tables resident)", flush=True)
+    del y, shards
+    torch.cuda.empty_cache()
+    return main
+
+
+def dist_bls_extras(f, n, alg, mesh, xs, xm, y, rng, dev, path_ms) -> None:
+    """BLS12-381 Fr 2^22 beyond the forward: ``dist_intt`` back to the
+    input, the forward coset, the other two exchanges (the same words as
+    K8's), five random inputs through K8 against the plain exchange, and
+    the run across distinct cards where there are two or more."""
+    from ntt_tpu_torch import limbs
+    from ntt_tpu_torch.parallel import dist_intt, make_dist_ntt, shard_for_ntt
+
+    tag = f"{f.name} 2^{n.bit_length() - 1} dist D={DIST_D} {alg}"
+    back, c = counted(lambda: dist_intt(shard_for_ntt(gathered(y), f, mesh),
+                                        f, mesh, n, algorithm=alg,
+                                        exchange="pallas"))
+    expect_counts(tag + " dist_intt", c,
+                  dist_counts(f, n, alg, DIST_D, "pallas"))
+    if not torch.equal(gathered(back), xm):
+        raise AssertionError(f"{tag}: dist_intt(dist_ntt(x)) != x")
+    del back
+    inv = make_dist_ntt(f, n, mesh, inverse=True, algorithm=alg,
+                        exchange="pallas")
+    ys = shard_for_ntt(gathered(y), f, mesh)
+    ms = path_ms[tag + " dist_intt"] = time_ms(lambda: inv(ys), iters=5,
+                                               warmup=1)
+    print(f"path {tag} dist_intt(dist_ntt(x)) == x  {ms:.4f} ms/transform",
+          flush=True)
+    del inv, ys
+
+    shards = shard_for_ntt(xm, f, mesh)
+    cos = make_dist_ntt(f, n, mesh, algorithm=alg, exchange="pallas",
+                        coset_shift=f.generator)
+    yc = cos(shards)
+    same_words(tag + " coset", limbs.from_mont(gathered(yc), f),
+               golden_coset_ntt(f, xs, f.generator))
+    ms = path_ms[tag + " coset"] = time_ms(lambda: cos(shards), iters=5,
+                                           warmup=1)
+    print(f"path {tag} coset_shift  golden-equal  {ms:.4f} ms/transform",
+          flush=True)
+    del cos, yc
+
+    for exchange in ("all_to_all", "ring"):
+        run = make_dist_ntt(f, n, mesh, algorithm=alg, exchange=exchange)
+        got, c = counted(lambda: run(shards))
+        expect_counts(f"{tag} exchange={exchange}", c,
+                      dist_counts(f, n, alg, DIST_D, exchange))
+        same_shards(f"{tag} exchange={exchange}", got, y)
+        ms = path_ms[f"{tag} {exchange}"] = time_ms(lambda: run(shards),
+                                                   iters=5, warmup=1)
+        print(f"path {tag} exchange={exchange}  words equal to K8's  "
+              f"{ms:.4f} ms/transform", flush=True)
+        del got, run
+    plain = make_dist_ntt(f, n, mesh, algorithm=alg, exchange="all_to_all")
+    fwd = make_dist_ntt(f, n, mesh, algorithm=alg, exchange="pallas")
+    for i in range(5):
+        xi = shard_for_ntt(limbs.to_mont(torch.from_numpy(
+            random_words(f, (n,), rng)).to(dev), f), f, mesh)
+        same_shards(f"{tag} random input {i}: K8 against the plain exchange",
+                    fwd(xi), plain(xi))
+    print(f"path {tag}: five more random inputs, K8 and the plain exchange "
+          "give the same words", flush=True)
+    dist_where_the_time_goes(tag, lambda: fwd(shards))
+    del plain, fwd, shards
+    torch.cuda.empty_cache()
+    cross_cards(f, n, alg, xs, y, path_ms, rng)
+
+
+def dist_where_the_time_goes(tag, fn) -> None:
+    """Device time by kernel of one distributed transform, from
+    ``torch.profiler`` over three calls, and the host clock around it."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        iters = 3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+        rows = [(e.key, e.self_device_time_total / 1e3 / iters, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count]
+    except Exception as e:      # the tracer is optional tooling
+        print(f"breakdown {tag}: profiler unavailable "
+              f"({type(e).__name__}: {e})", flush=True)
+        return
+    busy = sum(r[1] for r in rows)
+    if busy <= 0:
+        print(f"breakdown {tag}: the profiler shows no device time",
+              flush=True)
+        return
+    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"  {ms:.4f} ms a transform ({cnt / iters:g} launches)  "
+              f"{key[:70]}")
+    print(f"breakdown {tag}: device time {busy:.4f} ms a transform, host "
+          f"clock {wall:.4f} ms with the profiler on", flush=True)
+
+
+def cross_cards(f, n, alg, xs, y_one, path_ms, rng) -> None:
+    """The BLS12-381 Fr 2^22 forward on a mesh of distinct cards (four, or
+    two), K8 reading the other cards over peer access, against the golden
+    NTT and the one-card run ``y_one``, six runs; K8 across the cards
+    against its plain version (small shapes, and timed at the main path's
+    shard shape). Says so where the machine has one card."""
+    from ntt_tpu_torch import limbs
+    from ntt_tpu_torch.kernels import exchange
+    from ntt_tpu_torch.parallel import make_dist_ntt, make_mesh, shard_for_ntt
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"cross-card: not possible on this machine ({count} CUDA "
+              "device); K8 ran on one card only, its sources all local",
+              flush=True)
+        return
+    D = 4 if count >= 4 else 2
+    devs = [torch.device("cuda", i) for i in range(D)]
+    print(f"small shapes across {D} cards: "
+          f"{check_small_exchange(rng, devs)} K8 calls word-equal to the "
+          "plain version", flush=True)
+    W, n1 = f.n_words, 2048
+    n2_loc = 2048 // D
+    C = random_shards(W, D, n1, n2_loc, rng, devs)
+    same_shards(f"a2a_transpose across {D} cards",
+                exchange.a2a_transpose(C, D),
+                exchange.a2a_transpose_plain(C, D))
+    ms = time_ms(lambda: exchange.a2a_transpose(C, D))
+    plain_ms = time_ms(lambda: exchange.a2a_transpose_plain(C, D))
+    per = W * n1 * n2_loc * 4                   # bytes a launch reads
+    remote_ms = per * (D - 1) / D / NVLINK_BYTES_PER_S * 1e3
+    local_ms = 2 * per / HBM_BYTES_PER_S * 1e3
+    print(f"check a2a_transpose     [{W},{n1},{n2_loc}] x {D} on {D} cards  "
+          f"word-equal  {ms:.4f} ms a call of {D} concurrent launches  "
+          f"plain {plain_ms:.4f} ms  bound {max(remote_ms, local_ms):.4f} "
+          f"ms a launch (its remote {per * (D - 1) // D} bytes over NVLink "
+          f"at 450 GB/s)", flush=True)
+    path_ms[f"a2a_transpose [{W},{n1},{n2_loc}] x {D} cards"] = ms
+    del C
+
+    mesh = make_mesh(devs)
+    tag = f"{f.name} 2^{n.bit_length() - 1} dist D={D} distinct cards {alg}"
+    xm = limbs.to_mont(torch.from_numpy(xs).to(devs[0]), f)
+    run = make_dist_ntt(f, n, mesh, algorithm=alg, exchange="pallas")
+    shards = shard_for_ntt(xm, f, mesh)
+    y, c = counted(lambda: run(shards))
+    expect_counts(tag, c, dist_counts(f, n, alg, D, "pallas"))
+    same_words(tag, limbs.from_mont(gathered(y), f), golden_ntt(f, xs))
+    if D == DIST_D and not torch.equal(gathered(y), gathered(y_one)):
+        raise AssertionError(f"{tag}: differs from the one-card run")
+    for i in range(5):
+        same_shards(f"{tag} run {i + 2}", run(shards), y)
+    ms = path_ms[tag] = time_ms(lambda: run(shards), iters=5, warmup=1)
+    print(f"path {tag} exchange=pallas  golden-equal, six runs equal  "
+          f"{ms:.4f} ms/transform", flush=True)
+
+
 def probe_line(results) -> None:
     """The five truncations of the fused level at [8,32,8192] and what
     each stage adds, from the timed checks of ``fused_level_probe``."""
@@ -1000,6 +1401,8 @@ KERNELS = {
                           "ntt_tpu/kernels/vmem_ntt.py:93"),
     "fused_level_probe": ("ntt_tpu_torch/csrc/mxu_level.cu",
                           "ntt_tpu/kernels/mxu_level.py:562"),
+    "a2a_transpose": ("ntt_tpu_torch/csrc/exchange.cu",
+                      "ntt_tpu/kernels/exchange.py:39"),
 }
 
 #: the run whose launches each kernel's line counts
@@ -1010,11 +1413,37 @@ MAIN_PATH = {
     "fused_stage_level": "bls12-381-fr 2^18 forward, algorithm pallas_fused",
     "fused_level_probe": "the five probe stages at the bls12-381-fr 2^18 "
                          "level shape [8,32,8192]",
+    "a2a_transpose": "bls12-381-fr 2^22 dist D=4 exchange=pallas",
 }
 INT_MM_NOTE = ("torch._int_mm on the same int8 digit operands (the matmul "
                "part only; a stack level times one entry over all columns, "
                "a multi-level call its two matmuls)")
 NO_LIBRARY_NOTE = "none: no single PyTorch call computes a butterfly ladder"
+LIBRARY_NOTES = {
+    "a2a_transpose": "permute(...).contiguous() of the four shards stacked "
+                     "on one card (the whole exchange; a launch's share is "
+                     "a quarter)"}
+
+
+def cross_cards_only(rng, dev, card) -> int:
+    """``--cross-cards``: the one-card BLS12-381 Fr 2^22 dist forward, then
+    the same on distinct cards against it and the golden NTT; no result
+    line."""
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch import limbs
+    from ntt_tpu_torch.parallel import make_dist_ntt, make_mesh, shard_for_ntt
+
+    n = 1 << 22
+    xs = random_words(f, (n,), rng)
+    mesh = make_mesh([dev] * DIST_D)
+    run = make_dist_ntt(f, n, mesh, algorithm="mxu_sub", exchange="pallas")
+    y = run(shard_for_ntt(limbs.to_mont(torch.from_numpy(xs).to(dev), f), f,
+                          mesh))
+    path_ms = {}
+    cross_cards(f, n, "mxu_sub", xs, y, path_ms, rng)
+    print(json.dumps({"path_ms": path_ms}))
+    print(f"card: {card}")
+    return 0
 
 
 def main() -> int:
@@ -1022,12 +1451,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     quick = "--quick" in sys.argv[1:]
+    cross_only = "--cross-cards" in sys.argv[1:]
     t_start = time.time()
     from ntt_tpu_torch import (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL)
     from ntt_tpu_torch.api import get_runner
     from ntt_tpu_torch.kernels import _build
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
     print(f"card: {card}")
     print(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__}"
@@ -1042,6 +1472,10 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
+    if cross_only:
+        return cross_cards_only(rng, dev, card)
+    print(f"small shapes: {check_small_exchange(rng, [dev])} K8 calls on "
+          "one card word-equal to the plain version", flush=True)
     for f in (SMALL, GOLDILOCKS):
         print(f"small shapes {f.name}: "
               f"{check_small_multi(f, (64, 128, 256, 512), rng, dev)} "
@@ -1061,6 +1495,7 @@ def main() -> int:
               f"{check_small_stages(f, rng, dev)} stage-kernel calls "
               "word-equal to their plain versions", flush=True)
     if quick:
+        check_exchange(rng, dev, {})
         print(f"quick: kernel checks passed in {time.time() - t_start:.1f} s")
         return 0
 
@@ -1072,6 +1507,7 @@ def main() -> int:
     check_kernels(BLS12_381_FR, aux, rng, dev, results)
     check_multi_level(rng, dev, results)
     check_ladder_kernels(rng, dev, results)
+    check_exchange(rng, dev, results)
     probe_line(results)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
 
@@ -1082,6 +1518,8 @@ def main() -> int:
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(ladder_paths(rng, dev, path_ms))
     counts.update(probe_path(rng, dev))
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    counts["a2a_transpose"] = dist_paths(rng, dev, path_ms)["a2a_transpose"]
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     breakdown(GOLDILOCKS, 1 << 18, rng, dev)
     breakdown(BLS12_381_FR, 1 << 18, rng, dev)
@@ -1111,7 +1549,8 @@ def main() -> int:
             "plain_ms": sum(c["plain_ms"] for c in path),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": sum(libs) if libs else None,
-            "library_call": INT_MM_NOTE if libs else NO_LIBRARY_NOTE,
+            "library_call": LIBRARY_NOTES.get(
+                name, INT_MM_NOTE if libs else NO_LIBRARY_NOTE),
             "main_path": MAIN_PATH.get(name, "bls12-381-fr 2^18 forward"),
             "calls": results[name]["calls"]})
     print(json.dumps({"path_ms": path_ms,

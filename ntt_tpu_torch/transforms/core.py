@@ -4,7 +4,8 @@ part of ``ntt_tpu.transforms.core``).
 Every twiddle table is built on the host with the native hostlib and moved
 to the device once, for every n up to 2^24. The values equal the JAX
 package's, which builds the tables above 2^18 on its device instead
-(``ntt_tpu/api.py``, ``_HOST_TW_LIMIT``).
+(``ntt_tpu/api.py``, ``_HOST_TW_LIMIT``; ``power_matrix`` on the
+distributed path).
 
 The ladders (:func:`ntt_along_axis`, :func:`ntt_along_axis_stockham`) are
 plain PyTorch on the caller's device, one pass over the data per stage: in
@@ -50,6 +51,14 @@ def host_power_matrix(field: Field, base: int, n1: int,
     idx = np.outer(np.arange(n1, dtype=np.int64),
                    np.arange(n2, dtype=np.int64))
     return np.ascontiguousarray(pw[:, idx])
+
+
+def power_matrix(field: Field, base: int, n1: int, n2: int,
+                 device) -> torch.Tensor:
+    """:func:`host_power_matrix` as a tensor on ``device``: T[i, j] =
+    base^{i*j}, uint32[W, n1, n2] in Montgomery form. The JAX package
+    generates the same words on its device by log-doubling."""
+    return torch.from_numpy(host_power_matrix(field, base, n1, n2)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -117,10 +117,11 @@ def test_hostlib_powers_and_golden():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and its API, kernels and transforms) loads
-    neither JAX nor ntt_tpu."""
+    """Importing the port (and its API, kernels, transforms and the
+    multi-device path) loads neither JAX nor ntt_tpu."""
     code = ("import sys, ntt_tpu_torch, ntt_tpu_torch.api, "
-            "ntt_tpu_torch.kernels._build, ntt_tpu_torch.transforms.mxu; "
+            "ntt_tpu_torch.kernels._build, ntt_tpu_torch.transforms.mxu, "
+            "ntt_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ntt_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
