@@ -10,10 +10,13 @@ with two or more) and what it is compared with, and prints no result line.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
-   parallel).
+   parallel); reads the SASS of the level library (``cuobjdump -sass``):
+   K2 and K4 must hold int8 tensor-core instructions (IGMMA, the integer
+   wgmma) and no IDP.4A, K3 and K7 IDP.4A and no tensor-core ones.
 2. Holds each kernel, word for word, against its plain PyTorch version on
    the card and times kernel, plain version and ``torch._int_mm`` on the
-   same int8 operands:
+   same int8 operands (K2 and K4, and ``torch._int_mm`` beside them, also
+   by profiler device time):
    - K1, K2, K3 (single-level) at the shapes the 2^18 BLS12-381 forward
      transform gives them, plus K3 at rep = 32 and K2 with a residual
      twiddle;
@@ -28,7 +31,8 @@ with two or more) and what it is compared with, and prints no result line.
      distributed transform on four shards of one card, against its plain
      version and ``permute().contiguous()`` of the stacked shards;
    - at small shapes: K1-K3 for every m from 2 to 32 on all four fields
-     (ragged batches, odd reps), K3 multi-level for m = 64 .. 512 on both
+     (ragged batches, odd reps, stack entries that straddle K2's column
+     tiles), K3 multi-level for m = 64 .. 512 on both
      narrow fields and on BLS12-381 Fr, K4 and K7 for every m from 2 to
      32, K5 and K6 for every m from 2 to 256, with and without T3, both
      store orders, forward and inverse; K8 for D in {2, 4, 8}, W in
@@ -63,7 +67,9 @@ with two or more) and what it is compared with, and prints no result line.
    the two 2^18 forward transforms it prints where the time goes (the
    transposes between levels timed alone, and device time by kernel from
    ``torch.profiler`` where that traces the card).
-4. Prints a ``kernels`` JSON line, the card line, and last the result line
+4. Prints a ``kernels`` JSON line (a kernel's bound is the sum of its
+   launches' own bounds, ``bound_by`` the kind with the larger share and
+   ``bound_split`` both shares), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero, printing no result. It
@@ -73,6 +79,8 @@ needs a CUDA device; it imports neither JAX nor ``ntt_tpu``.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -91,6 +99,44 @@ NVLINK_BYTES_PER_S = 450e9
 #: rate counted as multiply-adds)
 INT32_MADS_PER_S = 132 * 64 * 1.98e9
 SEED = 2026
+#: the tensor-core kernels (K2, K4), timed on the device too, by the name of
+#: their kernel in a profiler trace
+DEVICE_TIMED = {"fused_level_stack": "fused_level_stack_kernel<",
+                "fused_level": "fused_level_kernel<"}
+
+
+def check_sass() -> None:
+    """K2 and K4 contract on the int8 tensor cores and K3 and K7 on
+    ``__dp4a``: the SASS of the built ``mxu_level`` library
+    (``cuobjdump -sass``) shows tensor-core instructions (IGMMA, the
+    integer wgmma, or IMMA) and no IDP.4A in every instantiation of the
+    first two kernels, IDP.4A and none of them in the others."""
+    from ntt_tpu_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", _build._target("mxu_level")],
+                         check=True, capture_output=True, text=True,
+                         timeout=300).stdout
+    counts = {}
+    for part in out.split("Function : ")[1:]:
+        counts[part.split()[0]] = (
+            len(re.findall(r"\b(?:IGMMA|HGMMA|IMMA)\b", part)),
+            len(re.findall(r"\bIDP\.?4A", part)))
+    for kernel, tensor in (("fused_level_stack_kernel", True),
+                           ("fused_level_kernel", True),
+                           ("fused_level_probe_kernel", False),
+                           ("fused_subntt_kernel", False)):
+        got = [c for name, c in counts.items() if kernel + "I" in name]
+        imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
+        ok = len(got) == 3 and all(
+            (i > 0 and d == 0) if tensor else (d > 0 and i == 0)
+            for i, d in got)
+        print(f"sass {kernel}: {len(got)} instantiations, {imma} tensor-core "
+              f"(IGMMA/HGMMA/IMMA), {dp4a} IDP.4A", flush=True)
+        if not ok:
+            want = ("tensor-core instructions, no IDP.4A" if tensor
+                    else "IDP.4A, no tensor-core instructions")
+            raise AssertionError(f"{kernel}: expected {want} in each of its "
+                                 f"three instantiations, got {got}")
 
 
 def card_line() -> str:
@@ -183,14 +229,27 @@ def measure(cases, results, plain_iters: int = 5) -> None:
         plain_ms = time_ms(plain, iters=plain_iters, warmup=1)
         lib_ms = time_ms(lib) if lib is not None else None
         b_ms, b_by = bound(nbytes, macs, mads)
+        timed = ""
+        call = {}
+        if name in DEVICE_TIMED:
+            # a trace now and then comes back without device events: twice
+            dev_ms = (kernel_device_ms(kern, DEVICE_TIMED[name])
+                      or kernel_device_ms(kern, DEVICE_TIMED[name]))
+            lib_dev = None
+            if lib is not None:
+                lib_dev = kernel_device_ms(lib) or kernel_device_ms(lib)
+            call = {"device_ms": dev_ms, "library_device_ms": lib_dev}
+            timed = (f"  device {'-' if dev_ms is None else f'{dev_ms:.4f}'}"
+                     f" ms, _int_mm device "
+                     f"{'-' if lib_dev is None else f'{lib_dev:.4f}'} ms")
         print(f"check {name:18s} {label:44s} word-equal  kernel {ms:.4f} ms"
               f"  plain {plain_ms:.4f} ms  _int_mm "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-              f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
-        call = {"shape": label, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "max_abs_err": err, "bytes": nbytes, "int8_macs": macs,
-                "int32_mads": mads, "path_launches": int(on_path)}
+              f"  bound {b_ms:.4f} ms ({b_by}){timed}", flush=True)
+        call.update({"shape": label, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "max_abs_err": err, "bytes": nbytes, "int8_macs": macs,
+                     "int32_mads": mads, "path_launches": int(on_path)})
         r = results.setdefault(name, {"calls": [], "path": []})
         r["calls"].append(call)
         r["path"].extend([call] * int(on_path))
@@ -456,7 +515,7 @@ def check_small_shapes(f, rng, dev) -> int:
                  mxu_level.fused_subntt(x, f, mats, T, rep=rep),
                  mxu_level.fused_subntt_plain(x, f, mats, T, rep=rep))
             checks += 1
-        for NT, rep in ((3, 16), (4, 7)):
+        for NT, rep in ((3, 16), (4, 7), (3, 100)):
             x, T = rand(m, NT * rep), rand(m, NT * rep)
             if wide:
                 # any digit matrix is within the folded reduction's window
@@ -648,10 +707,12 @@ def check_small_exchange(rng, devs) -> int:
     return checks
 
 
-def kernel_device_ms(fn, key: str, iters: int = 10):
-    """Average device time of one launch of the kernel whose name holds
-    ``key``, from ``torch.profiler`` over ``iters`` calls of ``fn``; None
-    where the tracer shows no device time."""
+def kernel_device_ms(fn, key=None, iters: int = 10):
+    """Average device time from ``torch.profiler`` over ``iters`` calls of
+    ``fn``: of one launch of the kernel whose name holds ``key``, or, with
+    no key, of one call (every kernel it runs, summed: for a library call
+    such as ``torch._int_mm``). None where the tracer shows no device
+    time."""
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -660,9 +721,14 @@ def kernel_device_ms(fn, key: str, iters: int = 10):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if (e.device_type == DeviceType.CUDA and key in e.key
-                    and e.count and e.self_device_time_total > 0):
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count
+                and e.self_device_time_total > 0]
+        if key is None:
+            total = sum(e.self_device_time_total for e in rows)
+            return total / 1e3 / iters if total > 0 else None
+        for e in rows:
+            if key in e.key:
                 return e.self_device_time_total / 1e3 / e.count
     except Exception as e:      # the tracer is optional tooling
         print(f"profiler unavailable ({type(e).__name__}: {e})", flush=True)
@@ -1470,6 +1536,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "warning" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    check_sass()
 
     rng = np.random.default_rng(SEED)
     if cross_only:
@@ -1536,10 +1603,20 @@ def main() -> int:
             raise AssertionError(
                 f"{name}: {counts[name]} launches on its main path, "
                 f"{len(path)} of them timed")
-        b_ms, b_by = bound(sum(c["bytes"] for c in path),
-                           sum(c["int8_macs"] for c in path),
-                           sum(c["int32_mads"] for c in path))
+        # the bound of the path: each launch's own bound, summed; bound_by
+        # names the kind that holds the larger share of it (bound_split)
+        split = {"bytes": 0.0, "operations": 0.0}
+        for c in path:
+            split[c["bound_by"]] += c["bound_ms"]
+        b_ms = split["bytes"] + split["operations"]
+        b_by = max(split, key=split.get)
         libs = [c["library_ms"] for c in path if c["library_ms"] is not None]
+        device = {}
+        if name in DEVICE_TIMED:
+            for key in ("device_ms", "library_device_ms"):
+                vals = [c[key] for c in path]
+                device[key] = (None if any(v is None for v in vals)
+                               else sum(vals))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
@@ -1547,8 +1624,8 @@ def main() -> int:
                                for c in results[name]["calls"]),
             "ms": sum(c["ms"] for c in path),
             "plain_ms": sum(c["plain_ms"] for c in path),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": sum(libs) if libs else None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_split": split,
+            "library_ms": sum(libs) if libs else None, **device,
             "library_call": LIBRARY_NOTES.get(
                 name, INT_MM_NOTE if libs else NO_LIBRARY_NOTE),
             "main_path": MAIN_PATH.get(name, "bls12-381-fr 2^18 forward"),

@@ -21,20 +21,47 @@
 // element; E output digit planes per output row: E = D = 37 for W = 8, whose
 // matrices are pre-folded mod p, and the full banded profile E = 2D - 1 for the
 // narrow fields), followed by a Montgomery reduction and, for K2/K3, a twiddle
-// product. They differ in which matrix a batch column uses, in the epilogue, and
-// in how many such levels one launch runs.
+// product. Every digit and matrix entry is in [0, 127] and every plane sum is
+// below 2^25, so int8 products with int32 sums compute the matmul exactly.
 //
-// One block owns bt batch columns (32 per column group, one warp wide) and all
-// m rows:
+// Two contractions compute Z[e*m + k, b] = sum_c A[e*m + k, c] * d[c, b]:
+//
+// - tc::contract (K2, K4): the int8 tensor cores. A block owns a chunk of kt
+//   output rows and 128 batch columns; its GEMM rows are {e*m + k : e < E, k
+//   in the chunk}, E*kt of them (about 300), zero-padded to 320, and the
+//   contraction depth D*m is zero-padded to a multiple of 32 (k_pad). The
+//   block builds the digit tile of its columns once in shared memory,
+//   K-contiguous per column with the 32-byte swizzle; TMA brings the chunk's
+//   conv-matrix rows 32 contraction bytes a step through a six-stage ring
+//   (the box gathers the rows; where D*m % 16 != 0, at m <= 8, cp.async
+//   loads the whole chunk instead). Per step, four warpgroups run one
+//   wgmma.m64n160k32.s32.s8.s8 each: the digits are the M side (64 columns),
+//   the conv-matrix rows the N side (160 GEMM rows), so one conv-matrix byte
+//   serves 128 columns. A K2 block whose columns span several stack entries
+//   contracts once per entry with a digit tile holding only that entry's
+//   columns. The sums go to a shared int32 Z tile [E*kt, 128] that aliases
+//   the digit tile and the ring, and the epilogue reads them back by (k, b).
+//   The launch plan (kt, k_pad, m_pad, shared bytes, grid) is computed by the
+//   Python wrapper and checked by the launcher.
+// - contract_row (K1, K3, K7): __dp4a on the CUDA cores. One block owns bt
+//   batch columns (32 per column group, one warp wide) and all m rows:
 //   1. it stages the D seven-bit digits of its m x bt elements in shared
 //      memory, four contraction indices c = j*m + i per 32-bit word:
 //      dsm[g * bt + b] holds digits c = 4g .. 4g+3 of column b;
 //   2. each thread, for its output row k and column b, forms the E digit-
-//      plane sums Z[e] = sum_c A[e*m + k, c] * d[c, b] in int32 registers with
-//      __dp4a. Every digit and matrix entry is in [0, 127] and every sum is
-//      below 2^25. Lanes of a warp share k and, for one matrix, read the same
-//      A word (one broadcast load), and read consecutive shared words;
-//   3. it reduces V = sum_e Z[e] * 2^(7e) to canonical words. The matrices are
+//      plane sums in int32 registers with __dp4a. Lanes of a warp share k
+//      and, for one matrix, read the same A word (one broadcast load), and
+//      read consecutive shared words.
+//
+// K1, K3 and K7 still run the __dp4a contraction; K2 and K4 run tc::contract.
+// At the 256-bit main path's shapes (W = 8, m = 32, B = 8192) a level is
+// 11.5 G int8 MACs, 11.6 us at the H100's 1,979 TOPS int8 tensor peak; K2's
+// level 0 is bound by its 61.7 MB of data and stack (18.4 us at 3.35 TB/s),
+// the other K2 and K4 launches by their MACs or, at m = 8, their bytes
+// (mxu_level.cu gives each launch's bound).
+//
+// Then both:
+//   3. reduce V = sum_e Z[e] * 2^(7e) to canonical words. The matrices are
 //      prescaled by R * 2^16 (R = 2^(32 W)), so the result is
 //      V * 2^-(32 W + 16) mod p. The kernel takes it as W + 1 32-bit Montgomery
 //      steps on V * 2^16 (2^16 * 2^-(32 (W + 1))). The window V * 2^16 <
@@ -43,12 +70,13 @@
 //      p * 2^21 < 2^(32 (W + 1)). The JAX package reaches the same canonical
 //      value through its fold matmul and a 16-bit tail (W = 8) or a 16-bit
 //      wide reduction (narrow fields);
-//   4. optionally multiplies by a Montgomery twiddle (32-bit CIOS, R = 2^(32 W));
-//   5. stores the words at [w, k, b], coalesced over b.
+//   4. optionally multiply by a Montgomery twiddle (32-bit CIOS, R = 2^(32 W));
+//   5. store the words at [w, k, b], coalesced over b (K4: or at [w, b, k]).
 #pragma once
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace mxu {
@@ -186,6 +214,364 @@ __device__ __forceinline__ void contract_row(const int8_t* A, int m, int k, cons
     contract<W, 1>(A, m, k, dsm, bt, bl, z);
   }
 }
+
+// ---------------------------------------------------------------------------
+// The contraction on the int8 tensor cores (K2, K4).
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int N = 128;            // batch columns a block owns
+constexpr int NM = 64;            // columns a warpgroup owns: the wgmma M
+constexpr int NR = 160;           // GEMM rows a warpgroup owns: the wgmma N
+constexpr int WGS = 4;            // warpgroups: 2 column halves x 2 row halves
+constexpr int THREADS = 128 * WGS;
+constexpr int ROWS = 2 * NR;      // GEMM rows of a block, padded (m_pad)
+constexpr int BK = 32;            // contraction depth of one step (wgmma K)
+constexpr int STAGES = 6;         // ring stages of the conv-matrix rows (TMA)
+constexpr int ZS = N + 4;         // Z row stride in words (conflict-free)
+constexpr int ALIGN = 256;        // the shared base is aligned up to the swizzle atom
+constexpr int MAX_SMEM = 232448;  // dynamic shared bytes a block may use
+
+// Rows a stage holds: the E*kt GEMM rows, rounded up to the 8-row swizzle atom.
+__host__ __device__ inline int stage_rows(int E, int kt) { return (E * kt + 7) & ~7; }
+
+// Dynamic shared bytes of a block. The conv-matrix rows: STAGES ring stages
+// when TMA feeds them (D*m % 16 == 0), else the whole chunk, k_pad / BK stages.
+// Then the digit tile (k_pad / BK sub-tiles of N x BK bytes), at least as large
+// as the rows the last stage's wgmma reads past its end (ROWS are read, the
+// unused ones multiply into accumulators nobody stores). The Z tile and the
+// transposed-store tile alias both after the main loop; ALIGN bytes of slack.
+// Python's mxu_level.tc_plan computes the same.
+__host__ __device__ inline int smem_bytes(int W, int D, int E, int m, int kt, int k_pad) {
+  const int rows = stage_rows(E, kt);
+  const int stages = (D * m) % 16 == 0 ? STAGES : k_pad / BK;
+  const int dig = N * k_pad > (ROWS - rows) * BK ? N * k_pad : (ROWS - rows) * BK;
+  const int main_loop = stages * rows * BK + dig;
+  const int epilogue = E * kt * ZS * 4 + W * N * (kt | 1) * 4;
+  return ALIGN + (main_loop > epilogue ? main_loop : epilogue);
+}
+
+// One level's operands and its launch plan.
+struct Level {
+  const uint32_t* x;     // [W, m, B]
+  const int8_t* A;       // conv matrix [E*m, D*m], or the first of a stack
+  long long a_stride;    // bytes between stack entries; 0 for one matrix
+  long long a_rep;       // batch columns per stack entry
+  const uint32_t* T3;    // twiddle [W, m, B], or nullptr
+  uint32_t* out;         // [W, m, B], or [W, B, m] when transpose
+  int m;
+  long long B;
+  int transpose;
+  int kt, k_pad, m_pad;  // rows a chunk, padded depth, padded GEMM rows (ROWS)
+  int tma;               // 1: a ring fed by TMA (D*m % 16 == 0); 0: the whole chunk by cp.async
+  FieldConst fc;
+};
+
+// Both operands lie in shared memory K-major with the 32-byte swizzle: a row
+// (a batch column of the digit tile, a GEMM row of the conv matrix) holds
+// BK = 32 bytes of contraction, rows 32 bytes apart, and byte c of row r sits
+// at r * 32 + (c ^ (((r >> 2) & 1) << 4)). TMA's CU_TENSOR_MAP_SWIZZLE_32B
+// writes this layout, wgmma's 32B-swizzle descriptors read it.
+__device__ __forceinline__ int swz(int r, int c) { return r * BK + (c ^ (((r >> 2) & 1) << 4)); }
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor: K-major, 32-byte swizzle, 8-row groups 256 bytes apart.
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  return (uint64_t)((saddr(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(256 >> 4) << 32 |
+         (uint64_t)3 << 62;
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(saddr(dst)), "l"(src),
+               "n"(BYTES));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// Orders this thread's generic-proxy shared writes before async-proxy reads (wgmma).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(saddr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box {BK, kt, E, 1} of the conv-matrix stack viewed as [NT][E][m][D*m]
+// at (c0, k0, 0, s) into `dst`, completing on `bar` (which expects `bytes`).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int bytes, int c0, int k0, int s) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(k0), "r"(0), "r"(s), "r"(saddr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// d = A (64 x 32, K-major, shared) * B (32 x NR, K-major, shared) (+ d when
+// `accumulate`); s8 in, s32 sums.
+__device__ __forceinline__ void wgmma_s8(int (&d)[NR / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  static_assert(NR == 160, "the instruction below is m64n160k32");
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %82, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Seven-bit digit j of a W-word element, in bits 0..6 (higher bits: garbage).
+template <int W>
+__device__ __forceinline__ uint32_t digit_hi(const uint32_t (&w)[W], int j) {
+  const int bit = 7 * j, w0 = bit >> 5, r = bit & 31;
+  if (r + 7 > 32 && w0 + 1 < W) return __funnelshift_r(w[w0], w[w0 + 1], r);
+  return w[w0] >> r;
+}
+
+// Byte c of batch column bl in the digit tile: sub-tile c / BK, row bl.
+__device__ __forceinline__ int dig_at(int bl, int c) {
+  return (c / BK) * (N * BK) + swz(bl, c % BK);
+}
+
+// Rows i0 .. i0+3 of column bl: digit j of the four elements w as one word at
+// contraction index j*m + i0. M: m where it is known at compile time (the
+// addresses then fold into immediates), else 0.
+template <int W, int M>
+__device__ __forceinline__ void put_digits(const uint32_t (&w)[4][W], int m, int bl, int i0,
+                                           uint8_t* dig) {
+  constexpr int D = Geo<W>::D;
+  uint8_t* at0 = dig + dig_at(bl, i0);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const uint32_t lo2 = __byte_perm(digit_hi<W>(w[0], j), digit_hi<W>(w[1], j), 0x0040);
+    const uint32_t hi2 = __byte_perm(digit_hi<W>(w[2], j), digit_hi<W>(w[3], j), 0x0040);
+    uint8_t* at = M == BK ? at0 + j * (N * BK) : dig + dig_at(bl, j * m + i0);
+    *reinterpret_cast<uint32_t*>(at) = __byte_perm(lo2, hi2, 0x5410) & 0x7F7F7F7Fu;
+  }
+}
+
+// The digit tile of columns b0 .. b0+N-1: digit j of element (i, b0 + bl) at
+// contraction index c = j*m + i, zero for c >= D*m and for the columns outside
+// [lo, hi). Ends with the proxy fence of the writes.
+template <int W>
+__device__ __forceinline__ void stage_digits(const Level& L, long long b0, long long lo,
+                                             long long hi, uint8_t* dig) {
+  constexpr int D = Geo<W>::D;
+  const int m = L.m, K = D * m, tail = L.k_pad - K;
+  for (int idx = threadIdx.x; idx < N * tail; idx += THREADS)
+    dig[dig_at(idx / tail, K + idx % tail)] = 0u;
+  if (m % 4 == 0) {
+    // a task: four consecutive rows i0 .. i0+3 of one column, D packed words;
+    // a warp takes 8 consecutive columns x 4 row groups (conflict-free stores)
+    const int G = m / 4;
+    for (int idx = threadIdx.x; idx < N * G; idx += THREADS) {
+      const int bl = (idx >> 3) / G * 8 + (idx & 7), i0 = 4 * ((idx >> 3) % G);
+      const long long b = b0 + bl;
+      const bool in = b >= lo && b < hi;
+      uint32_t w[4][W];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int q = 0; q < W; ++q) w[t][q] = in ? L.x[((long long)q * m + i0 + t) * L.B + b] : 0u;
+      if (m == BK) {
+        put_digits<W, BK>(w, m, bl, i0, dig);
+      } else {
+        put_digits<W, 0>(w, m, bl, i0, dig);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < N * m; idx += THREADS) {
+      const int bl = idx % N, i = idx / N;
+      const long long b = b0 + bl;
+      const bool in = b >= lo && b < hi;
+      uint32_t w[W];
+#pragma unroll
+      for (int q = 0; q < W; ++q) w[q] = in ? L.x[((long long)q * m + i) * L.B + b] : 0u;
+#pragma unroll
+      for (int j = 0; j < D; ++j) dig[dig_at(bl, j * m + i)] = (uint8_t)(digit_hi<W>(w, j) & 127u);
+    }
+  }
+  fence_async_shared();
+}
+
+// Without TMA (D*m % 16 != 0, only at m <= 8): the chunk's conv-matrix rows
+// whole (GEMM row r = e*kt + kk is matrix row e*m + k0 + kk), stage kb holding
+// contraction columns kb*BK .. kb*BK+BK-1 below D*m, VEC bytes a cp.async
+// (single bytes by plain loads); a warp reads along the rows.
+template <int W, int VEC>
+__device__ __forceinline__ void load_whole(const int8_t* A, int m, int kt, int k0,
+                                           int stage_bytes, uint8_t* dst) {
+  constexpr int D = Geo<W>::D, E = Geo<W>::E;
+  const int K = D * m, per_row = K / VEC;
+  for (int idx = threadIdx.x; idx < E * kt * per_row; idx += THREADS) {
+    const int r = idx / per_row, c = (idx % per_row) * VEC;
+    const int8_t* src = A + (long long)((r / kt) * m + k0 + r % kt) * K + c;
+    uint8_t* d = dst + (c / BK) * stage_bytes + swz(r, c % BK);
+    if constexpr (VEC == 1) {
+      *d = (uint8_t)__ldg(src);
+    } else {
+      cp_async<VEC>(d, src);
+    }
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void load_chunk(const int8_t* A, int m, int kt, int k0,
+                                           int stage_bytes, uint8_t* dst) {
+  const int K = Geo<W>::D * m;
+  if (K % 8 == 0) {
+    load_whole<W, 8>(A, m, kt, k0, stage_bytes, dst);
+  } else if (K % 4 == 0) {
+    load_whole<W, 4>(A, m, kt, k0, stage_bytes, dst);
+  } else {
+    load_whole<W, 1>(A, m, kt, k0, stage_bytes, dst);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_async_shared();
+}
+
+// Z[r, bl] for the block's E*kt GEMM rows (r = e*kt + kk) and N columns, into
+// shared memory at `smem` (row stride ZS words): per step, warpgroup g runs
+// one wgmma of columns (g & 1)*NM .. +NM-1 of the digit sub-tile (the M side)
+// against GEMM rows (g >> 1)*NR .. +NR-1 of the stage (the N side). Every
+// conv-matrix byte brought in serves N = 128 columns. The stages come through a ring
+// fed by TMA (the `full` barriers) or, without TMA, hold the whole chunk. A K2
+// block whose columns span several stack entries runs the contraction once per
+// entry, each time with a digit tile that holds only that entry's columns.
+// Ends with a barrier: Z is readable by every thread.
+template <int W>
+__device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map, long long b0,
+                                         int k0, uint8_t* smem, uint64_t* full) {
+  constexpr int E = Geo<W>::E;
+  const int kt = L.kt, R = E * kt, nk = L.k_pad / BK;
+  const int stage_bytes = stage_rows(E, kt) * BK;
+  uint8_t* rows = smem;
+  uint8_t* dig = smem + (L.tma ? STAGES : nk) * stage_bytes;
+  const int mh = (threadIdx.x >> 7) & 1, nh = threadIdx.x >> 8;
+
+  // the stack entries the block's columns touch
+  long long s_lo = 0;
+  int n_entries = 1;
+  if (L.a_stride) {
+    const long long last = (b0 + N < L.B ? b0 + N : L.B) - 1;
+    s_lo = b0 / L.a_rep;
+    n_entries = (int)(last / L.a_rep - s_lo) + 1;
+  }
+  const int steps = n_entries * nk;
+  auto issue = [&](int t) {  // TMA: step t into ring stage t % STAGES
+    tma_load(rows + (t % STAGES) * stage_bytes, map, &full[t % STAGES], R * BK, (t % nk) * BK,
+             k0, (int)(s_lo + t / nk));
+  };
+  if (L.tma && threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < STAGES && t < steps; ++t) issue(t);
+  }
+
+  int acc[NR / 2];  // the first step overwrites it
+
+  for (int e = 0; e < n_entries; ++e) {
+    long long lo = 0, hi = L.B;
+    if (L.a_stride) {
+      lo = (s_lo + e) * L.a_rep;
+      hi = lo + L.a_rep < L.B ? lo + L.a_rep : L.B;
+    }
+    wgmma_wait<0>();
+    __syncthreads();  // the digit tile and the whole chunk are free
+    stage_digits<W>(L, b0, lo, hi, dig);
+    if (!L.tma) load_chunk<W>(L.A + (s_lo + e) * L.a_stride, L.m, kt, k0, stage_bytes, rows);
+    __syncthreads();
+    for (int kb = 0; kb < nk; ++kb) {
+      const int t = e * nk + kb;
+      if (L.tma) mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+      const uint8_t* stage = rows + (L.tma ? t % STAGES : kb) * stage_bytes;
+      wgmma_fence();
+      wgmma_s8(acc, desc(dig + kb * (N * BK) + mh * NM * BK), desc(stage + nh * NR * BK), t > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // this warpgroup's step t - 1 is done
+      if (L.tma) {
+        __syncthreads();  // every warpgroup is done with stage (t - 1) % STAGES
+        if (threadIdx.x == 0 && t >= 1 && t - 1 + STAGES < steps) issue(t - 1 + STAGES);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  __syncthreads();
+
+  // Z: thread (warp w4 of its warpgroup, lane) holds columns mh*NM + w4*16 +
+  // lane/4 (+8) and GEMM rows nh*NR + 8j + 2*(lane%4) (+1), j < NR / 8
+  int* Z = reinterpret_cast<int*>(smem);
+  const int w4 = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int col = mh * NM + w4 * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < NR / 8; ++j) {
+    const int row = nh * NR + j * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row + h < R) {
+        Z[(row + h) * ZS + col] = acc[4 * j + h];
+        Z[(row + h) * ZS + col + 8] = acc[4 * j + 2 + h];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+}  // namespace tc
 
 // y = r mod p for r = r[0..W) + top * 2^(32 W) < 2p.
 template <int W>

@@ -2,9 +2,9 @@
 // twiddle, on uint32[W, m, B] (W = 8, 2 or 1 words per element).
 //
 // K2 mxu_fused_level_stack replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
-// (entry fused_level_stack): the twiddle is folded into a stack of conv matrices
-// As[NT, E*m, D*m] and batch column b uses As[b / rep]; an optional batch-
-// resolution residual twiddle T3[W, m, B] is multiplied into the output.
+// (entry fused_level_stack): the twiddle is folded into a stack of conv
+// matrices As[NT, E*m, D*m] and batch column b uses As[b / rep]; an optional
+// batch-resolution residual twiddle T3[W, m, B] is multiplied into the output.
 //
 // K3 mxu_fused_subntt replaces the single-level form (m <= 32) of
 // ntt_tpu/kernels/mxu_level.py::_kernel_sub (entry fused_subntt): one conv matrix,
@@ -15,39 +15,119 @@
 // K4 mxu_fused_level replaces ntt_tpu/kernels/mxu_level.py::_kernel_level (entry
 // fused_level): one conv matrix, an optional product with a full-resolution
 // twiddle T3[W, m, B], and the store, transposed to [W, B, m] on request: the
-// four-step transpose rides the level's own pass over the data. The block's
-// results go through a shared-memory tile [w][column][row] (row stride m | 1) so
-// that the transposed writes run along m: a block writes bt * m consecutive words
-// per word plane.
+// four-step transpose rides the level's own pass over the data.
 //
 // K7 mxu_fused_level_probe replaces ntt_tpu/kernels/mxu_level.py::_kernel_probe
-// (entry fused_level_probe): K4's level cut off after one of five stages, to
+// (entry fused_level_probe): a level cut off after one of five stages, to
 // attribute its time. Outputs uint32[W, m, B]: "stream" x itself; "digits" the sum
 // of an element's D digits, on every word plane; "matmul" the planes 0 .. W-1 of
-// the E accumulator planes, cast to uint32; "reduce" the reduced y; "tw" y * T3,
-// which is K4 with T3 and no transpose. K4 and K7 are one kernel template with a
-// stage argument.
+// the E accumulator planes, cast to uint32; "reduce" the reduced y; "tw" y * T3.
 //
-// All four run the shared core in mxu_core.cuh. Bounds on an H100 at the 256-bit main
-// path's shapes (W = 8, n = 2^18, m = 32, B = 8192, 11.5 G int8 MACs = 11.6 us at the 1,979 TOPS
-// int8 tensor peak):
+// K2 and K4 contract on the int8 tensor cores (mxu_core.cuh, tc::contract): a
+// block owns a chunk of kt output rows and 128 batch columns; TMA streams the
+// chunk's conv-matrix rows (gathered by a 4-D box over [NT][E][m][D*m]) through
+// a six-stage ring, the digit tile is built once in shared memory, and four
+// warpgroups run wgmma m64n160k32 s8 on it (two column halves x two row
+// halves); the sums go through a shared Z tile to the epilogue: reduce<W>,
+// then T3 by mont_mul, then the store (for K4's transposed store through a
+// [w][column][row | 1] tile, so that the writes run along m). Blocks are
+// numbered column tile by column tile, the row chunks of one tile together, so
+// the blocks of one stack entry run together and read its matrix from L2.
+// K3 and K7 run the __dp4a contraction (run_level, contract_row; K7 on the
+// template fused_level_probe_kernel, which was K4's before the tensor-core
+// version), as K1 in mxu_ntt.cu does.
+//
+// Bounds on an H100 at the 256-bit main path's shapes (W = 8, n = 2^18, m = 32,
+// B = 8192, 11.5 G int8 MACs = 11.6 us at the 1,979 TOPS int8 tensor peak):
 //   K2 level 0 (NT = 32): 61.7 MB (data in and out, the 44.9 MB stack), 18.4 us at
-//      3.35 TB/s: bytes bound it. Level 2 (NT = 8): 28.0 MB, 8.4 us: MACs bound it.
+//      3.35 TB/s: bytes bound it. Level 2 (NT = 8): 28.0 MB, 8.4 us: MACs bound it,
+//      11.6 us. The two launches: 30.0 us.
 //   K3 level 1 (rep = 1): 26.6 MB (data, the 8.4 MB twiddle table, A), 7.9 us:
 //      MACs bound it.
 //   K4 (W = 8, n = 2^18 under mxu_fused: three launches of m = 32, B = 8192 with
 //      T3 and one of m = 8, B = 32768 without): 26.6 MB and 11.5 G MACs, 11.6 us:
-//      MACs bound it; the m = 8 launch 16.9 MB, 5.0 us: bytes bound it.
-// This first version streams each operand once per block: a block reads the
-// matrix rows of its columns' stack entry as warp-uniform loads (the largest stack
-// fits the 50 MB L2) and keeps the digit tile in shared memory; its MACs run as
-// __dp4a on the CUDA cores, not on the tensor cores, so it sits well above the
-// bound.
+//      MACs bound it; the m = 8 launch 16.9 MB, 5.0 us: bytes bound it. The four
+//      launches: 39.8 us.
+// A K2 / K4 block runs its phases in turn (the digit staging, the TMA stream
+// with the wgmma steps, the epilogue on the CUDA cores), one block an SM; at
+// the main path's shapes each phase takes a comparable share of a launch, and
+// the wgmma steps themselves run at about 70% of the int8 peak (PERF.md,
+// tc_knockout.py).
+#include <cudaTypedefs.h>
+
 #include "mxu_core.cuh"
 
+// The epilogue of K2 and K4 for output rows k0 .. k0+kt-1 and the block's columns:
+// Z from shared memory, reduce, T3, store.
 template <int W>
-__global__ void __launch_bounds__(mxu::THREADS, 2) fused_level_stack_kernel(mxu::Level L) {
-  mxu::run_level<W>(L);
+__device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b0, int k0,
+                                            uint8_t* smem) {
+  using namespace mxu;
+  constexpr int E = Geo<W>::E, N = tc::N;
+  const int m = L.m, kt = L.kt, ts = kt | 1;
+  const int* Z = reinterpret_cast<const int*>(smem);
+  uint32_t* tile = reinterpret_cast<uint32_t*>(smem + E * kt * tc::ZS * 4);
+  for (int idx = threadIdx.x; idx < kt * N; idx += tc::THREADS) {
+    const int kk = idx / N, bl = idx % N;
+    const long long b = b0 + bl;
+    uint32_t t[W];  // the twiddle's load runs under the reduction
+    if (L.T3 != nullptr && b < L.B) load_twiddle<W>(L.T3, 1, m, L.B, k0 + kk, b, t);
+    int z[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) z[e] = Z[(e * kt + kk) * tc::ZS + bl];
+    uint32_t y[W];
+    reduce<W>(z, L.fc, y);
+    if (b >= L.B) continue;
+    if (L.T3 != nullptr) {
+      uint32_t r[W];
+      mont_mul<W>(y, t, L.fc, r);
+#pragma unroll
+      for (int q = 0; q < W; ++q) y[q] = r[q];
+    }
+    if (L.transpose) {
+#pragma unroll
+      for (int q = 0; q < W; ++q) tile[(q * N + bl) * ts + kk] = y[q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < W; ++q) L.out[((long long)q * m + k0 + kk) * L.B + b] = y[q];
+    }
+  }
+  if (!L.transpose) return;
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kt * N; idx += tc::THREADS) {
+    const int bl = idx / kt, kk = idx % kt;
+    const long long b = b0 + bl;
+    if (b >= L.B) continue;
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      L.out[((long long)q * L.B + b) * m + k0 + kk] = tile[(q * N + bl) * ts + kk];
+  }
+}
+
+// One K2 / K4 block: column tile blockIdx.x / (m / kt), row chunk blockIdx.x % (m / kt).
+template <int W>
+__device__ __forceinline__ void tc_level(const CUtensorMap* map, const mxu::tc::Level& L) {
+  extern __shared__ uint8_t tc_smem_raw[];
+  __shared__ __align__(8) uint64_t full[mxu::tc::STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      ((uintptr_t)tc_smem_raw + mxu::tc::ALIGN - 1) & ~(uintptr_t)(mxu::tc::ALIGN - 1));
+  const int chunks = L.m / L.kt;
+  const long long b0 = (long long)(blockIdx.x / chunks) * mxu::tc::N;
+  const int k0 = (blockIdx.x % chunks) * L.kt;
+  mxu::tc::contract<W>(L, map, b0, k0, smem, full);
+  tc_epilogue<W>(L, b0, k0, smem);
+}
+
+template <int W>
+__global__ void __launch_bounds__(mxu::tc::THREADS, 1)
+    fused_level_stack_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
+  tc_level<W>(&map, L);
+}
+
+template <int W>
+__global__ void __launch_bounds__(mxu::tc::THREADS, 1)
+    fused_level_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
+  tc_level<W>(&map, L);
 }
 
 template <int W>
@@ -55,16 +135,14 @@ __global__ void __launch_bounds__(mxu::THREADS, 2) fused_subntt_kernel(mxu::Leve
   mxu::run_level<W>(L);
 }
 
-// K4 / K7. Stages of the probe in pipeline order; K4 itself runs to the end.
+// K7 (K4's template before the tensor-core version). Stages of the probe in
+// pipeline order; TW runs the whole level without the transposed store.
 enum ProbeStage { STREAM = 0, DIGITS = 1, MATMUL = 2, REDUCE = 3, TW = 4 };
 
-// Words of the transposed-store tile: W planes of bt columns x (m | 1) words; bt * m
-// is 1024 at most (m = 32), 1056 with the odd stride.
-constexpr int TILE_WORDS = 1056;
-
 template <int W>
-__global__ void __launch_bounds__(mxu::THREADS, 2) fused_level_kernel(mxu::Level L, int stage,
-                                                                       int transpose) {
+__global__ void __launch_bounds__(mxu::THREADS, 2) fused_level_probe_kernel(mxu::Level L,
+                                                                             int stage,
+                                                                             int transpose) {
   using namespace mxu;
   extern __shared__ uint32_t smem[];
   uint32_t* dsm = smem;                       // digit tile
@@ -154,21 +232,22 @@ __global__ void __launch_bounds__(mxu::THREADS, 2) fused_level_kernel(mxu::Level
 }
 
 template <int W>
-static int launch_fused_level(const mxu::Level& L, int stage, int transpose, void* stream) {
-  const size_t smem = (size_t)(mxu::Geo<W>::SMEM_WORDS + (transpose ? W * TILE_WORDS : 0)) * 4;
-  cudaError_t rc = cudaFuncSetAttribute(fused_level_kernel<W>,
+static int launch_probe(const mxu::Level& L, int stage, void* stream) {
+  const size_t smem = (size_t)mxu::Geo<W>::SMEM_WORDS * 4;  // the probe never transposes
+  cudaError_t rc = cudaFuncSetAttribute(fused_level_probe_kernel<W>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return (int)rc;
   const long long bt = mxu::block_cols(L.m);
   const long long blocks = (L.B + bt - 1) / bt;
-  fused_level_kernel<W><<<(unsigned)blocks, mxu::THREADS, smem, (cudaStream_t)stream>>>(
-      L, stage, transpose);
+  fused_level_probe_kernel<W><<<(unsigned)blocks, mxu::THREADS, smem, (cudaStream_t)stream>>>(
+      L, stage, 0);
   return (int)cudaGetLastError();
 }
 
-static int fused_level_entry(const void* x, const void* A, const void* T3, void* out, int stage,
-                             int transpose, int m, long long B, const uint32_t* p,
-                             uint32_t np0, int n_words, void* stream) {
+extern "C" int mxu_fused_level_probe(const void* x, const void* A, const void* T3, void* out,
+                                     int stage, int m, long long B, const uint32_t* p,
+                                     uint32_t np0, int n_words, void* stream) {
+  if (stage < STREAM || stage > TW) return (int)cudaErrorInvalidValue;
   if (m < 2 || m > mxu::MAX_M || (m & (m - 1)) || B < 1) return (int)cudaErrorInvalidValue;
   mxu::Level L{};
   L.x = static_cast<const uint32_t*>(x);
@@ -180,24 +259,97 @@ static int fused_level_entry(const void* x, const void* A, const void* T3, void*
   L.B = B;
   L.fc = mxu::field_const(p, np0);
   switch (n_words) {
-    case 8: return launch_fused_level<8>(L, stage, transpose, stream);
-    case 2: return launch_fused_level<2>(L, stage, transpose, stream);
-    case 1: return launch_fused_level<1>(L, stage, transpose, stream);
+    case 8: return launch_probe<8>(L, stage, stream);
+    case 2: return launch_probe<2>(L, stage, stream);
+    case 1: return launch_probe<1>(L, stage, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime.
+static PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got) ==
+            cudaSuccess &&
+        got == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The TMA map of the conv-matrix stack int8[NT][E][m][K] (NT = 1 for one
+// matrix): boxes of {BK, kt, E, 1} bytes, 32-byte swizzle, zeros beyond K.
+static bool stack_map(CUtensorMap* map, const int8_t* A, int E, int m, int K, long long NT,
+                      int kt) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)K, (cuuint64_t)m, (cuuint64_t)E, (cuuint64_t)NT};
+  const cuuint64_t strides[3] = {(cuuint64_t)K, (cuuint64_t)m * K, (cuuint64_t)E * m * K};
+  const cuuint32_t box[4] = {(cuuint32_t)mxu::tc::BK, (cuuint32_t)kt, (cuuint32_t)E, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(A), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K2 / K4: checks the launch plan (kt, k_pad, m_pad, blocks, smem) against the
+// operands and launches it; cudaErrorInvalidValue for a plan the kernel cannot take.
+template <int W>
+static int launch_tc(bool stack, mxu::tc::Level& L, long long NT, long long blocks, int smem,
+                     void* stream) {
+  using namespace mxu;
+  constexpr int D = Geo<W>::D, E = Geo<W>::E;
+  const int m = L.m, kt = L.kt, K = D * m;
+  const bool ok = m >= 2 && m <= MAX_M && !(m & (m - 1)) && L.B >= 1 && kt >= 1 && kt <= m &&
+                  !(kt & (kt - 1)) && L.k_pad >= K && L.k_pad % tc::BK == 0 &&
+                  L.m_pad == tc::ROWS && E * kt <= tc::ROWS &&
+                  blocks == (L.B + tc::N - 1) / tc::N * (m / kt) && blocks <= 0x7fffffffLL &&
+                  smem >= tc::smem_bytes(W, D, E, m, kt, L.k_pad) && smem <= tc::MAX_SMEM &&
+                  (L.a_stride == 0 || L.a_rep >= 1) && NT >= 1;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  CUtensorMap map{};
+  L.tma = K % 16 == 0;
+  if (L.tma && !stack_map(&map, L.A, E, m, K, NT, kt)) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const CUtensorMap, tc::Level) = fused_level_kernel<W>;
+  if (stack) kernel = fused_level_stack_kernel<W>;
+  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<(unsigned)blocks, tc::THREADS, smem, (cudaStream_t)stream>>>(map, L);
+  return (int)cudaGetLastError();
+}
+
+static int tc_entry(bool stack, mxu::tc::Level& L, long long NT, const uint32_t* p, uint32_t np0,
+                    int n_words, int kt, int k_pad, int m_pad, long long blocks, int smem,
+                    void* stream) {
+  L.kt = kt;
+  L.k_pad = k_pad;
+  L.m_pad = m_pad;
+  L.fc = mxu::field_const(p, np0);
+  switch (n_words) {
+    case 8: return launch_tc<8>(stack, L, NT, blocks, smem, stream);
+    case 2: return launch_tc<2>(stack, L, NT, blocks, smem, stream);
+    case 1: return launch_tc<1>(stack, L, NT, blocks, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int mxu_fused_level(const void* x, const void* A, const void* T3, void* out,
                                int transpose, int m, long long B, const uint32_t* p,
-                               uint32_t np0, int n_words, void* stream) {
-  return fused_level_entry(x, A, T3, out, TW, transpose, m, B, p, np0, n_words, stream);
-}
-
-extern "C" int mxu_fused_level_probe(const void* x, const void* A, const void* T3, void* out,
-                                     int stage, int m, long long B, const uint32_t* p,
-                                     uint32_t np0, int n_words, void* stream) {
-  if (stage < STREAM || stage > TW) return (int)cudaErrorInvalidValue;
-  return fused_level_entry(x, A, T3, out, stage, 0, m, B, p, np0, n_words, stream);
+                               uint32_t np0, int n_words, int kt, int k_pad, int m_pad,
+                               long long blocks, int smem, void* stream) {
+  mxu::tc::Level L{};
+  L.x = static_cast<const uint32_t*>(x);
+  L.A = static_cast<const int8_t*>(A);
+  L.T3 = static_cast<const uint32_t*>(T3);
+  L.out = static_cast<uint32_t*>(out);
+  L.m = m;
+  L.B = B;
+  L.transpose = transpose;
+  return tc_entry(false, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }
 
 // Bytes of one stack entry int8[E*m, D*m] of a W-word field.
@@ -212,20 +364,20 @@ static long long stack_stride(int n_words, int m) {
 
 extern "C" int mxu_fused_level_stack(const void* x, const void* As, long long rep,
                                      const void* T3, void* out, int m, long long B,
-                                     const uint32_t* p, uint32_t np0, int n_words,
+                                     const uint32_t* p, uint32_t np0, int n_words, int kt,
+                                     int k_pad, int m_pad, long long blocks, int smem,
                                      void* stream) {
-  mxu::Level L{};
+  if (rep < 1 || B % rep) return (int)cudaErrorInvalidValue;
+  mxu::tc::Level L{};
   L.x = static_cast<const uint32_t*>(x);
   L.A = static_cast<const int8_t*>(As);
   L.a_stride = stack_stride(n_words, m);
   L.a_rep = rep;
   L.T3 = static_cast<const uint32_t*>(T3);
-  L.t_rep = 1;
   L.out = static_cast<uint32_t*>(out);
   L.m = m;
   L.B = B;
-  L.fc = mxu::field_const(p, np0);
-  return MXU_LAUNCH_FOR_WIDTH(fused_level_stack_kernel, n_words, L, stream);
+  return tc_entry(true, L, B / rep, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }
 
 extern "C" int mxu_fused_subntt(const void* x, const void* A, const void* T3, long long rep,

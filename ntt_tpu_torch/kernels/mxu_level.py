@@ -2,7 +2,7 @@
 twiddle (port of ``ntt_tpu.kernels.mxu_level``).
 
 - ``fused_level_stack`` (K2): the twiddle is folded into a stack of conv
-  matrices As[NT, D*m, D*m]; batch column b uses ``As[b // rep]``; an
+  matrices As[NT, E*m, D*m]; batch column b uses ``As[b // rep]``; an
   optional batch-resolution residual twiddle T3 [W, m, B] multiplies the
   output.
 - ``fused_subntt`` (K3): an m-point sub-NTT, then the decomposition
@@ -21,13 +21,16 @@ twiddle (port of ``ntt_tpu.kernels.mxu_level``).
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/mxu_level.cu``, ``csrc/mxu_sub.cu``); on a CPU tensor it runs its
-plain PyTorch version.
+plain PyTorch version. K2 and K4 contract on the int8 tensor cores; their
+launch plan (:func:`tc_plan`) is computed here and checked by the C
+launcher.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,15 +48,17 @@ MAX_SUB = 512
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mxu_level")
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    plan = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ll, ctypes.c_int]
     lib.mxu_fused_level_stack.argtypes = [
-        vp, vp, ll, vp, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, vp]
+        vp, vp, ll, vp, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, *plan,
+        vp]
     lib.mxu_fused_level_stack.restype = ctypes.c_int
     lib.mxu_fused_subntt.argtypes = [
         vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, vp]
     lib.mxu_fused_subntt.restype = ctypes.c_int
     lib.mxu_fused_level.argtypes = [
         vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ll,
-        *_build.FIELD_ARGTYPES, vp]
+        *_build.FIELD_ARGTYPES, *plan, vp]
     lib.mxu_fused_level.restype = ctypes.c_int
     lib.mxu_fused_level_probe.argtypes = [
         vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ll,
@@ -71,6 +76,69 @@ def _lib_sub() -> ctypes.CDLL:
         vp]
     lib.mxu_fused_subntt_multi.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of the tensor-core levels (K2, K4): csrc/mxu_core.cuh, tc::
+# ---------------------------------------------------------------------------
+
+#: batch columns a block owns (two wgmma M of 64); GEMM rows of a block,
+#: padded (two wgmma N of 160); the contraction depth is padded to
+#: TC_BK, one wgmma step and one stage of the conv-matrix rows; TC_STAGES
+#: ring stages where TMA feeds them (D*m % 16 == 0), else the whole chunk;
+#: the Z tile's rows are TC_COLS + 4 words; TC_ALIGN bytes of slack align
+#: the shared base to the 256-byte swizzle atom
+TC_COLS = 128
+TC_ROWS_PAD = 320
+TC_BK = 32
+TC_STAGES = 6
+TC_Z_STRIDE = TC_COLS + 4
+TC_ALIGN = 256
+#: dynamic shared memory a block may use on an H100
+TC_MAX_SMEM = 232448
+#: output rows a block owns (a row chunk), by field width: about 300 GEMM
+#: rows (E * kt) for every width
+TC_KT = {8: 8, 2: 16, 1: 32}
+
+
+class TcPlan(NamedTuple):
+    """Launch plan of one tensor-core level: kt output rows a chunk, the
+    contraction depth and GEMM rows padded for the MMA, ``chunks`` row
+    chunks x ``col_tiles`` column tiles of TC_COLS = ``blocks``, and the
+    block's dynamic shared bytes."""
+    kt: int
+    k_pad: int
+    m_pad: int
+    chunks: int
+    col_tiles: int
+    blocks: int
+    smem_bytes: int
+
+
+def tc_plan(field: Field, m: int, B: int) -> TcPlan:
+    """The plan of a K2 / K4 launch on uint32[W, m, B] of ``field``."""
+    W = field.n_words
+    if W not in TC_KT or m & (m - 1) or not 2 <= m <= 32 or B < 1:
+        raise ValueError(f"no tensor-core plan for W = {W}, m = {m}, "
+                         f"B = {B}")
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    kt = min(m, TC_KT[W])
+    k_pad = -(-D * m // TC_BK) * TC_BK
+    chunks, col_tiles = m // kt, -(-B // TC_COLS)
+    rows = -(-E * kt // 8) * 8
+    stages = TC_STAGES if D * m % 16 == 0 else k_pad // TC_BK
+    main_loop = (stages * rows * TC_BK
+                 + max(TC_COLS * k_pad, (TC_ROWS_PAD - rows) * TC_BK))
+    epilogue = E * kt * TC_Z_STRIDE * 4 + W * TC_COLS * (kt | 1) * 4
+    plan = TcPlan(kt, k_pad, TC_ROWS_PAD, chunks, col_tiles,
+                  chunks * col_tiles, TC_ALIGN + max(main_loop, epilogue))
+    if E * kt > TC_ROWS_PAD or plan.smem_bytes > TC_MAX_SMEM:
+        raise ValueError(f"W = {W}, m = {m}: plan {plan} exceeds the block")
+    return plan
+
+
+def _plan_args(plan: TcPlan) -> tuple:
+    return (plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
 
 
 def _zmax_bits(field: Field, m: int) -> int:
@@ -132,7 +200,8 @@ def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
     out = torch.empty_like(x3)
     rc = _lib().mxu_fused_level_stack(
         _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), _build.ptr(out),
-        m, B, *_build.field_args(field), _build.stream(x3))
+        m, B, *_build.field_args(field), *_plan_args(tc_plan(field, m, B)),
+        _build.stream(x3))
     _build.check(rc, "fused_level_stack")
     _build.launches["fused_level_stack"] += 1
     return out
@@ -291,7 +360,7 @@ def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
     rc = _lib().mxu_fused_level(
         _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
         int(transpose_out), m, B, *_build.field_args(field),
-        _build.stream(x3))
+        *_plan_args(tc_plan(field, m, B)), _build.stream(x3))
     _build.check(rc, "fused_level")
     _build.launches["fused_level"] += 1
     return out
