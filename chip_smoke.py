@@ -10,16 +10,18 @@ with two or more) and what it is compared with, and prints no result line.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
-   parallel); reads the SASS of the level library (``cuobjdump -sass``):
-   K2 and K4 must hold int8 tensor-core instructions (IGMMA, the integer
-   wgmma) and no IDP.4A, K3 and K7 IDP.4A and no tensor-core ones.
+   parallel); reads the SASS of the level and multi-level libraries
+   (``cuobjdump -sass``): K1, K2, K3 single-level and K4 must hold int8
+   tensor-core instructions (IGMMA, the integer wgmma) and no IDP.4A, K3
+   multi-level and K7 IDP.4A and no tensor-core ones.
 2. Holds each kernel, word for word, against its plain PyTorch version on
    the card and times kernel, plain version and ``torch._int_mm`` on the
-   same int8 operands (K2 and K4, and ``torch._int_mm`` beside them, also
-   by profiler device time):
+   same int8 operands (K1-K4, and ``torch._int_mm`` beside them, also by
+   profiler device time):
    - K1, K2, K3 (single-level) at the shapes the 2^18 BLS12-381 forward
      transform gives them, plus K3 at rep = 32 and K2 with a residual
-     twiddle;
+     twiddle, and K3 at rep = 1024 and K1 at m = 4 and 16 at the full
+     width of the 2^22 and 2^24 transforms;
    - K3 multi-level at the shapes of the narrow-field transforms:
      Goldilocks 2^18 and 2^24, small-proth 2^22;
    - K4 (``fused_level``), K5 (``stage_ntt``), K6 (``fused_stage_level``)
@@ -42,7 +44,10 @@ with two or more) and what it is compared with, and prints no result line.
    - the 256-bit path: BLS12-381 Fr 2^18 forward on the ramp (launch
      counts asserted) and on random input, BN254 Fr 2^18, BLS 2^14, BLS
      2^20; BLS 2^18 ``intt`` and ``coset_ntt`` (the coset folded into the
-     same four launches, asserted), BLS 2^12 ``coset_ntt``;
+     same four launches, asserted), BLS 2^12 ``coset_ntt``; BLS 2^22 and
+     2^24 forward, 2^24 ``coset_ntt`` and ``lde`` 2^22 -> 2^24 (launch
+     counts asserted; the golden results computed on host threads while
+     the card works);
    - the narrow path: Goldilocks 2^18 and 2^24 and small-proth 2^22
      forward (launch counts asserted: 2, 3 and 2 + 1); Goldilocks 2^20
      ``intt(ntt(x)) == x``, ``intt`` and ``coset_ntt``; ``lde`` blowup 4
@@ -99,32 +104,38 @@ NVLINK_BYTES_PER_S = 450e9
 #: rate counted as multiply-adds)
 INT32_MADS_PER_S = 132 * 64 * 1.98e9
 SEED = 2026
-#: the tensor-core kernels (K2, K4), timed on the device too, by the name of
+#: the tensor-core kernels (K1-K4), timed on the device too, by the name of
 #: their kernel in a profiler trace
-DEVICE_TIMED = {"fused_level_stack": "fused_level_stack_kernel<",
+DEVICE_TIMED = {"base_ntt_mxu": "base_ntt_mxu_kernel<",
+                "fused_level_stack": "fused_level_stack_kernel<",
+                "fused_subntt": "fused_subntt_kernel<",
                 "fused_level": "fused_level_kernel<"}
 
 
 def check_sass() -> None:
-    """K2 and K4 contract on the int8 tensor cores and K3 and K7 on
-    ``__dp4a``: the SASS of the built ``mxu_level`` library
-    (``cuobjdump -sass``) shows tensor-core instructions (IGMMA, the
-    integer wgmma, or IMMA) and no IDP.4A in every instantiation of the
-    first two kernels, IDP.4A and none of them in the others."""
+    """K1, K2, K3 single-level and K4 contract on the int8 tensor cores, K3
+    multi-level and K7 on ``__dp4a``: the SASS of the built ``mxu_level``
+    and ``mxu_sub`` libraries (``cuobjdump -sass``) shows tensor-core
+    instructions (IGMMA, the integer wgmma, or IMMA) and no IDP.4A in every
+    instantiation of the first four kernels, IDP.4A and none of them in
+    the others."""
     from ntt_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-sass", _build._target("mxu_level")],
-                         check=True, capture_output=True, text=True,
-                         timeout=300).stdout
     counts = {}
-    for part in out.split("Function : ")[1:]:
-        counts[part.split()[0]] = (
-            len(re.findall(r"\b(?:IGMMA|HGMMA|IMMA)\b", part)),
-            len(re.findall(r"\bIDP\.?4A", part)))
-    for kernel, tensor in (("fused_level_stack_kernel", True),
+    for lib in ("mxu_level", "mxu_sub"):
+        out = subprocess.run([tool, "-sass", _build._target(lib)],
+                             check=True, capture_output=True, text=True,
+                             timeout=300).stdout
+        for part in out.split("Function : ")[1:]:
+            counts[part.split()[0]] = (
+                len(re.findall(r"\b(?:IGMMA|HGMMA|IMMA)\b", part)),
+                len(re.findall(r"\bIDP\.?4A", part)))
+    for kernel, tensor in (("base_ntt_mxu_kernel", True),
+                           ("fused_level_stack_kernel", True),
+                           ("fused_subntt_kernel", True),
                            ("fused_level_kernel", True),
                            ("fused_level_probe_kernel", False),
-                           ("fused_subntt_kernel", False)):
+                           ("fused_subntt_multi_kernel", False)):
         got = [c for name, c in counts.items() if kernel + "I" in name]
         imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
         ok = len(got) == 3 and all(
@@ -257,7 +268,8 @@ def measure(cases, results, plain_iters: int = 5) -> None:
 
 def check_kernels(f, aux, rng, dev, results) -> None:
     """K1, K2 and single-level K3 against their plain versions, at the
-    256-bit main path's shapes."""
+    256-bit main path's shapes, and K1 and K3 at the full width of the
+    2^22 and 2^24 transforms."""
     from ntt_tpu_torch import digits
     from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
 
@@ -323,6 +335,29 @@ def check_kernels(f, aux, rng, dev, results) -> None:
                   3 * x5.numel() * 4 + A5.numel(), A5.numel() * 128,
                   None, False))
     measure(cases, results)
+
+    # off the 2^18 path, at full width: K3 at 2^24 level 2 (a deep table,
+    # rep 1024), K1 as the last base of 2^22 (m = 4) and 2^24 (m = 16)
+    big = sub_mats_on(f, {4, 16}, False, dev)
+    x6 = rand(32, 1 << 19)
+    T6 = rand(512, 32)
+    measure([("fused_subntt", "2^24 level 2 [8,32,524288] rep 1024",
+              lambda: mxu_level.fused_subntt(x6, f, sub, T6, rep=1024),
+              lambda: mxu_level.fused_subntt_plain(x6, f, sub, T6, rep=1024),
+              2 * x6.numel() * 4 + T6.numel() * 4 + mats[32].numel(),
+              mats[32].numel() * (1 << 19), mm(mats[32], x6), False)],
+            results, plain_iters=1)
+    del x6, T6
+    for m, log_n in ((4, 22), (16, 24)):
+        xb = rand(m, 1 << 20)
+        measure([("base_ntt_mxu", f"2^{log_n} base [8,{m},1048576]",
+                  lambda: mxu_ntt.base_ntt_mxu(xb, f, big[m], big[-m]),
+                  lambda: mxu_ntt.base_ntt_mxu_plain(xb, f, big[m], big[-m]),
+                  2 * xb.numel() * 4 + big[m].numel(),
+                  big[m].numel() * (1 << 20), mm(big[m], xb), False)],
+                results, plain_iters=1)
+        del xb
+    torch.cuda.empty_cache()
 
 
 def check_ladder_kernels(rng, dev, results) -> None:
@@ -805,6 +840,15 @@ def golden_coset_ntt(f, x, shift) -> np.ndarray:
     return golden_ntt(f, golden_mul(f, x, pw))
 
 
+def golden_lde(f, x, blowup) -> np.ndarray:
+    """The low-degree extension of the evaluations x: their coefficients,
+    zero-padded to blowup * n, evaluated on the coset of the generator."""
+    coeffs = golden_ntt(f, x, inverse=True)
+    zeros = np.zeros((f.n_words, (blowup - 1) * x.shape[1]), dtype=np.uint32)
+    return golden_coset_ntt(f, np.concatenate([coeffs, zeros], axis=1),
+                            f.generator)
+
+
 def same_words(what, got, want) -> None:
     got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
     if got.shape != want.shape or not np.array_equal(got, want):
@@ -899,6 +943,74 @@ def wide_paths(rng, dev, run, aux, path_ms) -> dict:
     return counts
 
 
+#: launches of one BLS12-381 Fr forward transform above 2^20: level 0 a
+#: 32-entry stack, level 1 the merged table, the deeper levels a stack or,
+#: at 2^24 level 2, a deep table at rep 1024; the last base m = 4 (2^22) or
+#: m = 16 (2^24) over 2^20 columns
+WIDE_LARGE_COUNTS = {
+    22: {"fused_level_stack": 3, "fused_subntt": 1, "base_ntt_mxu": 1},
+    24: {"fused_level_stack": 2, "fused_subntt": 2, "base_ntt_mxu": 1},
+}
+
+
+def wide_large_paths(rng, dev, path_ms) -> None:
+    """The 256-bit ``auto`` path above 2^20 on one card: BLS12-381 Fr
+    forward at 2^22 and 2^24 (the runner ``ntt`` builds, Montgomery I/O,
+    timed with its tables resident), ``coset_ntt`` at 2^24 (the coset
+    folded into the same launches) and ``lde`` 2^22 -> 2^24 (blowup 4: the
+    inverse at 2^22, then the coset transform at 2^24), random inputs,
+    every output word against the hostlib golden result, launch counts
+    asserted. The golden results are computed on host threads (the hostlib
+    releases the GIL) while the card works."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch import limbs
+    from ntt_tpu_torch.api import coset_ntt, get_runner, lde
+
+    xs = {log_n: random_words(f, (1 << log_n,), rng) for log_n in (22, 24)}
+    xc = random_words(f, (1 << 24,), rng)
+    xl = random_words(f, (1 << 22,), rng)
+    both = {k: c + WIDE_LARGE_COUNTS[22][k]
+            for k, c in WIDE_LARGE_COUNTS[24].items()}
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        want = {log_n: pool.submit(golden_ntt, f, x)
+                for log_n, x in xs.items()}
+        want_coset = pool.submit(golden_coset_ntt, f, xc, f.generator)
+        want_lde = pool.submit(golden_lde, f, xl, 4)
+        for log_n, x in xs.items():
+            tag = f"{f.name} 2^{log_n} random"
+            xm = limbs.to_mont(torch.from_numpy(x).to(dev), f)
+            r, a = get_runner(f, 1 << log_n, device=dev)
+            y, c = counted(lambda: r(xm, a))
+            expect_counts(f"{f.name} 2^{log_n} forward", c,
+                          WIDE_LARGE_COUNTS[log_n])
+            same_words(tag, limbs.from_mont(y, f), want[log_n].result())
+            ms = path_ms[tag] = time_ms(lambda: r(xm, a), iters=5, warmup=1)
+            print(f"path {tag}  golden-equal  {ms:.4f} ms/transform (tables "
+                  "resident)", flush=True)
+            del xm, y, r, a
+        xd = torch.from_numpy(xc).to(dev)
+        y, c = counted(lambda: coset_ntt(xd, f, device=dev))
+        expect_counts(f"{f.name} 2^24 coset_ntt (folded into the stack)", c,
+                      WIDE_LARGE_COUNTS[24])
+        same_words(f"{f.name} 2^24 coset_ntt", y, want_coset.result())
+        ms = path_ms[f"{f.name} 2^24 coset_ntt"] = time_ms(
+            lambda: coset_ntt(xd, f, device=dev), iters=3, warmup=1)
+        print(f"path {f.name} 2^24 coset_ntt  golden-equal  {ms:.4f} ms "
+              "(standard-form I/O)", flush=True)
+        xd = torch.from_numpy(xl).to(dev)
+        y, c = counted(lambda: lde(xd, f, blowup=4, device=dev))
+        expect_counts(f"{f.name} lde 2^22 -> 2^24", c, both)
+        same_words(f"{f.name} lde 2^22 x4", y, want_lde.result())
+        ms = path_ms[f"{f.name} lde 2^22 x4"] = time_ms(
+            lambda: lde(xd, f, blowup=4, device=dev), iters=3, warmup=1)
+        print(f"path {f.name} lde 2^22 blowup 4  golden-equal  {ms:.4f} ms "
+              "(standard-form I/O)", flush=True)
+        del xd, y
+    torch.cuda.empty_cache()
+
+
 def narrow_paths(rng, dev, path_ms) -> dict:
     """The narrow-field path. Returns the launch counts of the Goldilocks
     2^18 forward transform."""
@@ -962,11 +1074,8 @@ def narrow_paths(rng, dev, path_ms) -> dict:
     n = 1 << 18
     xs = random_words(f, (n,), rng)
     xd = torch.from_numpy(xs).to(dev)
-    coeffs = golden_ntt(f, xs, inverse=True)
-    padded = np.concatenate(
-        [coeffs, np.zeros((f.n_words, 3 * n), dtype=np.uint32)], axis=1)
     same_words("goldilocks lde 2^18 x4", lde(xd, f, blowup=4, device=dev),
-               golden_coset_ntt(f, padded, g))
+               golden_lde(f, xs, 4))
     ms = path_ms["goldilocks lde 2^18 x4"] = time_ms(
         lambda: lde(xd, f, blowup=4, device=dev), iters=10)
     print(f"path goldilocks lde 2^18 blowup 4  golden-equal  {ms:.4f} ms "
@@ -1187,10 +1296,7 @@ def dist_paths(rng, dev, path_ms) -> dict:
     # dist_lde: Goldilocks 2^22 evaluations -> 2^24 coset evaluations
     f, n = get_field("goldilocks"), 1 << DIST_LDE_LOG
     xs = random_words(f, (n,), rng)
-    coeffs = golden_ntt(f, xs, inverse=True)
-    padded = np.concatenate(
-        [coeffs, np.zeros((f.n_words, 3 * n), dtype=np.uint32)], axis=1)
-    want = golden_coset_ntt(f, padded, f.generator)
+    want = golden_lde(f, xs, 4)
     shards = shard_for_ntt(limbs.to_mont(torch.from_numpy(xs).to(dev), f), f,
                            mesh)
     y = dist_lde(shards, f, mesh, n, blowup=4, algorithm="mxu_sub")
@@ -1451,7 +1557,7 @@ def breakdown(f, n, rng, dev, algorithm="auto") -> None:
 
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "base_ntt_mxu": ("ntt_tpu_torch/csrc/mxu_ntt.cu",
+    "base_ntt_mxu": ("ntt_tpu_torch/csrc/mxu_level.cu",
                      "ntt_tpu/kernels/mxu_ntt.py:128"),
     "fused_level_stack": ("ntt_tpu_torch/csrc/mxu_level.cu",
                           "ntt_tpu/kernels/mxu_level.py:410"),
@@ -1580,6 +1686,8 @@ def main() -> int:
 
     path_ms = {}
     counts = wide_paths(rng, dev, run, aux, path_ms)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    wide_large_paths(rng, dev, path_ms)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(narrow_paths(rng, dev, path_ms))
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)

@@ -13,8 +13,11 @@ nor ``ntt_tpu``.
 from .api import (coset_intt, coset_ntt, intt, lde, ntt, polymul, ramp_mont)
 from .fields import (BLS12_381_FR, BN254_FR, FIELDS, GOLDILOCKS, SMALL, Field,
                      get_field)
-from .limbs import from_ints, to_ints
+from .limbs import from_ints, from_mont, to_ints, to_mont
+
+__version__ = "0.1.0"
 
 __all__ = ["ntt", "intt", "coset_ntt", "coset_intt", "lde", "polymul",
            "ramp_mont", "Field", "FIELDS", "SMALL", "BN254_FR",
-           "BLS12_381_FR", "GOLDILOCKS", "get_field", "from_ints", "to_ints"]
+           "BLS12_381_FR", "GOLDILOCKS", "get_field", "from_ints", "to_ints",
+           "to_mont", "from_mont"]

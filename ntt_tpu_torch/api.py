@@ -331,10 +331,15 @@ def _as_tensor(x) -> torch.Tensor:
 
 def ntt(x, field: Field | str, inverse: bool = False,
         algorithm: str = "auto", mont_io: bool = False,
-        coset_shift: int | None = None, device=None) -> torch.Tensor:
+        coset_shift: int | None = None, donate: bool = False,
+        device=None) -> torch.Tensor:
     """Number-theoretic transform of ``x`` (uint32[W, n] or batched
     uint32[W, n, *batch], a tensor or an array; transforms along axis 1,
-    natural order) on ``device`` (default: the CUDA card)."""
+    natural order) on ``device`` (default: the CUDA card).
+
+    ``donate=True`` hands ``x`` over, as the dist path's ``donate`` does:
+    the output is written into its storage and returned, so the caller
+    keeps one buffer instead of two, and the input's contents are gone."""
     field = _as_field(field)
     dev = _device(device)
     x = _as_tensor(x)
@@ -354,7 +359,11 @@ def ntt(x, field: Field | str, inverse: bool = False,
         got = _runner_cache[key] = get_runner(
             field, n, inverse, algorithm, mont_io, coset_shift, dev)
     run, aux = got
-    return run(x, aux)
+    y = run(x, aux)
+    if not donate:
+        return y
+    x.copy_(y)
+    return x
 
 
 def intt(x, field: Field | str, **kw) -> torch.Tensor:

@@ -1,7 +1,7 @@
 // Shared device core of the port's digit-matmul kernels:
 //
-//   mxu_ntt.cu    mxu_base_ntt           K1, replaces ntt_tpu/kernels/mxu_ntt.py::_kernel
-//   mxu_level.cu  mxu_fused_level_stack  K2, replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
+//   mxu_level.cu  mxu_base_ntt           K1, replaces ntt_tpu/kernels/mxu_ntt.py::_kernel
+//                 mxu_fused_level_stack  K2, replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
 //                 mxu_fused_subntt       K3, replaces ntt_tpu/kernels/mxu_level.py::_kernel_sub
 //                                            in its single-level form, m <= 32
 //                 mxu_fused_level        K4, replaces ntt_tpu/kernels/mxu_level.py::_kernel_level
@@ -20,20 +20,20 @@
 // matrix A[(e*m + k), (j*m + i)] (int8; D = ceil(32 W / 7) seven-bit digits per
 // element; E output digit planes per output row: E = D = 37 for W = 8, whose
 // matrices are pre-folded mod p, and the full banded profile E = 2D - 1 for the
-// narrow fields), followed by a Montgomery reduction and, for K2/K3, a twiddle
-// product. Every digit and matrix entry is in [0, 127] and every plane sum is
-// below 2^25, so int8 products with int32 sums compute the matmul exactly.
+// narrow fields), followed by a Montgomery reduction and, for K2/K3/K4, a
+// twiddle product. Every digit and matrix entry is in [0, 127] and every plane
+// sum is below 2^25, so int8 products with int32 sums compute the matmul exactly.
 //
 // Two contractions compute Z[e*m + k, b] = sum_c A[e*m + k, c] * d[c, b]:
 //
-// - tc::contract (K2, K4): the int8 tensor cores. A block owns a chunk of kt
-//   output rows and 128 batch columns; its GEMM rows are {e*m + k : e < E, k
-//   in the chunk}, E*kt of them (about 300), zero-padded to 320, and the
-//   contraction depth D*m is zero-padded to a multiple of 32 (k_pad). The
-//   block builds the digit tile of its columns once in shared memory,
-//   K-contiguous per column with the 32-byte swizzle; TMA brings the chunk's
-//   conv-matrix rows 32 contraction bytes a step through a six-stage ring
-//   (the box gathers the rows; where D*m % 16 != 0, at m <= 8, cp.async
+// - tc::contract (K1, K2, K3 single-level, K4): the int8 tensor cores. A block
+//   owns a chunk of kt output rows and 128 batch columns; its GEMM rows are
+//   {e*m + k : e < E, k in the chunk}, E*kt of them (about 300), zero-padded
+//   to 320, and the contraction depth D*m is zero-padded to a multiple of 32
+//   (k_pad). The block builds the digit tile of its columns once in shared
+//   memory, K-contiguous per column with the 32-byte swizzle; TMA brings the
+//   chunk's conv-matrix rows 32 contraction bytes a step through a six-stage
+//   ring (the box gathers the rows; where D*m % 16 != 0, at m <= 8, cp.async
 //   loads the whole chunk instead). Per step, four warpgroups run one
 //   wgmma.m64n160k32.s32.s8.s8 each: the digits are the M side (64 columns),
 //   the conv-matrix rows the N side (160 GEMM rows), so one conv-matrix byte
@@ -43,22 +43,22 @@
 //   the digit tile and the ring, and the epilogue reads them back by (k, b).
 //   The launch plan (kt, k_pad, m_pad, shared bytes, grid) is computed by the
 //   Python wrapper and checked by the launcher.
-// - contract_row (K1, K3, K7): __dp4a on the CUDA cores. One block owns bt
-//   batch columns (32 per column group, one warp wide) and all m rows:
+// - contract_row (K3 multi-level, K7): __dp4a on the CUDA cores. One block
+//   owns bt batch columns (32 per column group, one warp wide) and all m rows:
 //   1. it stages the D seven-bit digits of its m x bt elements in shared
 //      memory, four contraction indices c = j*m + i per 32-bit word:
 //      dsm[g * bt + b] holds digits c = 4g .. 4g+3 of column b;
 //   2. each thread, for its output row k and column b, forms the E digit-
 //      plane sums in int32 registers with __dp4a. Lanes of a warp share k
-//      and, for one matrix, read the same A word (one broadcast load), and
-//      read consecutive shared words.
+//      and read the same A word (one broadcast load), and read consecutive
+//      shared words.
 //
-// K1, K3 and K7 still run the __dp4a contraction; K2 and K4 run tc::contract.
-// At the 256-bit main path's shapes (W = 8, m = 32, B = 8192) a level is
-// 11.5 G int8 MACs, 11.6 us at the H100's 1,979 TOPS int8 tensor peak; K2's
-// level 0 is bound by its 61.7 MB of data and stack (18.4 us at 3.35 TB/s),
-// the other K2 and K4 launches by their MACs or, at m = 8, their bytes
-// (mxu_level.cu gives each launch's bound).
+// K3 multi-level and K7 still run the __dp4a contraction; K1, K2, K3
+// single-level and K4 run tc::contract. At the 256-bit main path's shapes
+// (W = 8, m = 32, B = 8192) a level is 11.5 G int8 MACs, 11.6 us at the
+// H100's 1,979 TOPS int8 tensor peak; K2's level 0 is bound by its 61.7 MB of
+// data and stack (18.4 us at 3.35 TB/s), the other levels by their MACs or,
+// at m = 8, their bytes (mxu_level.cu gives each launch's bound).
 //
 // Then both:
 //   3. reduce V = sum_e Z[e] * 2^(7e) to canonical words. The matrices are
@@ -97,7 +97,7 @@ struct Geo {
   // words of the Montgomery window: the W + 1 eliminated words, W result
   // words and the top word, or NS if the lanes reach further
   static constexpr int NT = NS > 2 * W + 2 ? NS : 2 * W + 2;
-  // digit tile of one single-level block: ceil(D*m/4) words x bt columns,
+  // digit tile of one __dp4a block: ceil(D*m/4) words x bt columns,
   // with bt * m = 32 * max(m, 8)
   static constexpr int SMEM_WORDS = (D * MAX_M / 4) * 32;
 };
@@ -107,14 +107,11 @@ struct FieldConst {
   uint32_t np0;  // -p^-1 mod 2^32
 };
 
-// One level's operands.
+// One __dp4a level's operands (K7).
 struct Level {
   const uint32_t* x;   // [W, m, B]
-  const int8_t* A;     // conv matrix [E*m, D*m], or the first of a stack
-  long long a_stride;  // bytes between stack entries; 0 for one matrix
-  long long a_rep;     // batch columns per stack entry
-  const uint32_t* T3;  // twiddle, or nullptr
-  long long t_rep;     // 1: T3 is [W, m, B]; > 1: T3 is [W, B / t_rep, m]
+  const int8_t* A;     // conv matrix [E*m, D*m]
+  const uint32_t* T3;  // twiddle [W, m, B], or nullptr
   uint32_t* out;       // [W, m, B]
   int m;
   long long B;
@@ -216,7 +213,7 @@ __device__ __forceinline__ void contract_row(const int8_t* A, int m, int k, cons
 }
 
 // ---------------------------------------------------------------------------
-// The contraction on the int8 tensor cores (K2, K4).
+// The contraction on the int8 tensor cores (K1, K2, K3 single-level, K4).
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -257,7 +254,8 @@ struct Level {
   const int8_t* A;       // conv matrix [E*m, D*m], or the first of a stack
   long long a_stride;    // bytes between stack entries; 0 for one matrix
   long long a_rep;       // batch columns per stack entry
-  const uint32_t* T3;    // twiddle [W, m, B], or nullptr
+  const uint32_t* T3;    // twiddle, or nullptr
+  long long t_rep;       // 1: T3 is [W, m, B]; > 1: T3 is [W, B / t_rep, m]
   uint32_t* out;         // [W, m, B], or [W, B, m] when transpose
   int m;
   long long B;
@@ -693,64 +691,11 @@ __device__ __forceinline__ void load_twiddle(const uint32_t* T3, long long t_rep
   }
 }
 
-// The whole single level for this block's columns. Warp w works on column group
-// w / kw and on rows k = w % kw, w % kw + kw, ... (kw = min(m, 8)).
-template <int W>
-__device__ __forceinline__ void run_level(const Level& L) {
-  __shared__ uint32_t dsm[Geo<W>::SMEM_WORDS];
-  const int m = L.m;
-  const int kw = warps_per_group(m);
-  const int bt = block_cols(m);
-  const long long b0 = (long long)blockIdx.x * bt;
-  stage_digits<W>(m, bt, dsm, [&](int i, int bl, uint32_t(&w)[W]) {
-    const long long b = b0 + bl;
-#pragma unroll
-    for (int q = 0; q < W; ++q) w[q] = b < L.B ? L.x[((long long)q * m + i) * L.B + b] : 0u;
-  });
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bl = (warp / kw) * 32 + lane;
-  const long long b = b0 + bl;
-  const long long bc = b < L.B ? b : L.B - 1;  // operand index of a masked column
-  const int8_t* A = L.A + (L.a_stride ? (bc / L.a_rep) * L.a_stride : 0);
-  for (int k = warp % kw; k < m; k += kw) {
-    int z[Geo<W>::E];
-    contract_row<W>(A, m, k, dsm, bt, bl, z);
-    uint32_t y[W];
-    reduce<W>(z, L.fc, y);
-    if (b >= L.B) continue;
-    if (L.T3 != nullptr) {
-      uint32_t t[W], r[W];
-      load_twiddle<W>(L.T3, L.t_rep, m, L.B, k, b, t);
-      mont_mul<W>(y, t, L.fc, r);
-#pragma unroll
-      for (int q = 0; q < W; ++q) y[q] = r[q];
-    }
-#pragma unroll
-    for (int q = 0; q < W; ++q) L.out[((long long)q * m + k) * L.B + b] = y[q];
-  }
-}
-
 inline FieldConst field_const(const uint32_t* p, uint32_t np0) {
   FieldConst fc;
   for (int j = 0; j < MAX_W; ++j) fc.p[j] = p[j];
   fc.np0 = np0;
   return fc;
 }
-
-// Launch one single level on `stream`; returns cudaGetLastError() as an int.
-inline int launch(void (*kernel)(Level), const Level& L, void* stream) {
-  const long long bt = block_cols(L.m);
-  const long long blocks = (L.B + bt - 1) / bt;
-  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(L);
-  return (int)cudaGetLastError();
-}
-
-// Launch the instantiation of a kernel template for a field of n_words words.
-#define MXU_LAUNCH_FOR_WIDTH(kernel, n_words, L, stream)                           \
-  ((n_words) == 8   ? mxu::launch(kernel<8>, (L), (stream))                        \
-   : (n_words) == 2 ? mxu::launch(kernel<2>, (L), (stream))                        \
-   : (n_words) == 1 ? mxu::launch(kernel<1>, (L), (stream))                        \
-                    : (int)cudaErrorInvalidValue)
 
 }  // namespace mxu

@@ -1,5 +1,9 @@
-// K2, K3 (single-level), K4 and K7: one four-step level with its decomposition
-// twiddle, on uint32[W, m, B] (W = 8, 2 or 1 words per element).
+// K1, K2, K3 (single-level), K4 and K7: one m-point digit-matmul level on
+// uint32[W, m, B] (W = 8, 2 or 1 words per element; m <= 32).
+//
+// K1 mxu_base_ntt replaces ntt_tpu/kernels/mxu_ntt.py::_kernel (entry
+// base_ntt_mxu_pallas): the base transform, one conv matrix and the
+// Montgomery reduction, with no twiddle.
 //
 // K2 mxu_fused_level_stack replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
 // (entry fused_level_stack): the twiddle is folded into a stack of conv
@@ -9,8 +13,9 @@
 // K3 mxu_fused_subntt replaces the single-level form (m <= 32) of
 // ntt_tpu/kernels/mxu_level.py::_kernel_sub (entry fused_subntt): one conv matrix,
 // then the decomposition twiddle by a Montgomery product, read from T3[W, m, B]
-// (rep == 1) or from the i2-resolution table T3[W, B / rep, m] (rep > 1). Its
-// multi-level form (m > 32) is mxu_sub.cu.
+// (rep == 1) or from the i2-resolution table T3[W, B / rep, m] (rep > 1; a warp
+// reads one row of it, mostly as broadcasts). Its multi-level form (m > 32) is
+// mxu_sub.cu.
 //
 // K4 mxu_fused_level replaces ntt_tpu/kernels/mxu_level.py::_kernel_level (entry
 // fused_level): one conv matrix, an optional product with a full-resolution
@@ -23,19 +28,19 @@
 // of an element's D digits, on every word plane; "matmul" the planes 0 .. W-1 of
 // the E accumulator planes, cast to uint32; "reduce" the reduced y; "tw" y * T3.
 //
-// K2 and K4 contract on the int8 tensor cores (mxu_core.cuh, tc::contract): a
-// block owns a chunk of kt output rows and 128 batch columns; TMA streams the
-// chunk's conv-matrix rows (gathered by a 4-D box over [NT][E][m][D*m]) through
-// a six-stage ring, the digit tile is built once in shared memory, and four
+// K1, K2, K3 and K4 are one block body (tc_level) on the int8 tensor cores
+// (mxu_core.cuh, tc::contract), each under a kernel name of its own: a block
+// owns a chunk of kt output rows and 128 batch columns; TMA streams the chunk's
+// conv-matrix rows (gathered by a 4-D box over [NT][E][m][D*m]) through a
+// six-stage ring, the digit tile is built once in shared memory, and four
 // warpgroups run wgmma m64n160k32 s8 on it (two column halves x two row
 // halves); the sums go through a shared Z tile to the epilogue: reduce<W>,
 // then T3 by mont_mul, then the store (for K4's transposed store through a
 // [w][column][row | 1] tile, so that the writes run along m). Blocks are
 // numbered column tile by column tile, the row chunks of one tile together, so
 // the blocks of one stack entry run together and read its matrix from L2.
-// K3 and K7 run the __dp4a contraction (run_level, contract_row; K7 on the
-// template fused_level_probe_kernel, which was K4's before the tensor-core
-// version), as K1 in mxu_ntt.cu does.
+// K7 runs the __dp4a contraction (contract_row) on the template
+// fused_level_probe_kernel, which was K4's before the tensor-core version.
 //
 // Bounds on an H100 at the 256-bit main path's shapes (W = 8, n = 2^18, m = 32,
 // B = 8192, 11.5 G int8 MACs = 11.6 us at the 1,979 TOPS int8 tensor peak):
@@ -43,21 +48,23 @@
 //      3.35 TB/s: bytes bound it. Level 2 (NT = 8): 28.0 MB, 8.4 us: MACs bound it,
 //      11.6 us. The two launches: 30.0 us.
 //   K3 level 1 (rep = 1): 26.6 MB (data, the 8.4 MB twiddle table, A), 7.9 us:
-//      MACs bound it.
+//      MACs bound it, 11.6 us.
+//   K1 (m = 8, B = 32768, A = int8[296, 296]): 16.9 MB (data in and out, A),
+//      5.0 us; 2.9 G MACs, 2.9 us: bytes bound it.
 //   K4 (W = 8, n = 2^18 under mxu_fused: three launches of m = 32, B = 8192 with
 //      T3 and one of m = 8, B = 32768 without): 26.6 MB and 11.5 G MACs, 11.6 us:
 //      MACs bound it; the m = 8 launch 16.9 MB, 5.0 us: bytes bound it. The four
 //      launches: 39.8 us.
-// A K2 / K4 block runs its phases in turn (the digit staging, the TMA stream
-// with the wgmma steps, the epilogue on the CUDA cores), one block an SM; at
-// the main path's shapes each phase takes a comparable share of a launch, and
-// the wgmma steps themselves run at about 70% of the int8 peak (PERF.md,
-// tc_knockout.py).
+// A tensor-core block runs its phases in turn (the digit staging, the TMA
+// stream with the wgmma steps, the epilogue on the CUDA cores), one block an
+// SM; at the main path's shapes each phase takes a comparable share of a
+// launch, and the wgmma steps themselves run at about 70% of the int8 peak
+// (PERF.md, tc_knockout.py).
 #include <cudaTypedefs.h>
 
 #include "mxu_core.cuh"
 
-// The epilogue of K2 and K4 for output rows k0 .. k0+kt-1 and the block's columns:
+// The epilogue of the tensor-core levels for output rows k0 .. k0+kt-1 and the block's columns:
 // Z from shared memory, reduce, T3, store.
 template <int W>
 __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b0, int k0,
@@ -71,7 +78,7 @@ __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b
     const int kk = idx / N, bl = idx % N;
     const long long b = b0 + bl;
     uint32_t t[W];  // the twiddle's load runs under the reduction
-    if (L.T3 != nullptr && b < L.B) load_twiddle<W>(L.T3, 1, m, L.B, k0 + kk, b, t);
+    if (L.T3 != nullptr && b < L.B) load_twiddle<W>(L.T3, L.t_rep, m, L.B, k0 + kk, b, t);
     int z[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) z[e] = Z[(e * kt + kk) * tc::ZS + bl];
@@ -104,7 +111,7 @@ __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b
   }
 }
 
-// One K2 / K4 block: column tile blockIdx.x / (m / kt), row chunk blockIdx.x % (m / kt).
+// One tensor-core block: column tile blockIdx.x / (m / kt), row chunk blockIdx.x % (m / kt).
 template <int W>
 __device__ __forceinline__ void tc_level(const CUtensorMap* map, const mxu::tc::Level& L) {
   extern __shared__ uint8_t tc_smem_raw[];
@@ -131,8 +138,15 @@ __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
 }
 
 template <int W>
-__global__ void __launch_bounds__(mxu::THREADS, 2) fused_subntt_kernel(mxu::Level L) {
-  mxu::run_level<W>(L);
+__global__ void __launch_bounds__(mxu::tc::THREADS, 1)
+    fused_subntt_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
+  tc_level<W>(&map, L);
+}
+
+template <int W>
+__global__ void __launch_bounds__(mxu::tc::THREADS, 1)
+    base_ntt_mxu_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
+  tc_level<W>(&map, L);
 }
 
 // K7 (K4's template before the tensor-core version). Stages of the probe in
@@ -253,7 +267,6 @@ extern "C" int mxu_fused_level_probe(const void* x, const void* A, const void* T
   L.x = static_cast<const uint32_t*>(x);
   L.A = static_cast<const int8_t*>(A);
   L.T3 = static_cast<const uint32_t*>(T3);
-  L.t_rep = 1;
   L.out = static_cast<uint32_t*>(out);
   L.m = m;
   L.B = B;
@@ -296,10 +309,25 @@ static bool stack_map(CUtensorMap* map, const int8_t* A, int E, int m, int K, lo
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// K2 / K4: checks the launch plan (kt, k_pad, m_pad, blocks, smem) against the
-// operands and launches it; cudaErrorInvalidValue for a plan the kernel cannot take.
+// The tensor-core kernels, one name each.
+enum TcKind { TC_BASE, TC_STACK, TC_SUBNTT, TC_LEVEL };
+using TcKernel = void (*)(const CUtensorMap, mxu::tc::Level);
+
 template <int W>
-static int launch_tc(bool stack, mxu::tc::Level& L, long long NT, long long blocks, int smem,
+static TcKernel tc_kernel(TcKind kind) {
+  switch (kind) {
+    case TC_BASE: return base_ntt_mxu_kernel<W>;
+    case TC_STACK: return fused_level_stack_kernel<W>;
+    case TC_SUBNTT: return fused_subntt_kernel<W>;
+    default: return fused_level_kernel<W>;
+  }
+}
+
+// K1 / K2 / K3 / K4: checks the launch plan (kt, k_pad, m_pad, blocks, smem)
+// against the operands and launches it; cudaErrorInvalidValue for a plan the
+// kernel cannot take.
+template <int W>
+static int launch_tc(TcKind kind, mxu::tc::Level& L, long long NT, long long blocks, int smem,
                      void* stream) {
   using namespace mxu;
   constexpr int D = Geo<W>::D, E = Geo<W>::E;
@@ -309,47 +337,63 @@ static int launch_tc(bool stack, mxu::tc::Level& L, long long NT, long long bloc
                   L.m_pad == tc::ROWS && E * kt <= tc::ROWS &&
                   blocks == (L.B + tc::N - 1) / tc::N * (m / kt) && blocks <= 0x7fffffffLL &&
                   smem >= tc::smem_bytes(W, D, E, m, kt, L.k_pad) && smem <= tc::MAX_SMEM &&
-                  (L.a_stride == 0 || L.a_rep >= 1) && NT >= 1;
+                  (L.a_stride == 0 || L.a_rep >= 1) && NT >= 1 && L.t_rep >= 1 &&
+                  L.B % L.t_rep == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap map{};
   L.tma = K % 16 == 0;
   if (L.tma && !stack_map(&map, L.A, E, m, K, NT, kt)) return (int)cudaErrorInvalidValue;
-  void (*kernel)(const CUtensorMap, tc::Level) = fused_level_kernel<W>;
-  if (stack) kernel = fused_level_stack_kernel<W>;
+  const TcKernel kernel = tc_kernel<W>(kind);
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
   kernel<<<(unsigned)blocks, tc::THREADS, smem, (cudaStream_t)stream>>>(map, L);
   return (int)cudaGetLastError();
 }
 
-static int tc_entry(bool stack, mxu::tc::Level& L, long long NT, const uint32_t* p, uint32_t np0,
-                    int n_words, int kt, int k_pad, int m_pad, long long blocks, int smem,
-                    void* stream) {
+// Fills in the plan and the field, and launches the instantiation for n_words.
+static int tc_entry(TcKind kind, mxu::tc::Level& L, long long NT, const uint32_t* p,
+                    uint32_t np0, int n_words, int kt, int k_pad, int m_pad, long long blocks,
+                    int smem, void* stream) {
   L.kt = kt;
   L.k_pad = k_pad;
   L.m_pad = m_pad;
   L.fc = mxu::field_const(p, np0);
   switch (n_words) {
-    case 8: return launch_tc<8>(stack, L, NT, blocks, smem, stream);
-    case 2: return launch_tc<2>(stack, L, NT, blocks, smem, stream);
-    case 1: return launch_tc<1>(stack, L, NT, blocks, smem, stream);
+    case 8: return launch_tc<8>(kind, L, NT, blocks, smem, stream);
+    case 2: return launch_tc<2>(kind, L, NT, blocks, smem, stream);
+    case 1: return launch_tc<1>(kind, L, NT, blocks, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The operands every tensor-core level takes; T3, if any, at batch resolution.
+static mxu::tc::Level tc_operands(const void* x, const void* A, const void* T3, void* out, int m,
+                                  long long B) {
+  mxu::tc::Level L{};
+  L.x = static_cast<const uint32_t*>(x);
+  L.A = static_cast<const int8_t*>(A);
+  L.T3 = static_cast<const uint32_t*>(T3);
+  L.t_rep = 1;
+  L.out = static_cast<uint32_t*>(out);
+  L.m = m;
+  L.B = B;
+  return L;
+}
+
+extern "C" int mxu_base_ntt(const void* x, const void* A, void* out, int m, long long B,
+                            const uint32_t* p, uint32_t np0, int n_words, int kt, int k_pad,
+                            int m_pad, long long blocks, int smem, void* stream) {
+  mxu::tc::Level L = tc_operands(x, A, nullptr, out, m, B);
+  return tc_entry(TC_BASE, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }
 
 extern "C" int mxu_fused_level(const void* x, const void* A, const void* T3, void* out,
                                int transpose, int m, long long B, const uint32_t* p,
                                uint32_t np0, int n_words, int kt, int k_pad, int m_pad,
                                long long blocks, int smem, void* stream) {
-  mxu::tc::Level L{};
-  L.x = static_cast<const uint32_t*>(x);
-  L.A = static_cast<const int8_t*>(A);
-  L.T3 = static_cast<const uint32_t*>(T3);
-  L.out = static_cast<uint32_t*>(out);
-  L.m = m;
-  L.B = B;
+  mxu::tc::Level L = tc_operands(x, A, T3, out, m, B);
   L.transpose = transpose;
-  return tc_entry(false, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
+  return tc_entry(TC_LEVEL, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }
 
 // Bytes of one stack entry int8[E*m, D*m] of a W-word field.
@@ -368,29 +412,17 @@ extern "C" int mxu_fused_level_stack(const void* x, const void* As, long long re
                                      int k_pad, int m_pad, long long blocks, int smem,
                                      void* stream) {
   if (rep < 1 || B % rep) return (int)cudaErrorInvalidValue;
-  mxu::tc::Level L{};
-  L.x = static_cast<const uint32_t*>(x);
-  L.A = static_cast<const int8_t*>(As);
+  mxu::tc::Level L = tc_operands(x, As, T3, out, m, B);
   L.a_stride = stack_stride(n_words, m);
   L.a_rep = rep;
-  L.T3 = static_cast<const uint32_t*>(T3);
-  L.out = static_cast<uint32_t*>(out);
-  L.m = m;
-  L.B = B;
-  return tc_entry(true, L, B / rep, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
+  return tc_entry(TC_STACK, L, B / rep, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }
 
 extern "C" int mxu_fused_subntt(const void* x, const void* A, const void* T3, long long rep,
                                 void* out, int m, long long B, const uint32_t* p,
-                                uint32_t np0, int n_words, void* stream) {
-  mxu::Level L{};
-  L.x = static_cast<const uint32_t*>(x);
-  L.A = static_cast<const int8_t*>(A);
-  L.T3 = static_cast<const uint32_t*>(T3);
+                                uint32_t np0, int n_words, int kt, int k_pad, int m_pad,
+                                long long blocks, int smem, void* stream) {
+  mxu::tc::Level L = tc_operands(x, A, T3, out, m, B);
   L.t_rep = rep;
-  L.out = static_cast<uint32_t*>(out);
-  L.m = m;
-  L.B = B;
-  L.fc = mxu::field_const(p, np0);
-  return MXU_LAUNCH_FOR_WIDTH(fused_subntt_kernel, n_words, L, stream);
+  return tc_entry(TC_SUBNTT, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }

@@ -34,9 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: library -> its source; every library also includes the shared header
-LIBRARIES = {"mxu_ntt": "mxu_ntt.cu", "mxu_level": "mxu_level.cu",
-             "mxu_sub": "mxu_sub.cu", "vmem_ntt": "vmem_ntt.cu",
-             "exchange": "exchange.cu"}
+LIBRARIES = {"mxu_level": "mxu_level.cu", "mxu_sub": "mxu_sub.cu",
+             "vmem_ntt": "vmem_ntt.cu", "exchange": "exchange.cu"}
 _HEADERS = ("mxu_core.cuh",)
 
 launches: collections.Counter = collections.Counter()

@@ -1,5 +1,6 @@
 """Kernels K2, K3, K4 and K7: one four-step level with its decomposition
-twiddle (port of ``ntt_tpu.kernels.mxu_level``).
+twiddle (port of ``ntt_tpu.kernels.mxu_level``), and the C library they
+share with K1 (``kernels/mxu_ntt.py``).
 
 - ``fused_level_stack`` (K2): the twiddle is folded into a stack of conv
   matrices As[NT, E*m, D*m]; batch column b uses ``As[b // rep]``; an
@@ -21,9 +22,9 @@ twiddle (port of ``ntt_tpu.kernels.mxu_level``).
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/mxu_level.cu``, ``csrc/mxu_sub.cu``); on a CPU tensor it runs its
-plain PyTorch version. K2 and K4 contract on the int8 tensor cores; their
-launch plan (:func:`tc_plan`) is computed here and checked by the C
-launcher.
+plain PyTorch version. K1, K2, K3 (single-level) and K4 contract on the
+int8 tensor cores; their launch plan (:func:`tc_plan`) is computed here
+and checked by the C launcher. K3 multi-level and K7 run ``__dp4a``.
 """
 
 from __future__ import annotations
@@ -54,8 +55,12 @@ def _lib() -> ctypes.CDLL:
         vp]
     lib.mxu_fused_level_stack.restype = ctypes.c_int
     lib.mxu_fused_subntt.argtypes = [
-        vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, vp]
+        vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, *plan,
+        vp]
     lib.mxu_fused_subntt.restype = ctypes.c_int
+    lib.mxu_base_ntt.argtypes = [vp, vp, vp, ctypes.c_int, ll,
+                                 *_build.FIELD_ARGTYPES, *plan, vp]
+    lib.mxu_base_ntt.restype = ctypes.c_int
     lib.mxu_fused_level.argtypes = [
         vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ll,
         *_build.FIELD_ARGTYPES, *plan, vp]
@@ -79,7 +84,8 @@ def _lib_sub() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
-# The launch plan of the tensor-core levels (K2, K4): csrc/mxu_core.cuh, tc::
+# The launch plan of the tensor-core levels (K1, K2, K3 single-level, K4):
+# csrc/mxu_core.cuh, tc::
 # ---------------------------------------------------------------------------
 
 #: batch columns a block owns (two wgmma M of 64); GEMM rows of a block,
@@ -116,7 +122,8 @@ class TcPlan(NamedTuple):
 
 
 def tc_plan(field: Field, m: int, B: int) -> TcPlan:
-    """The plan of a K2 / K4 launch on uint32[W, m, B] of ``field``."""
+    """The plan of a K1 / K2 / K3 (single-level) / K4 launch on
+    uint32[W, m, B] of ``field``."""
     W = field.n_words
     if W not in TC_KT or m & (m - 1) or not 2 <= m <= 32 or B < 1:
         raise ValueError(f"no tensor-core plan for W = {W}, m = {m}, "
@@ -137,7 +144,9 @@ def tc_plan(field: Field, m: int, B: int) -> TcPlan:
     return plan
 
 
-def _plan_args(plan: TcPlan) -> tuple:
+def plan_args(field: Field, m: int, B: int) -> tuple:
+    """The plan of :func:`tc_plan` as the C entry points take it."""
+    plan = tc_plan(field, m, B)
     return (plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
 
 
@@ -200,7 +209,7 @@ def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
     out = torch.empty_like(x3)
     rc = _lib().mxu_fused_level_stack(
         _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), _build.ptr(out),
-        m, B, *_build.field_args(field), *_plan_args(tc_plan(field, m, B)),
+        m, B, *_build.field_args(field), *plan_args(field, m, B),
         _build.stream(x3))
     _build.check(rc, "fused_level_stack")
     _build.launches["fused_level_stack"] += 1
@@ -301,7 +310,7 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
         rc = _lib().mxu_fused_subntt(
             _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep,
             _build.ptr(out), m, B, *_build.field_args(field),
-            _build.stream(x3))
+            *plan_args(field, m, B), _build.stream(x3))
         _build.check(rc, "fused_subntt")
         _build.launches["fused_subntt"] += 1
         return out
@@ -360,7 +369,7 @@ def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
     rc = _lib().mxu_fused_level(
         _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
         int(transpose_out), m, B, *_build.field_args(field),
-        *_plan_args(tc_plan(field, m, B)), _build.stream(x3))
+        *plan_args(field, m, B), _build.stream(x3))
     _build.check(rc, "fused_level")
     _build.launches["fused_level"] += 1
     return out

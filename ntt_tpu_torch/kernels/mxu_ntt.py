@@ -3,30 +3,19 @@
 ``base_ntt_mxu`` runs an m-point NTT (m <= 32) along axis 1 of
 uint32[W, m, B], Montgomery form in and out: digit extraction, one int8
 matmul against the DFT conv matrix A, Montgomery reduction. On a CUDA tensor
-it launches the hand-written kernel (``csrc/mxu_ntt.cu``); on a CPU tensor
-it runs :func:`base_ntt_mxu_plain`, the same function in plain PyTorch.
+it launches the hand-written kernel ``base_ntt_mxu_kernel`` (in the level
+library, ``csrc/mxu_level.cu``: the tensor-core level of K2-K4 with no
+twiddle, under the launch plan of ``mxu_level.tc_plan``); on a CPU tensor it
+runs :func:`base_ntt_mxu_plain`, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
 from .. import digits
 from ..fields import Field
-from . import _build
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("mxu_ntt")
-    vp = ctypes.c_void_p
-    lib.mxu_base_ntt.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
-                                 *_build.FIELD_ARGTYPES, vp]
-    lib.mxu_base_ntt.restype = ctypes.c_int
-    return lib
+from . import _build, mxu_level
 
 
 def base_ntt_mxu_plain(x, field: Field, A, F=None):
@@ -50,9 +39,10 @@ def base_ntt_mxu(x, field: Field, A, F=None):
     D, E = digits.n_digits(field), digits.out_planes(field)
     _build.check_operand(A, "A", torch.int8, (E * m, D * m), x.device)
     out = torch.empty_like(x)
-    rc = _lib().mxu_base_ntt(_build.ptr(x), _build.ptr(A), _build.ptr(out),
-                             m, B, *_build.field_args(field),
-                             _build.stream(x))
+    rc = mxu_level._lib().mxu_base_ntt(
+        _build.ptr(x), _build.ptr(A), _build.ptr(out), m, B,
+        *_build.field_args(field), *mxu_level.plan_args(field, m, B),
+        _build.stream(x))
     _build.check(rc, "base_ntt_mxu")
     _build.launches["base_ntt_mxu"] += 1
     return out

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the tensor-core levels K2 and K4 goes, on one NVIDIA GPU.
+"""Where the time of the tensor-core levels K1-K4 goes, on one NVIDIA GPU.
 
 Run from the repository root: ``python3 tc_knockout.py``. It builds variants
 of the ``mxu_level`` library (``ntt_tpu_torch/csrc``) with one or more phases
-of the K2/K4 block compiled out, and reads each variant's device time
+of the tensor-core block compiled out, and reads each variant's device time
 (``torch.profiler``) at the main path's shapes: K2 level 0 of the
 BLS12-381 Fr 2^18 transform ([8,32,8192], a stack of 32 matrices, rep
-256), K4 [8,32,8192] with T3 and the transposed store, K4 [8,8,32768]. The
-phases: ``stage`` (the digit tile), ``aload`` (the conv-matrix rows: TMA
-ring or the whole chunk), ``mma`` (the wgmma steps), ``epi`` (reduce, T3,
-store). A variant's outputs are wrong by construction; only its time is
-read. ``skeleton`` keeps none of the four: launch, loop and Z tile. Prints
-one line a variant and last a JSON object of all the times (ms). Needs a
-CUDA device; imports neither JAX nor ``ntt_tpu``.
+256), K3 level 1 ([8,32,8192], the merged table, rep 1), K1 the last base
+([8,8,32768]), K4 [8,32,8192] with T3 and the transposed store, K4
+[8,8,32768]. The phases: ``stage`` (the digit tile), ``aload`` (the
+conv-matrix rows: TMA ring or the whole chunk), ``mma`` (the wgmma steps),
+``epi`` (reduce, T3, store). A variant's outputs are wrong by
+construction; only its time is read. ``skeleton`` keeps none of the four:
+launch, loop and Z tile. Prints one line a variant and last a JSON object
+of all the times (ms). Needs a CUDA device; imports neither JAX nor
+``ntt_tpu``.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from ntt_tpu_torch import BLS12_381_FR as f
-    from ntt_tpu_torch.kernels import mxu_level
+    from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
 
     print(f"card: {cs.card_line()}", flush=True)
     dev = torch.device("cuda", 0)
@@ -102,10 +104,17 @@ def main() -> int:
     As = torch.from_numpy(rng.integers(0, 128, size=(32, 37 * 32, 37 * 32),
                                        dtype=np.int8)).to(dev)
     mats = cs.sub_mats_on(f, {8, 32}, False, dev)
+    sub = {32: mats[32]}
     calls = {
         "K2 level 0 [8,32,8192] stack 32 rep 256": (
             lambda: mxu_level.fused_level_stack(x, f, As, 256),
             "fused_level_stack_kernel<"),
+        "K3 level 1 [8,32,8192] TwBatch rep 1": (
+            lambda: mxu_level.fused_subntt(x, f, sub, T, rep=1),
+            "fused_subntt_kernel<"),
+        "K1 base [8,8,32768]": (
+            lambda: mxu_ntt.base_ntt_mxu(x8, f, mats[8]),
+            "base_ntt_mxu_kernel<"),
         "K4 [8,32,8192] T3, transposed store": (
             lambda: mxu_level.fused_level(x, f, mats[32], T, True),
             "fused_level_kernel<"),
@@ -121,7 +130,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
         for name, path in build(work).items():
             lib = ctypes.CDLL(path)
-            for fn in ("mxu_fused_level_stack", "mxu_fused_level"):
+            for fn in ("mxu_fused_level_stack", "mxu_fused_level",
+                       "mxu_fused_subntt", "mxu_base_ntt"):
                 getattr(lib, fn).argtypes = getattr(built, fn).argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             mxu_level._lib = lambda lib=lib: lib

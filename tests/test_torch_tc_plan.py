@@ -1,6 +1,7 @@
-"""The launch plan of the tensor-core levels K2 (``fused_level_stack``) and
-K4 (``fused_level``), and a torch emulation of their tiled contraction, on
-the CPU.
+"""The launch plan of the tensor-core levels K1 (``base_ntt_mxu``), K2
+(``fused_level_stack``), K3 single-level (``fused_subntt``, m <= 32) and K4
+(``fused_level``), and a torch emulation of their tiled contraction and of
+the epilogue's twiddle read, on the CPU.
 
 The CUDA kernels (``csrc/mxu_core.cuh``, ``tc::contract``) run only on the
 card; what surrounds their arithmetic is held here: the plan the wrappers
@@ -8,9 +9,10 @@ pass to the C launcher (row chunks, padded depth and rows, column tiles,
 shared bytes), and the block-by-block dataflow the kernels follow (a zero-
 padded digit tile per column tile, the chunk's conv-matrix rows gathered in
 GEMM row order e * kt + kk, the depth in 32-deep ring steps with int32
-sums, one pass per stack entry with the other entries' columns zeroed).
-The emulation must give the plain versions' canonical words: the tolerance
-is exact equality.
+sums, one pass per stack entry with the other entries' columns zeroed;
+K3's twiddle read at (b / rep) * m + k of the table [W, B / rep, m] for
+rep > 1). The emulation must give the plain versions' canonical words: the
+tolerance is exact equality.
 """
 
 import numpy as np
@@ -19,7 +21,8 @@ import torch
 
 import ntt_tpu_torch.fields as tfields
 from ntt_tpu_torch import digits as tdigits
-from ntt_tpu_torch.kernels import mxu_level
+from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
+from ntt_tpu_torch.transforms import core as tcore
 from ntt_tpu_torch.transforms import mxu as tmxu
 
 torch.set_num_threads(1)
@@ -62,6 +65,56 @@ def test_plan_fits_the_block_and_covers_the_level(W, m):
         cols = mxu_level.TC_COLS
         assert (plan.col_tiles - 1) * cols < B <= plan.col_tiles * cols
         assert plan.blocks == plan.chunks * plan.col_tiles
+
+
+def _k1_k3_shapes(n: int, base_max: int) -> set:
+    """(m, B) of every single-level K1 / K3 launch of an n-point four-step
+    that peels ``base_max`` points a level: each level's column transform
+    of base_max (when that is at most 32) over n / base_max columns, and
+    the last base."""
+    shapes = set()
+    m = n
+    while m > base_max:
+        if base_max <= 32:
+            shapes.add((base_max, n // base_max))
+        m //= base_max
+    if 2 <= m <= 32:
+        shapes.add((m, n // m))
+    return shapes
+
+
+@pytest.mark.parametrize("W", [1, 2, 8])
+def test_plan_at_the_k1_k3_launch_shapes(W):
+    """Every single-level K1 / K3 launch of the transforms from 2^14 to
+    2^24 (``mxu_chunked`` peels 32 points a level, ``mxu_sub`` 512 on the
+    narrow fields; the local transforms of n1 and n2 points of a dist
+    transform on 2, 4 or 8 shards), and batches below one column tile, have a plan that fits the block and
+    that the launcher's checks accept."""
+    field = FIELD_OF_WIDTH[W]
+    D, E = tdigits.n_digits(field), tdigits.out_planes(field)
+    shapes = set()
+    for log_n in range(14, 25):
+        n = 1 << log_n
+        shapes |= _k1_k3_shapes(n, 32)
+        shapes |= _k1_k3_shapes(n, tmxu.effective_subbase(field))
+        for part in tcore.split_log(n):     # a shard's local transforms
+            for shards in (2, 4, 8):
+                shapes |= {(m, Bp * (n // part) // shards)
+                           for m, Bp in _k1_k3_shapes(part, 32)}
+    shapes |= {(m, B) for m in (2, 4, 8, 16, 32) for B in (1, 2, 100, 127)}
+    assert (8, 32768) in shapes and (32, 1 << 19) in shapes
+    assert (16, 1 << 20) in shapes and (4, 1 << 20) in shapes
+    N = mxu_level.TC_COLS
+    for m, B in sorted(shapes):
+        plan = mxu_level.tc_plan(field, m, B)
+        assert plan.kt == min(m, mxu_level.TC_KT[W])
+        assert plan.chunks * plan.kt == m
+        assert plan.blocks == -(-B // N) * (m // plan.kt) <= 0x7FFFFFFF
+        assert plan.k_pad >= D * m and plan.k_pad % mxu_level.TC_BK == 0
+        assert E * plan.kt <= plan.m_pad == mxu_level.TC_ROWS_PAD
+        assert plan.smem_bytes <= mxu_level.TC_MAX_SMEM
+        assert mxu_level.plan_args(field, m, B) == (
+            plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
 
 
 def test_plan_refuses_what_the_kernel_cannot_take():
@@ -155,4 +208,54 @@ def test_emulated_fused_level_equals_plain(W, m, B, transpose):
     got = _emulated_level(x, field, A[None], B, F, T3, F2)
     if transpose:
         got = got.transpose(1, 2).contiguous()
+    assert torch.equal(got, want)
+
+
+def _emulated_twiddle(T3, rep: int, m: int, B: int):
+    """The twiddle at [W, m, B] read element by element as the epilogue
+    reads it: word q of (k, b) at flat index (q * m + k) * B + b of the
+    table for rep == 1, at (q * (B / rep) + b / rep) * m + k for rep > 1."""
+    W = T3.shape[0]
+    flat = T3.reshape(-1)
+    q = torch.arange(W)[:, None, None]
+    k = torch.arange(m)[None, :, None]
+    b = torch.arange(B)[None, None, :]
+    if rep == 1:
+        at = (q * m + k) * B + b
+    else:
+        at = (q * (B // rep) + b // rep) * m + k
+    return flat[at]
+
+
+@pytest.mark.parametrize("W, m, B, rep", [
+    (8, 32, 512, 32),        # 2^14 level 1: four column tiles of 16 rows
+    (8, 8, 300, 1),          # ragged B, the whole chunk by cp.async
+    (2, 16, 300, 25),        # a rep that divides no column tile
+    (1, 4, 256, 128),        # one table row a column tile
+])
+def test_emulated_subntt_equals_plain(W, m, B, rep):
+    """K3 single-level: the tiled contraction, the reduction and the
+    epilogue's twiddle read give ``fused_subntt_plain``'s words, for the
+    batch-resolution table (rep 1) and the i2-resolution one (rep > 1)."""
+    field = FIELD_OF_WIDTH[W]
+    x = _words(field, (m, B), 11 * m + W)
+    T3 = _words(field, (m, B) if rep == 1 else (B // rep, m), rep)
+    mats = {k: torch.from_numpy(v)
+            for k, v in tmxu._mats_for(field, {m}, False).items()}
+    want = mxu_level.fused_subntt_plain(x, field, mats, T3, rep=rep)
+    got = _emulated_level(x, field, mats[m][None], B, mats.get(-m),
+                          _emulated_twiddle(T3, rep, m, B), mats.get(-1))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("W, m, B", [(8, 4, 200), (2, 32, 130)])
+def test_emulated_base_equals_plain(W, m, B):
+    """K1: the tensor-core level with no twiddle gives
+    ``base_ntt_mxu_plain``'s words."""
+    field = FIELD_OF_WIDTH[W]
+    x = _words(field, (m, B), 5 * m + W)
+    mats = {k: torch.from_numpy(v)
+            for k, v in tmxu._mats_for(field, {m}, False).items()}
+    want = mxu_ntt.base_ntt_mxu_plain(x, field, mats[m], mats.get(-m))
+    got = _emulated_level(x, field, mats[m][None], B, mats.get(-m))
     assert torch.equal(got, want)
