@@ -11,13 +11,13 @@ with two or more) and what it is compared with, and prints no result line.
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
    parallel); reads the SASS of the level and multi-level libraries
-   (``cuobjdump -sass``): K1, K2, K3 single-level and K4 must hold int8
-   tensor-core instructions (IGMMA, the integer wgmma) and no IDP.4A, K3
-   multi-level and K7 IDP.4A and no tensor-core ones.
+   (``cuobjdump -sass``): every instantiation of every digit-matmul kernel
+   (K1, K2, K3 single- and multi-level, K4, K7) must hold int8 tensor-core
+   instructions (IGMMA, the integer wgmma) and no IDP.4A.
 2. Holds each kernel, word for word, against its plain PyTorch version on
    the card and times kernel, plain version and ``torch._int_mm`` on the
-   same int8 operands (K1-K4, and ``torch._int_mm`` beside them, also by
-   profiler device time):
+   same int8 operands (K1-K4 and K7, and ``torch._int_mm`` beside them, also
+   by profiler device time):
    - K1, K2, K3 (single-level) at the shapes the 2^18 BLS12-381 forward
      transform gives them, plus K3 at rep = 32 and K2 with a residual
      twiddle, and K3 at rep = 1024 and K1 at m = 4 and 16 at the full
@@ -72,9 +72,15 @@ with two or more) and what it is compared with, and prints no result line.
    the two 2^18 forward transforms it prints where the time goes (the
    transposes between levels timed alone, and device time by kernel from
    ``torch.profiler`` where that traces the card).
-4. Prints a ``kernels`` JSON line (a kernel's bound is the sum of its
-   launches' own bounds, ``bound_by`` the kind with the larger share and
-   ``bound_split`` both shares), the card line, and last the result line
+4. Holds the tensor-core kernels to their device-time targets where the
+   profiler traces the card: the two K3 multi-level launches of Goldilocks
+   2^18 below ``torch._int_mm`` on their two matmuls, K7's ``matmul``,
+   ``reduce`` and ``tw`` stages below ``_int_mm`` on the level's matmul,
+   and ``tw`` within 15% of K3 single-level at [8,32,8192] rep 1.
+5. Prints a ``kernels`` JSON
+   line (a kernel's bound is the sum of its launches' own bounds,
+   ``bound_by`` the kind with the larger share and ``bound_split`` both
+   shares), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero, printing no result. It
@@ -104,21 +110,23 @@ NVLINK_BYTES_PER_S = 450e9
 #: rate counted as multiply-adds)
 INT32_MADS_PER_S = 132 * 64 * 1.98e9
 SEED = 2026
-#: the tensor-core kernels (K1-K4), timed on the device too, by the name of
-#: their kernel in a profiler trace
+#: the tensor-core kernels (K1-K4, K7), timed on the device too, by the
+#: name of their kernel in a profiler trace
 DEVICE_TIMED = {"base_ntt_mxu": "base_ntt_mxu_kernel<",
                 "fused_level_stack": "fused_level_stack_kernel<",
                 "fused_subntt": "fused_subntt_kernel<",
-                "fused_level": "fused_level_kernel<"}
+                "fused_subntt_multi": "fused_subntt_multi_kernel<",
+                "fused_level": "fused_level_kernel<",
+                "fused_level_probe": "fused_level_probe_kernel<"}
 
 
 def check_sass() -> None:
-    """K1, K2, K3 single-level and K4 contract on the int8 tensor cores, K3
-    multi-level and K7 on ``__dp4a``: the SASS of the built ``mxu_level``
-    and ``mxu_sub`` libraries (``cuobjdump -sass``) shows tensor-core
-    instructions (IGMMA, the integer wgmma, or IMMA) and no IDP.4A in every
-    instantiation of the first four kernels, IDP.4A and none of them in
-    the others."""
+    """Every digit-matmul kernel contracts on the int8 tensor cores: the
+    SASS of the built ``mxu_level`` and ``mxu_sub`` libraries
+    (``cuobjdump -sass``) shows tensor-core instructions (IGMMA, the
+    integer wgmma, or IMMA) and no IDP.4A in each of the three
+    instantiations (W = 1, 2, 8) of each kernel of ``DEVICE_TIMED``, and
+    no IDP.4A anywhere in them."""
     from ntt_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
@@ -130,24 +138,21 @@ def check_sass() -> None:
             counts[part.split()[0]] = (
                 len(re.findall(r"\b(?:IGMMA|HGMMA|IMMA)\b", part)),
                 len(re.findall(r"\bIDP\.?4A", part)))
-    for kernel, tensor in (("base_ntt_mxu_kernel", True),
-                           ("fused_level_stack_kernel", True),
-                           ("fused_subntt_kernel", True),
-                           ("fused_level_kernel", True),
-                           ("fused_level_probe_kernel", False),
-                           ("fused_subntt_multi_kernel", False)):
+    for kernel in (k.rstrip("<") for k in DEVICE_TIMED.values()):
         got = [c for name, c in counts.items() if kernel + "I" in name]
         imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
-        ok = len(got) == 3 and all(
-            (i > 0 and d == 0) if tensor else (d > 0 and i == 0)
-            for i, d in got)
         print(f"sass {kernel}: {len(got)} instantiations, {imma} tensor-core "
               f"(IGMMA/HGMMA/IMMA), {dp4a} IDP.4A", flush=True)
-        if not ok:
-            want = ("tensor-core instructions, no IDP.4A" if tensor
-                    else "IDP.4A, no tensor-core instructions")
-            raise AssertionError(f"{kernel}: expected {want} in each of its "
-                                 f"three instantiations, got {got}")
+        if len(got) != 3 or not all(i > 0 and d == 0 for i, d in got):
+            raise AssertionError(
+                f"{kernel}: expected tensor-core instructions and no IDP.4A "
+                f"in each of its three instantiations, got {got}")
+    dp4a = sum(c[1] for c in counts.values())
+    print(f"sass: {dp4a} IDP.4A in the {len(counts)} functions of both "
+          "libraries", flush=True)
+    if dp4a:
+        raise AssertionError(f"{dp4a} IDP.4A left in the digit-matmul "
+                             "libraries")
 
 
 def card_line() -> str:
@@ -192,6 +197,28 @@ def bound(bytes_moved: int, int8_macs: int, int32_mads: int = 0) -> tuple:
     t_ops = (2 * int8_macs / INT8_OPS_PER_S
              + int32_mads / INT32_MADS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_macs(f, A, cols: int) -> int:
+    """int8 MACs that the digit matmul of the conv matrix ``A`` over
+    ``cols`` columns needs: every entry of the pre-folded wide-field
+    matrices, only the band of the narrow fields' (D of each E digit
+    blocks in a row; the rest is zero by construction)."""
+    from ntt_tpu_torch import digits
+    return A.numel() * digits.n_digits(f) // digits.out_planes(f) * cols
+
+
+def device_target(what: str, kern_ms, lib_ms, factor: float = 1.0) -> None:
+    """Asserts a device-time target, ``kern_ms < factor * lib_ms``, where
+    the profiler measured both; says so where it did not."""
+    if kern_ms is None or lib_ms is None:
+        print(f"target {what}: not checked (no device time)", flush=True)
+        return
+    if not kern_ms < factor * lib_ms:
+        raise AssertionError(f"{what}: {kern_ms:.4f} ms device, not below "
+                             f"{factor} x {lib_ms:.4f} ms")
+    print(f"target {what}: {kern_ms:.4f} ms < {factor} x {lib_ms:.4f} ms "
+          "(device)", flush=True)
 
 
 def mont_mul_mads(f) -> int:
@@ -414,6 +441,16 @@ def check_ladder_kernels(rng, dev, results) -> None:
                       b, ops, libfn, 1))
     measure(cases, results)
     del x, T, x8, cases
+    probe = {c["shape"].split()[0]: c
+             for c in results["fused_level_probe"]["calls"]}
+    for stage in ("matmul", "reduce", "tw"):
+        device_target(f"K7 {stage} against _int_mm",
+                      probe[stage]["device_ms"],
+                      probe[stage]["library_device_ms"])
+    k3 = next(c for c in results["fused_subntt"]["calls"]
+              if c["shape"].startswith("level 1 [8,32,8192]"))
+    device_target("K7 tw against K3 single-level rep 1",
+                  probe["tw"]["device_ms"], k3["device_ms"], 1.15)
 
     # (field, m, B, launches on the path as K5, as K6 with T3 and the
     # transposed store, as K6 without)
@@ -485,14 +522,15 @@ def check_multi_level(rng, dev, results) -> None:
         if m <= 32:
             name = "fused_subntt"
             nbytes += mats[m].numel()
-            macs = mats[m].numel() * B
+            macs = conv_macs(f, mats[m], B)
             d = digits.extract_digits(x, f).reshape(D * m, -1)
             libs = [int_mm(mats[m], d)]
         else:
             name = "fused_subntt_multi"
             m2 = m // 32
             nbytes += mats[32].numel() + mats[m2].numel() + W * m * 4
-            macs = (mats[32].numel() * m2 + mats[m2].numel() * 32) * B
+            macs = (conv_macs(f, mats[32], m2 * B)
+                    + conv_macs(f, mats[m2], 32 * B))
             # the two matmuls on digit operands of the right shapes (the
             # second one's values are stand-ins: the time is the point)
             d1 = digits.extract_digits(x, f).reshape(D, 32, m2 * B).reshape(
@@ -511,6 +549,12 @@ def check_multi_level(rng, dev, results) -> None:
                 results, plain_iters=2 if big else 5)
         del x, T3, libs
         torch.cuda.empty_cache()
+    path = results["fused_subntt_multi"]["path"]
+    dev_ms = [c["device_ms"] for c in path]
+    lib_ms = [c["library_device_ms"] for c in path]
+    device_target("K3 multi, goldilocks 2^18's two launches, against "
+                  "_int_mm", None if None in dev_ms else sum(dev_ms),
+                  None if None in lib_ms else sum(lib_ms))
 
 
 def check_small_shapes(f, rng, dev) -> int:
@@ -801,6 +845,7 @@ def check_exchange(rng, dev, results) -> None:
     lib_ms = time_ms(library)
     dev_ms = kernel_device_ms(lambda: exchange.a2a_transpose(shards, D),
                               "a2a_pull_kernel")
+    lib_dev = kernel_device_ms(library) or kernel_device_ms(library)
     nbytes = 2 * W * n1 * n2_loc * 4                 # one launch
     b_ms, b_by = bound(nbytes, 0)
     print(f"check a2a_transpose     [8,2048,512] x 4 (bls 2^22 dist)         "
@@ -808,9 +853,12 @@ def check_exchange(rng, dev, results) -> None:
           f"({ms / D:.4f} a launch; device time "
           f"{'-' if dev_ms is None else f'{dev_ms:.4f}'} ms a launch)  "
           f"plain {plain_ms:.4f} ms  permute().contiguous() {lib_ms:.4f} ms"
+          f" (device {'-' if lib_dev is None else f'{lib_dev:.4f}'} ms)"
           f"  bound {b_ms:.4f} ms a launch ({b_by})", flush=True)
     call = {"shape": "[8,2048,512] x 4, one launch", "ms": ms / D,
-            "device_ms": dev_ms, "plain_ms": plain_ms / D,
+            "device_ms": dev_ms,
+            "library_device_ms": None if lib_dev is None else lib_dev / D,
+            "plain_ms": plain_ms / D,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms / D,
             "max_abs_err": 0, "bytes": nbytes, "int8_macs": 0,
             "int32_mads": 0, "path_launches": D}
@@ -1469,15 +1517,18 @@ def cross_cards(f, n, alg, xs, y_one, path_ms, rng) -> None:
 
 def probe_line(results) -> None:
     """The five truncations of the fused level at [8,32,8192] and what
-    each stage adds, from the timed checks of ``fused_level_probe``."""
+    each stage adds, from the timed checks of ``fused_level_probe``: by
+    events and by device time."""
     calls = results["fused_level_probe"]["calls"]
     ms = {c["shape"].split()[0]: c["ms"] for c in calls}
+    dev = {c["shape"].split()[0]: c["device_ms"] for c in calls}
     prev, adds = 0.0, {}
     for stage in ("stream", "digits", "matmul", "reduce", "tw"):
         adds[stage] = ms[stage] - prev
         prev = ms[stage]
     print(json.dumps({"probe": {"shape": "bls12-381-fr [8,32,8192]",
-                                "ms": ms, "added_ms": adds}}), flush=True)
+                                "ms": ms, "added_ms": adds,
+                                "device_ms": dev}}), flush=True)
 
 
 def breakdown(f, n, rng, dev, algorithm="auto") -> None:
@@ -1720,11 +1771,15 @@ def main() -> int:
         b_by = max(split, key=split.get)
         libs = [c["library_ms"] for c in path if c["library_ms"] is not None]
         device = {}
-        if name in DEVICE_TIMED:
-            for key in ("device_ms", "library_device_ms"):
-                vals = [c[key] for c in path]
-                device[key] = (None if any(v is None for v in vals)
-                               else sum(vals))
+        if all("device_ms" in c for c in path):
+            # device time of the kernel's launches, and of the library
+            # call where the launch has one
+            vals = [c["device_ms"] for c in path]
+            lib_vals = [c["library_device_ms"] for c in path
+                        if c["library_ms"] is not None]
+            device = {"device_ms": None if None in vals else sum(vals),
+                      "library_device_ms": None if not lib_vals
+                      or None in lib_vals else sum(lib_vals)}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],

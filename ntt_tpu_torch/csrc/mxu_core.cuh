@@ -24,44 +24,38 @@
 // twiddle product. Every digit and matrix entry is in [0, 127] and every plane
 // sum is below 2^25, so int8 products with int32 sums compute the matmul exactly.
 //
-// Two contractions compute Z[e*m + k, b] = sum_c A[e*m + k, c] * d[c, b]:
+// One contraction computes Z[e*m + k, b] = sum_c A[e*m + k, c] * d[c, b] for
+// every kernel: tc::contract, on the int8 tensor cores.
 //
-// - tc::contract (K1, K2, K3 single-level, K4): the int8 tensor cores. A block
-//   owns a chunk of kt output rows and 128 batch columns; its GEMM rows are
-//   {e*m + k : e < E, k in the chunk}, E*kt of them (about 300), zero-padded
-//   to 320, and the contraction depth D*m is zero-padded to a multiple of 32
-//   (k_pad). The block builds the digit tile of its columns once in shared
-//   memory, K-contiguous per column with the 32-byte swizzle; TMA brings the
-//   chunk's conv-matrix rows 32 contraction bytes a step through a six-stage
-//   ring (the box gathers the rows; where D*m % 16 != 0, at m <= 8, cp.async
-//   loads the whole chunk instead). Per step, four warpgroups run one
-//   wgmma.m64n160k32.s32.s8.s8 each: the digits are the M side (64 columns),
-//   the conv-matrix rows the N side (160 GEMM rows), so one conv-matrix byte
-//   serves 128 columns. A K2 block whose columns span several stack entries
-//   contracts once per entry with a digit tile holding only that entry's
-//   columns. The sums go to a shared int32 Z tile [E*kt, 128] that aliases
-//   the digit tile and the ring, and the epilogue reads them back by (k, b).
-//   The launch plan (kt, k_pad, m_pad, shared bytes, grid) is computed by the
-//   Python wrapper and checked by the launcher.
-// - contract_row (K3 multi-level, K7): __dp4a on the CUDA cores. One block
-//   owns bt batch columns (32 per column group, one warp wide) and all m rows:
-//   1. it stages the D seven-bit digits of its m x bt elements in shared
-//      memory, four contraction indices c = j*m + i per 32-bit word:
-//      dsm[g * bt + b] holds digits c = 4g .. 4g+3 of column b;
-//   2. each thread, for its output row k and column b, forms the E digit-
-//      plane sums in int32 registers with __dp4a. Lanes of a warp share k
-//      and read the same A word (one broadcast load), and read consecutive
-//      shared words.
-//
-// K3 multi-level and K7 still run the __dp4a contraction; K1, K2, K3
-// single-level and K4 run tc::contract. At the 256-bit main path's shapes
-// (W = 8, m = 32, B = 8192) a level is 11.5 G int8 MACs, 11.6 us at the
+//   1. A block owns a chunk of kt output rows and 128 (virtual) batch columns;
+//      its GEMM rows are {e*m + k : e < E, k in the chunk}, E*kt of them
+//      (about 300), zero-padded to 320, and the contraction depth D*m is
+//      zero-padded to a multiple of 32 (k_pad). The block builds the digit
+//      tile of its columns once in shared memory (stage_tile), K-contiguous
+//      per column with the 32-byte swizzle, from whatever operand its kernel
+//      names: x itself for K1-K4 and K7, the (i2, b) columns of x and then
+//      level A's shared result tile for the multi-level K3;
+//   2. TMA brings the chunk's conv-matrix rows 32 contraction bytes a step
+//      through a six-stage ring (the box gathers the rows; where D*m % 16 != 0,
+//      at m <= 8, cp.async loads the whole chunk instead);
+//   3. per step, four warpgroups run one wgmma.m64n160k32.s32.s8.s8 each: the
+//      digits are the M side (64 columns), the conv-matrix rows the N side
+//      (160 GEMM rows), so one conv-matrix byte serves 128 columns. A K2 block
+//      whose columns span several stack entries contracts once per entry with
+//      a digit tile holding only that entry's columns. The sums go to a shared
+//      int32 Z tile [E*kt, 128] that aliases the digit tile and the ring, and
+//      the epilogue reads them back by (k, b). A block may contract again
+//      (the multi-level K3 does, for its level B) once every thread is done
+//      with Z.
+// The launch plans (kt, k_pad, m_pad, shared bytes, grid) are computed by the
+// Python wrappers and checked by the launchers. At the 256-bit main path's
+// shapes (W = 8, m = 32, B = 8192) a level is 11.5 G int8 MACs, 11.6 us at the
 // H100's 1,979 TOPS int8 tensor peak; K2's level 0 is bound by its 61.7 MB of
 // data and stack (18.4 us at 3.35 TB/s), the other levels by their MACs or,
-// at m = 8, their bytes (mxu_level.cu gives each launch's bound).
+// at m = 8, their bytes (mxu_level.cu and mxu_sub.cu give each launch's bound).
 //
-// Then both:
-//   3. reduce V = sum_e Z[e] * 2^(7e) to canonical words. The matrices are
+// Then the epilogue on the CUDA cores:
+//   4. reduce V = sum_e Z[e] * 2^(7e) to canonical words. The matrices are
 //      prescaled by R * 2^16 (R = 2^(32 W)), so the result is
 //      V * 2^-(32 W + 16) mod p. The kernel takes it as W + 1 32-bit Montgomery
 //      steps on V * 2^16 (2^16 * 2^-(32 (W + 1))). The window V * 2^16 <
@@ -70,20 +64,19 @@
 //      p * 2^21 < 2^(32 (W + 1)). The JAX package reaches the same canonical
 //      value through its fold matmul and a 16-bit tail (W = 8) or a 16-bit
 //      wide reduction (narrow fields);
-//   4. optionally multiply by a Montgomery twiddle (32-bit CIOS, R = 2^(32 W));
-//   5. store the words at [w, k, b], coalesced over b (K4: or at [w, b, k]).
+//   5. optionally multiply by a Montgomery twiddle (32-bit CIOS, R = 2^(32 W));
+//   6. store the words at [w, k, b], coalesced over b (K4: or at [w, b, k]).
 #pragma once
 
 #include <cstdint>
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 namespace mxu {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_M = 32;
+constexpr int MAX_M = 32;  // the longest transform one conv matrix computes
 constexpr int MAX_W = 8;
 
 // Digit geometry of a W-word field.
@@ -97,9 +90,6 @@ struct Geo {
   // words of the Montgomery window: the W + 1 eliminated words, W result
   // words and the top word, or NS if the lanes reach further
   static constexpr int NT = NS > 2 * W + 2 ? NS : 2 * W + 2;
-  // digit tile of one __dp4a block: ceil(D*m/4) words x bt columns,
-  // with bt * m = 32 * max(m, 8)
-  static constexpr int SMEM_WORDS = (D * MAX_M / 4) * 32;
 };
 
 struct FieldConst {
@@ -107,113 +97,8 @@ struct FieldConst {
   uint32_t np0;  // -p^-1 mod 2^32
 };
 
-// One __dp4a level's operands (K7).
-struct Level {
-  const uint32_t* x;   // [W, m, B]
-  const int8_t* A;     // conv matrix [E*m, D*m]
-  const uint32_t* T3;  // twiddle [W, m, B], or nullptr
-  uint32_t* out;       // [W, m, B]
-  int m;
-  long long B;
-  FieldConst fc;
-};
-
-// Warps per column group and batch columns per tile, for transform length m.
-__host__ __device__ inline int warps_per_group(int m) { return m < WARPS ? m : WARPS; }
-__host__ __device__ inline int block_cols(int m) { return 32 * (WARPS / warps_per_group(m)); }
-
-// Stages the digits of an m x bt tile: load(i, bl, w) gives the words of the
-// element at row i, tile column bl (zeros for a masked column).
-template <int W, class Load>
-__device__ __forceinline__ void stage_digits(int m, int bt, uint32_t* dsm, Load load) {
-  constexpr int D = Geo<W>::D;
-  const int cols = D * m;
-  const int G = (cols + 3) / 4;
-  uint8_t* d8 = reinterpret_cast<uint8_t*>(dsm);
-  if (cols & 3) {  // the last word group is padded: its tail multiplies zeros
-    for (int b = threadIdx.x; b < bt; b += THREADS) dsm[(G - 1) * bt + b] = 0u;
-    __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < m * bt; idx += THREADS) {
-    const int i = idx / bt, bl = idx % bt;
-    uint32_t w[W];
-    load(i, bl, w);
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const int bit = 7 * j, w0 = bit >> 5, r = bit & 31;
-      uint32_t v = w[w0] >> r;
-      if (r + 7 > 32 && w0 + 1 < W) v |= w[w0 + 1] << (32 - r);
-      const int c = j * m + i;
-      d8[((c >> 2) * bt + bl) * 4 + (c & 3)] = (uint8_t)(v & 127u);
-    }
-  }
-}
-
-// z[e] = sum_c A[e*m + k, c] * d[c, bl]. VEC: bytes of A per load (16 when
-// rows are 16-byte multiples, 4 when 4-byte multiples, else single bytes).
-template <int W, int VEC>
-__device__ __forceinline__ void contract(const int8_t* A, int m, int k, const uint32_t* dsm,
-                                         int bt, int bl, int (&z)[Geo<W>::E]) {
-  constexpr int D = Geo<W>::D, E = Geo<W>::E;
-  const int cols = D * m;
-  const int G = (cols + 3) / 4;
-  const long long plane = (long long)m * cols;  // bytes from row e*m+k to (e+1)*m+k
-  const int8_t* row = A + (long long)k * cols;
-  if constexpr (VEC == 16) {
-    for (int g = 0; g < G; g += 4) {
-      const int d0 = (int)dsm[(g + 0) * bt + bl], d1 = (int)dsm[(g + 1) * bt + bl];
-      const int d2 = (int)dsm[(g + 2) * bt + bl], d3 = (int)dsm[(g + 3) * bt + bl];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int4 a = __ldg(reinterpret_cast<const int4*>(row + e * plane) + (g >> 2));
-        z[e] = __dp4a(a.x, d0, z[e]);
-        z[e] = __dp4a(a.y, d1, z[e]);
-        z[e] = __dp4a(a.z, d2, z[e]);
-        z[e] = __dp4a(a.w, d3, z[e]);
-      }
-    }
-  } else if constexpr (VEC == 4) {
-    for (int g = 0; g < G; ++g) {
-      const int dv = (int)dsm[g * bt + bl];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int a = __ldg(reinterpret_cast<const int*>(row + e * plane) + g);
-        z[e] = __dp4a(a, dv, z[e]);
-      }
-    }
-  } else {
-    for (int g = 0; g < G; ++g) {
-      const int dv = (int)dsm[g * bt + bl];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int8_t* r = row + e * plane + 4 * g;
-        uint32_t a = 0u;
-        for (int q = 0; q < 4; ++q)
-          if (4 * g + q < cols) a |= (uint32_t)(uint8_t)__ldg(r + q) << (8 * q);
-        z[e] = __dp4a((int)a, dv, z[e]);
-      }
-    }
-  }
-}
-
-// The contraction for output row k, with the widest loads the row length allows.
-template <int W>
-__device__ __forceinline__ void contract_row(const int8_t* A, int m, int k, const uint32_t* dsm,
-                                             int bt, int bl, int (&z)[Geo<W>::E]) {
-  const int cols = Geo<W>::D * m;
-#pragma unroll
-  for (int e = 0; e < Geo<W>::E; ++e) z[e] = 0;
-  if (cols % 16 == 0) {
-    contract<W, 16>(A, m, k, dsm, bt, bl, z);
-  } else if (cols % 4 == 0) {
-    contract<W, 4>(A, m, k, dsm, bt, bl, z);
-  } else {
-    contract<W, 1>(A, m, k, dsm, bt, bl, z);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The contraction on the int8 tensor cores (K1, K2, K3 single-level, K4).
+// The contraction on the int8 tensor cores (every digit-matmul kernel).
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -232,18 +117,26 @@ constexpr int MAX_SMEM = 232448;  // dynamic shared bytes a block may use
 // Rows a stage holds: the E*kt GEMM rows, rounded up to the 8-row swizzle atom.
 __host__ __device__ inline int stage_rows(int E, int kt) { return (E * kt + 7) & ~7; }
 
-// Dynamic shared bytes of a block. The conv-matrix rows: STAGES ring stages
+// Shared bytes of one contraction. The conv-matrix rows: STAGES ring stages
 // when TMA feeds them (D*m % 16 == 0), else the whole chunk, k_pad / BK stages.
 // Then the digit tile (k_pad / BK sub-tiles of N x BK bytes), at least as large
 // as the rows the last stage's wgmma reads past its end (ROWS are read, the
-// unused ones multiply into accumulators nobody stores). The Z tile and the
-// transposed-store tile alias both after the main loop; ALIGN bytes of slack.
-// Python's mxu_level.tc_plan computes the same.
-__host__ __device__ inline int smem_bytes(int W, int D, int E, int m, int kt, int k_pad) {
+// unused ones multiply into accumulators nobody stores). The Z tile [E*kt, ZS]
+// aliases both after the main loop.
+__host__ __device__ inline int contract_bytes(int D, int E, int m, int kt, int k_pad) {
   const int rows = stage_rows(E, kt);
   const int stages = (D * m) % 16 == 0 ? STAGES : k_pad / BK;
   const int dig = N * k_pad > (ROWS - rows) * BK ? N * k_pad : (ROWS - rows) * BK;
   const int main_loop = stages * rows * BK + dig;
+  const int z = E * kt * ZS * 4;
+  return main_loop > z ? main_loop : z;
+}
+
+// Dynamic shared bytes of a one-level block: the contraction, which the Z tile
+// and the transposed-store tile alias after the main loop, and ALIGN bytes of
+// slack. Python's mxu_level.tc_plan computes the same.
+__host__ __device__ inline int smem_bytes(int W, int D, int E, int m, int kt, int k_pad) {
+  const int main_loop = contract_bytes(D, E, m, kt, k_pad);
   const int epilogue = E * kt * ZS * 4 + W * N * (kt | 1) * 4;
   return ALIGN + (main_loop > epilogue ? main_loop : epilogue);
 }
@@ -260,6 +153,7 @@ struct Level {
   int m;
   long long B;
   int transpose;
+  int stage;             // K7: the stage the probe stops after
   int kt, k_pad, m_pad;  // rows a chunk, padded depth, padded GEMM rows (ROWS)
   int tma;               // 1: a ring fed by TMA (D*m % 16 == 0); 0: the whole chunk by cp.async
   FieldConst fc;
@@ -301,6 +195,9 @@ __device__ __forceinline__ void fence_async_shared() {
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count)
                : "memory");
+}
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(saddr(bar)) : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   uint32_t done = 0;
@@ -401,14 +298,14 @@ __device__ __forceinline__ void put_digits(const uint32_t (&w)[4][W], int m, int
   }
 }
 
-// The digit tile of columns b0 .. b0+N-1: digit j of element (i, b0 + bl) at
-// contraction index c = j*m + i, zero for c >= D*m and for the columns outside
-// [lo, hi). Ends with the proxy fence of the writes.
-template <int W>
-__device__ __forceinline__ void stage_digits(const Level& L, long long b0, long long lo,
-                                             long long hi, uint8_t* dig) {
+// The digit tile of N columns of an m-row operand: digit j of element (i, col)
+// at contraction index c = j*m + i, zero for c >= D*m. load(i, col, w) gives the
+// W words of the element (zeros for a masked column). Ends with the proxy fence
+// of the writes.
+template <int W, class Load>
+__device__ __forceinline__ void stage_tile(int m, int k_pad, Load load, uint8_t* dig) {
   constexpr int D = Geo<W>::D;
-  const int m = L.m, K = D * m, tail = L.k_pad - K;
+  const int K = D * m, tail = k_pad - K;
   for (int idx = threadIdx.x; idx < N * tail; idx += THREADS)
     dig[dig_at(idx / tail, K + idx % tail)] = 0u;
   if (m % 4 == 0) {
@@ -417,13 +314,9 @@ __device__ __forceinline__ void stage_digits(const Level& L, long long b0, long 
     const int G = m / 4;
     for (int idx = threadIdx.x; idx < N * G; idx += THREADS) {
       const int bl = (idx >> 3) / G * 8 + (idx & 7), i0 = 4 * ((idx >> 3) % G);
-      const long long b = b0 + bl;
-      const bool in = b >= lo && b < hi;
       uint32_t w[4][W];
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int q = 0; q < W; ++q) w[t][q] = in ? L.x[((long long)q * m + i0 + t) * L.B + b] : 0u;
+      for (int t = 0; t < 4; ++t) load(i0 + t, bl, w[t]);
       if (m == BK) {
         put_digits<W, BK>(w, m, bl, i0, dig);
       } else {
@@ -433,16 +326,26 @@ __device__ __forceinline__ void stage_digits(const Level& L, long long b0, long 
   } else {
     for (int idx = threadIdx.x; idx < N * m; idx += THREADS) {
       const int bl = idx % N, i = idx / N;
-      const long long b = b0 + bl;
-      const bool in = b >= lo && b < hi;
       uint32_t w[W];
-#pragma unroll
-      for (int q = 0; q < W; ++q) w[q] = in ? L.x[((long long)q * m + i) * L.B + b] : 0u;
+      load(i, bl, w);
 #pragma unroll
       for (int j = 0; j < D; ++j) dig[dig_at(bl, j * m + i)] = (uint8_t)(digit_hi<W>(w, j) & 127u);
     }
   }
   fence_async_shared();
+}
+
+// The digit tile of a level's columns b0 .. b0+N-1 of x, zero for the columns
+// outside [lo, hi).
+template <int W>
+__device__ __forceinline__ void stage_digits(const Level& L, long long b0, long long lo,
+                                             long long hi, uint8_t* dig) {
+  stage_tile<W>(L.m, L.k_pad, [&](int i, int bl, uint32_t (&w)[W]) {
+    const long long b = b0 + bl;
+    const bool in = b >= lo && b < hi;
+#pragma unroll
+    for (int q = 0; q < W; ++q) w[q] = in ? L.x[((long long)q * L.m + i) * L.B + b] : 0u;
+  }, dig);
 }
 
 // Without TMA (D*m % 16 != 0, only at m <= 8): the chunk's conv-matrix rows
@@ -487,13 +390,17 @@ __device__ __forceinline__ void load_chunk(const int8_t* A, int m, int kt, int k
 // one wgmma of columns (g & 1)*NM .. +NM-1 of the digit sub-tile (the M side)
 // against GEMM rows (g >> 1)*NR .. +NR-1 of the stage (the N side). Every
 // conv-matrix byte brought in serves N = 128 columns. The stages come through a ring
-// fed by TMA (the `full` barriers) or, without TMA, hold the whole chunk. A K2
-// block whose columns span several stack entries runs the contraction once per
-// entry, each time with a digit tile that holds only that entry's columns.
-// Ends with a barrier: Z is readable by every thread.
-template <int W>
+// fed by TMA (the `full` barriers) or, without TMA, hold the whole chunk.
+// stage_cols(lo, hi, dig) writes the digit tile of the columns in [lo, hi)
+// (all of them for one matrix). A K2 block whose columns span several stack entries
+// runs the contraction once per entry, each time with a digit tile that holds
+// only that entry's columns. Ends with a barrier: Z is readable by every
+// thread, and the barriers are invalidated, so that a block may contract again
+// once every thread is done with Z.
+template <int W, class Stage>
 __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map, long long b0,
-                                         int k0, uint8_t* smem, uint64_t* full) {
+                                         int k0, uint8_t* smem, uint64_t* full,
+                                         Stage stage_cols) {
   constexpr int E = Geo<W>::E;
   const int kt = L.kt, R = E * kt, nk = L.k_pad / BK;
   const int stage_bytes = stage_rows(E, kt) * BK;
@@ -530,7 +437,7 @@ __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map,
     }
     wgmma_wait<0>();
     __syncthreads();  // the digit tile and the whole chunk are free
-    stage_digits<W>(L, b0, lo, hi, dig);
+    stage_cols(lo, hi, dig);
     if (!L.tma) load_chunk<W>(L.A + (s_lo + e) * L.a_stride, L.m, kt, k0, stage_bytes, rows);
     __syncthreads();
     for (int kb = 0; kb < nk; ++kb) {
@@ -549,6 +456,8 @@ __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map,
   }
   wgmma_wait<0>();
   __syncthreads();
+  if (L.tma && threadIdx.x == 0)
+    for (int i = 0; i < STAGES; ++i) mbar_inval(&full[i]);
 
   // Z: thread (warp w4 of its warpgroup, lane) holds columns mh*NM + w4*16 +
   // lane/4 (+8) and GEMM rows nh*NR + 8j + 2*(lane%4) (+1), j < NR / 8
@@ -567,6 +476,36 @@ __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map,
     }
   }
   __syncthreads();
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime.
+static inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got) ==
+            cudaSuccess &&
+        got == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The TMA map of the conv-matrix stack int8[NT][E][m][K] (NT = 1 for one
+// matrix): boxes of {BK, kt, E, 1} bytes, 32-byte swizzle, zeros beyond K.
+static inline bool stack_map(CUtensorMap* map, const int8_t* A, int E, int m, int K,
+                             long long NT, int kt) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)K, (cuuint64_t)m, (cuuint64_t)E, (cuuint64_t)NT};
+  const cuuint64_t strides[3] = {(cuuint64_t)K, (cuuint64_t)m * K, (cuuint64_t)E * m * K};
+  const cuuint32_t box[4] = {(cuuint32_t)BK, (cuuint32_t)kt, (cuuint32_t)E, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(A), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tc

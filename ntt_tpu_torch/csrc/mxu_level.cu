@@ -14,8 +14,7 @@
 // ntt_tpu/kernels/mxu_level.py::_kernel_sub (entry fused_subntt): one conv matrix,
 // then the decomposition twiddle by a Montgomery product, read from T3[W, m, B]
 // (rep == 1) or from the i2-resolution table T3[W, B / rep, m] (rep > 1; a warp
-// reads one row of it, mostly as broadcasts). Its multi-level form (m > 32) is
-// mxu_sub.cu.
+// reads one row of it, mostly as broadcasts).
 //
 // K4 mxu_fused_level replaces ntt_tpu/kernels/mxu_level.py::_kernel_level (entry
 // fused_level): one conv matrix, an optional product with a full-resolution
@@ -23,12 +22,14 @@
 // four-step transpose rides the level's own pass over the data.
 //
 // K7 mxu_fused_level_probe replaces ntt_tpu/kernels/mxu_level.py::_kernel_probe
-// (entry fused_level_probe): a level cut off after one of five stages, to
-// attribute its time. Outputs uint32[W, m, B]: "stream" x itself; "digits" the sum
-// of an element's D digits, on every word plane; "matmul" the planes 0 .. W-1 of
-// the E accumulator planes, cast to uint32; "reduce" the reduced y; "tw" y * T3.
+// (entry fused_level_probe): K3's level at rep = 1 (K4's without the transposed
+// store) cut off after one of five stages, to attribute its time. Outputs
+// uint32[W, m, B]: "stream" x itself; "digits" the sum of an element's D digits,
+// on every word plane, read back from the staged digit tile; "matmul" the planes
+// 0 .. W-1 of the E accumulator planes, cast to uint32, from the Z tile;
+// "reduce" the reduced y; "tw" y * T3, which is the whole level.
 //
-// K1, K2, K3 and K4 are one block body (tc_level) on the int8 tensor cores
+// All five are one block body (tc_level) on the int8 tensor cores
 // (mxu_core.cuh, tc::contract), each under a kernel name of its own: a block
 // owns a chunk of kt output rows and 128 batch columns; TMA streams the chunk's
 // conv-matrix rows (gathered by a 4-D box over [NT][E][m][D*m]) through a
@@ -36,11 +37,12 @@
 // warpgroups run wgmma m64n160k32 s8 on it (two column halves x two row
 // halves); the sums go through a shared Z tile to the epilogue: reduce<W>,
 // then T3 by mont_mul, then the store (for K4's transposed store through a
-// [w][column][row | 1] tile, so that the writes run along m). Blocks are
-// numbered column tile by column tile, the row chunks of one tile together, so
-// the blocks of one stack entry run together and read its matrix from L2.
-// K7 runs the __dp4a contraction (contract_row) on the template
-// fused_level_probe_kernel, which was K4's before the tensor-core version.
+// [w][column][row | 1] tile, so that the writes run along m). The epilogue
+// takes the probe's stage as an argument; the other kernels pass TW, which the
+// compiler folds away. Blocks are numbered column tile by column tile, the row
+// chunks of one tile together, so the blocks of one stack entry run together
+// and read its matrix from L2. K3's multi-level form (m > 32) is mxu_sub.cu,
+// on the same contraction.
 //
 // Bounds on an H100 at the 256-bit main path's shapes (W = 8, n = 2^18, m = 32,
 // B = 8192, 11.5 G int8 MACs = 11.6 us at the 1,979 TOPS int8 tensor peak):
@@ -60,15 +62,17 @@
 // SM; at the main path's shapes each phase takes a comparable share of a
 // launch, and the wgmma steps themselves run at about 70% of the int8 peak
 // (PERF.md, tc_knockout.py).
-#include <cudaTypedefs.h>
-
 #include "mxu_core.cuh"
 
+// Stages of the probe (K7) in pipeline order; TW runs the whole level, and is
+// what K1-K4 pass.
+enum ProbeStage { STREAM = 0, DIGITS = 1, MATMUL = 2, REDUCE = 3, TW = 4 };
+
 // The epilogue of the tensor-core levels for output rows k0 .. k0+kt-1 and the block's columns:
-// Z from shared memory, reduce, T3, store.
+// Z from shared memory, reduce (MATMUL: the first W planes as they are), T3, store.
 template <int W>
 __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b0, int k0,
-                                            uint8_t* smem) {
+                                            uint8_t* smem, int stage) {
   using namespace mxu;
   constexpr int E = Geo<W>::E, N = tc::N;
   const int m = L.m, kt = L.kt, ts = kt | 1;
@@ -83,7 +87,12 @@ __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b
 #pragma unroll
     for (int e = 0; e < E; ++e) z[e] = Z[(e * kt + kk) * tc::ZS + bl];
     uint32_t y[W];
-    reduce<W>(z, L.fc, y);
+    if (stage == MATMUL) {
+#pragma unroll
+      for (int q = 0; q < W; ++q) y[q] = (uint32_t)z[q];
+    } else {
+      reduce<W>(z, L.fc, y);
+    }
     if (b >= L.B) continue;
     if (L.T3 != nullptr) {
       uint32_t r[W];
@@ -111,9 +120,41 @@ __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b
   }
 }
 
+// K7's first two stages for rows k0 .. k0+kt-1 of the block's columns: x
+// itself, or the digit sums read back from the staged digit tile at `smem`.
+template <int W>
+__device__ __forceinline__ void probe_early(const mxu::tc::Level& L, long long b0, int k0,
+                                            uint8_t* smem, int stage) {
+  using namespace mxu;
+  constexpr int N = tc::N;
+  if (stage == DIGITS) {
+    tc::stage_digits<W>(L, b0, 0, L.B, smem);
+    __syncthreads();
+  }
+  for (int idx = threadIdx.x; idx < L.kt * N; idx += tc::THREADS) {
+    const int i = k0 + idx / N, bl = idx % N;
+    const long long b = b0 + bl;
+    if (b >= L.B) continue;
+    if (stage == STREAM) {
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        const long long at = ((long long)q * L.m + i) * L.B + b;
+        L.out[at] = L.x[at];
+      }
+    } else {
+      uint32_t acc = 0u;
+#pragma unroll
+      for (int j = 0; j < Geo<W>::D; ++j) acc += smem[tc::dig_at(bl, j * L.m + i)];
+#pragma unroll
+      for (int q = 0; q < W; ++q) L.out[((long long)q * L.m + i) * L.B + b] = acc;
+    }
+  }
+}
+
 // One tensor-core block: column tile blockIdx.x / (m / kt), row chunk blockIdx.x % (m / kt).
 template <int W>
-__device__ __forceinline__ void tc_level(const CUtensorMap* map, const mxu::tc::Level& L) {
+__device__ __forceinline__ void tc_level(const CUtensorMap* map, const mxu::tc::Level& L,
+                                         int stage) {
   extern __shared__ uint8_t tc_smem_raw[];
   __shared__ __align__(8) uint64_t full[mxu::tc::STAGES];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -121,196 +162,48 @@ __device__ __forceinline__ void tc_level(const CUtensorMap* map, const mxu::tc::
   const int chunks = L.m / L.kt;
   const long long b0 = (long long)(blockIdx.x / chunks) * mxu::tc::N;
   const int k0 = (blockIdx.x % chunks) * L.kt;
-  mxu::tc::contract<W>(L, map, b0, k0, smem, full);
-  tc_epilogue<W>(L, b0, k0, smem);
+  if (stage < MATMUL) {
+    probe_early<W>(L, b0, k0, smem, stage);
+    return;
+  }
+  mxu::tc::contract<W>(L, map, b0, k0, smem, full, [&](long long lo, long long hi, uint8_t* dig) {
+    mxu::tc::stage_digits<W>(L, b0, lo, hi, dig);
+  });
+  tc_epilogue<W>(L, b0, k0, smem, stage);
 }
 
 template <int W>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     fused_level_stack_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L);
+  tc_level<W>(&map, L, TW);
 }
 
 template <int W>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     fused_level_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L);
+  tc_level<W>(&map, L, TW);
 }
 
 template <int W>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     fused_subntt_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L);
+  tc_level<W>(&map, L, TW);
 }
 
 template <int W>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     base_ntt_mxu_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L);
-}
-
-// K7 (K4's template before the tensor-core version). Stages of the probe in
-// pipeline order; TW runs the whole level without the transposed store.
-enum ProbeStage { STREAM = 0, DIGITS = 1, MATMUL = 2, REDUCE = 3, TW = 4 };
-
-template <int W>
-__global__ void __launch_bounds__(mxu::THREADS, 2) fused_level_probe_kernel(mxu::Level L,
-                                                                             int stage,
-                                                                             int transpose) {
-  using namespace mxu;
-  extern __shared__ uint32_t smem[];
-  uint32_t* dsm = smem;                       // digit tile
-  uint32_t* tile = smem + Geo<W>::SMEM_WORDS; // results for the transposed store
-  const int m = L.m;
-  const int kw = warps_per_group(m);
-  const int bt = block_cols(m);
-  const long long b0 = (long long)blockIdx.x * bt;
-
-  if (stage == STREAM) {
-    for (int idx = threadIdx.x; idx < m * bt; idx += THREADS) {
-      const int i = idx / bt;
-      const long long b = b0 + idx % bt;
-      if (b >= L.B) continue;
-#pragma unroll
-      for (int q = 0; q < W; ++q) {
-        const long long at = ((long long)q * m + i) * L.B + b;
-        L.out[at] = L.x[at];
-      }
-    }
-    return;
-  }
-
-  stage_digits<W>(m, bt, dsm, [&](int i, int bl, uint32_t(&w)[W]) {
-    const long long b = b0 + bl;
-#pragma unroll
-    for (int q = 0; q < W; ++q) w[q] = b < L.B ? L.x[((long long)q * m + i) * L.B + b] : 0u;
-  });
-  __syncthreads();
-
-  if (stage == DIGITS) {
-    const uint8_t* d8 = reinterpret_cast<const uint8_t*>(dsm);
-    for (int idx = threadIdx.x; idx < m * bt; idx += THREADS) {
-      const int i = idx / bt, bl = idx % bt;
-      const long long b = b0 + bl;
-      if (b >= L.B) continue;
-      uint32_t acc = 0u;
-      for (int j = 0; j < Geo<W>::D; ++j) {
-        const int c = j * m + i;
-        acc += d8[((c >> 2) * bt + bl) * 4 + (c & 3)];
-      }
-#pragma unroll
-      for (int q = 0; q < W; ++q) L.out[((long long)q * m + i) * L.B + b] = acc;
-    }
-    return;
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bl = (warp / kw) * 32 + lane;
-  const long long b = b0 + bl;
-  const int ms = m | 1;
-  for (int k = warp % kw; k < m; k += kw) {
-    int z[Geo<W>::E];
-    contract_row<W>(L.A, m, k, dsm, bt, bl, z);
-    uint32_t y[W];
-    if (stage == MATMUL) {
-#pragma unroll
-      for (int q = 0; q < W; ++q) y[q] = (uint32_t)z[q];
-    } else {
-      reduce<W>(z, L.fc, y);
-    }
-    if (b >= L.B) continue;
-    if (stage == TW && L.T3 != nullptr) {
-      uint32_t t[W], r[W];
-      load_twiddle<W>(L.T3, 1, m, L.B, k, b, t);
-      mont_mul<W>(y, t, L.fc, r);
-#pragma unroll
-      for (int q = 0; q < W; ++q) y[q] = r[q];
-    }
-    if (transpose) {
-#pragma unroll
-      for (int q = 0; q < W; ++q) tile[(q * bt + bl) * ms + k] = y[q];
-    } else {
-#pragma unroll
-      for (int q = 0; q < W; ++q) L.out[((long long)q * m + k) * L.B + b] = y[q];
-    }
-  }
-  if (!transpose) return;
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < m * bt; idx += THREADS) {
-    const int c = idx / m, k = idx % m;
-    const long long bb = b0 + c;
-    if (bb >= L.B) continue;
-#pragma unroll
-    for (int q = 0; q < W; ++q) L.out[((long long)q * L.B + bb) * m + k] = tile[(q * bt + c) * ms + k];
-  }
+  tc_level<W>(&map, L, TW);
 }
 
 template <int W>
-static int launch_probe(const mxu::Level& L, int stage, void* stream) {
-  const size_t smem = (size_t)mxu::Geo<W>::SMEM_WORDS * 4;  // the probe never transposes
-  cudaError_t rc = cudaFuncSetAttribute(fused_level_probe_kernel<W>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc != cudaSuccess) return (int)rc;
-  const long long bt = mxu::block_cols(L.m);
-  const long long blocks = (L.B + bt - 1) / bt;
-  fused_level_probe_kernel<W><<<(unsigned)blocks, mxu::THREADS, smem, (cudaStream_t)stream>>>(
-      L, stage, 0);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int mxu_fused_level_probe(const void* x, const void* A, const void* T3, void* out,
-                                     int stage, int m, long long B, const uint32_t* p,
-                                     uint32_t np0, int n_words, void* stream) {
-  if (stage < STREAM || stage > TW) return (int)cudaErrorInvalidValue;
-  if (m < 2 || m > mxu::MAX_M || (m & (m - 1)) || B < 1) return (int)cudaErrorInvalidValue;
-  mxu::Level L{};
-  L.x = static_cast<const uint32_t*>(x);
-  L.A = static_cast<const int8_t*>(A);
-  L.T3 = static_cast<const uint32_t*>(T3);
-  L.out = static_cast<uint32_t*>(out);
-  L.m = m;
-  L.B = B;
-  L.fc = mxu::field_const(p, np0);
-  switch (n_words) {
-    case 8: return launch_probe<8>(L, stage, stream);
-    case 2: return launch_probe<2>(L, stage, stream);
-    case 1: return launch_probe<1>(L, stage, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime.
-static PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got) ==
-            cudaSuccess &&
-        got == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// The TMA map of the conv-matrix stack int8[NT][E][m][K] (NT = 1 for one
-// matrix): boxes of {BK, kt, E, 1} bytes, 32-byte swizzle, zeros beyond K.
-static bool stack_map(CUtensorMap* map, const int8_t* A, int E, int m, int K, long long NT,
-                      int kt) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)K, (cuuint64_t)m, (cuuint64_t)E, (cuuint64_t)NT};
-  const cuuint64_t strides[3] = {(cuuint64_t)K, (cuuint64_t)m * K, (cuuint64_t)E * m * K};
-  const cuuint32_t box[4] = {(cuuint32_t)mxu::tc::BK, (cuuint32_t)kt, (cuuint32_t)E, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(A), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+__global__ void __launch_bounds__(mxu::tc::THREADS, 1)
+    fused_level_probe_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
+  tc_level<W>(&map, L, L.stage);
 }
 
 // The tensor-core kernels, one name each.
-enum TcKind { TC_BASE, TC_STACK, TC_SUBNTT, TC_LEVEL };
+enum TcKind { TC_BASE, TC_STACK, TC_SUBNTT, TC_LEVEL, TC_PROBE };
 using TcKernel = void (*)(const CUtensorMap, mxu::tc::Level);
 
 template <int W>
@@ -319,11 +212,12 @@ static TcKernel tc_kernel(TcKind kind) {
     case TC_BASE: return base_ntt_mxu_kernel<W>;
     case TC_STACK: return fused_level_stack_kernel<W>;
     case TC_SUBNTT: return fused_subntt_kernel<W>;
+    case TC_PROBE: return fused_level_probe_kernel<W>;
     default: return fused_level_kernel<W>;
   }
 }
 
-// K1 / K2 / K3 / K4: checks the launch plan (kt, k_pad, m_pad, blocks, smem)
+// K1 / K2 / K3 / K4 / K7: checks the launch plan (kt, k_pad, m_pad, blocks, smem)
 // against the operands and launches it; cudaErrorInvalidValue for a plan the
 // kernel cannot take.
 template <int W>
@@ -342,7 +236,7 @@ static int launch_tc(TcKind kind, mxu::tc::Level& L, long long NT, long long blo
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap map{};
   L.tma = K % 16 == 0;
-  if (L.tma && !stack_map(&map, L.A, E, m, K, NT, kt)) return (int)cudaErrorInvalidValue;
+  if (L.tma && !tc::stack_map(&map, L.A, E, m, K, NT, kt)) return (int)cudaErrorInvalidValue;
   const TcKernel kernel = tc_kernel<W>(kind);
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
@@ -425,4 +319,15 @@ extern "C" int mxu_fused_subntt(const void* x, const void* A, const void* T3, lo
   mxu::tc::Level L = tc_operands(x, A, T3, out, m, B);
   L.t_rep = rep;
   return tc_entry(TC_SUBNTT, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
+}
+
+extern "C" int mxu_fused_level_probe(const void* x, const void* A, const void* T3, void* out,
+                                     int stage, int m, long long B, const uint32_t* p,
+                                     uint32_t np0, int n_words, int kt, int k_pad, int m_pad,
+                                     long long blocks, int smem, void* stream) {
+  if (stage < STREAM || stage > TW || (T3 != nullptr) != (stage == TW))
+    return (int)cudaErrorInvalidValue;
+  mxu::tc::Level L = tc_operands(x, A, T3, out, m, B);
+  L.stage = stage;
+  return tc_entry(TC_PROBE, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }

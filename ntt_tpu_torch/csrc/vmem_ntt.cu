@@ -40,8 +40,8 @@
 namespace vmem {
 
 using mxu::FieldConst;
-using mxu::THREADS;
 
+constexpr int THREADS = 256;
 constexpr int MAX_M = 256;
 
 struct Stages {

@@ -16,15 +16,17 @@ share with K1 (``kernels/mxu_ntt.py``).
 - ``fused_level`` (K4): one conv matrix, an optional full-resolution
   twiddle T3 [W, m, B], and the store transposed to [W, B, m] on request:
   the level of the flat-peel transform ``mxu_fused``.
-- ``fused_level_probe`` (K7): K4's level cut off after ``stream``,
-  ``digits``, ``matmul``, ``reduce`` or ``tw``, to attribute its time to
-  its stages.
+- ``fused_level_probe`` (K7): K3's level at rep 1 cut off after
+  ``stream``, ``digits``, ``matmul``, ``reduce`` or ``tw``, to attribute
+  its time to its stages.
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/mxu_level.cu``, ``csrc/mxu_sub.cu``); on a CPU tensor it runs its
-plain PyTorch version. K1, K2, K3 (single-level) and K4 contract on the
-int8 tensor cores; their launch plan (:func:`tc_plan`) is computed here
-and checked by the C launcher. K3 multi-level and K7 run ``__dp4a``.
+plain PyTorch version. Every kernel contracts on the int8 tensor cores
+(``csrc/mxu_core.cuh``, ``tc::contract``); the launch plans
+(:func:`tc_plan` for the one-level kernels, :func:`sub_plan` for the
+multi-level K3, whose block runs both levels on its own row chunk and
+columns) are computed here and checked by the C launchers.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ def _lib() -> ctypes.CDLL:
     lib.mxu_fused_level.restype = ctypes.c_int
     lib.mxu_fused_level_probe.argtypes = [
         vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ll,
-        *_build.FIELD_ARGTYPES, vp]
+        *_build.FIELD_ARGTYPES, *plan, vp]
     lib.mxu_fused_level_probe.restype = ctypes.c_int
     return lib
 
@@ -78,14 +80,13 @@ def _lib_sub() -> ctypes.CDLL:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.mxu_fused_subntt_multi.argtypes = [
         vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
-        vp]
+        *[ctypes.c_int] * 7, ll, ctypes.c_int, vp]
     lib.mxu_fused_subntt_multi.restype = ctypes.c_int
     return lib
 
 
 # ---------------------------------------------------------------------------
-# The launch plan of the tensor-core levels (K1, K2, K3 single-level, K4):
-# csrc/mxu_core.cuh, tc::
+# The launch plans of the tensor-core kernels: csrc/mxu_core.cuh, tc::
 # ---------------------------------------------------------------------------
 
 #: batch columns a block owns (two wgmma M of 64); GEMM rows of a block,
@@ -121,8 +122,20 @@ class TcPlan(NamedTuple):
     smem_bytes: int
 
 
+def _contract_bytes(D: int, E: int, m: int, kt: int, k_pad: int) -> int:
+    """Shared bytes of one contraction (``tc::contract_bytes``): the
+    conv-matrix stages (a TMA ring where D*m % 16 == 0, else the whole
+    chunk), the digit tile, or the Z tile that aliases both."""
+    rows = -(-E * kt // 8) * 8
+    stages = TC_STAGES if D * m % 16 == 0 else k_pad // TC_BK
+    main_loop = (stages * rows * TC_BK
+                 + max(TC_COLS * k_pad, (TC_ROWS_PAD - rows) * TC_BK))
+    return max(main_loop, E * kt * TC_Z_STRIDE * 4)
+
+
+@functools.cache
 def tc_plan(field: Field, m: int, B: int) -> TcPlan:
-    """The plan of a K1 / K2 / K3 (single-level) / K4 launch on
+    """The plan of a K1 / K2 / K3 (single-level) / K4 / K7 launch on
     uint32[W, m, B] of ``field``."""
     W = field.n_words
     if W not in TC_KT or m & (m - 1) or not 2 <= m <= 32 or B < 1:
@@ -132,22 +145,88 @@ def tc_plan(field: Field, m: int, B: int) -> TcPlan:
     kt = min(m, TC_KT[W])
     k_pad = -(-D * m // TC_BK) * TC_BK
     chunks, col_tiles = m // kt, -(-B // TC_COLS)
-    rows = -(-E * kt // 8) * 8
-    stages = TC_STAGES if D * m % 16 == 0 else k_pad // TC_BK
-    main_loop = (stages * rows * TC_BK
-                 + max(TC_COLS * k_pad, (TC_ROWS_PAD - rows) * TC_BK))
     epilogue = E * kt * TC_Z_STRIDE * 4 + W * TC_COLS * (kt | 1) * 4
     plan = TcPlan(kt, k_pad, TC_ROWS_PAD, chunks, col_tiles,
-                  chunks * col_tiles, TC_ALIGN + max(main_loop, epilogue))
+                  chunks * col_tiles,
+                  TC_ALIGN + max(_contract_bytes(D, E, m, kt, k_pad),
+                                 epilogue))
     if E * kt > TC_ROWS_PAD or plan.smem_bytes > TC_MAX_SMEM:
         raise ValueError(f"W = {W}, m = {m}: plan {plan} exceeds the block")
     return plan
 
 
+@functools.cache
 def plan_args(field: Field, m: int, B: int) -> tuple:
     """The plan of :func:`tc_plan` as the C entry points take it."""
     plan = tc_plan(field, m, B)
     return (plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
+
+
+#: rows k1 a block of the multi-level K3 owns (level A's row chunk), by
+#: field width: E * kt within the block's 320 GEMM rows, and 4 at W = 8 so
+#: that level A's contraction and the shared tile Y fit in one block
+SUB_KT = {8: 4, 2: 16, 1: 32}
+
+
+class SubPlan(NamedTuple):
+    """Launch plan of the multi-level K3 on uint32[W, m, B], m2 = m / 32:
+    a block owns ``kt`` rows k1 and ``bt`` = 128 / m2 batch columns (level
+    A: one contraction over the 128 virtual columns (i2, b)); level B runs
+    one contraction for each 128 of the kt * bt virtual columns (k1, b) and
+    each ``kt2`` rows k2. Padded depths of A1 (``ka_pad``) and A2
+    (``kb_pad``), padded GEMM rows, the grid (``chunks`` row chunks x
+    ``col_tiles`` column tiles), the shared tile Y (row stride ``ys``
+    words, at byte ``y_off``) and the block's dynamic shared bytes. The
+    plan owns Y's layout; the launcher only checks that it is safe."""
+    kt: int
+    kt2: int
+    bt: int
+    ka_pad: int
+    kb_pad: int
+    m_pad: int
+    chunks: int
+    col_tiles: int
+    blocks: int
+    ys: int
+    y_off: int
+    smem_bytes: int
+
+
+@functools.cache
+def sub_plan(field: Field, m: int, B: int) -> SubPlan:
+    """The plan of a multi-level K3 launch on uint32[W, m, B] of ``field``
+    (``mxu_sub.cu``, ``launch_sub``)."""
+    W = field.n_words
+    if W not in SUB_KT or m & (m - 1) or not 2 * BASE <= m <= MAX_SUB \
+            or B < 1:
+        raise ValueError(f"no multi-level plan for W = {W}, m = {m}, "
+                         f"B = {B}")
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    m2 = m // BASE
+    kt, kt2, bt = SUB_KT[W], min(m2, TC_KT[W]), TC_COLS // m2
+    ka_pad = -(-D * BASE // TC_BK) * TC_BK
+    kb_pad = -(-D * m2 // TC_BK) * TC_BK
+    # Y's rows i2 are kt * bt words apart, bt more where a warp's 32 level-A
+    # results span several i2 (bt < 32), so that their stores fall in
+    # distinct banks; Y follows the larger of the two contractions' bytes
+    ys = kt * bt + (bt if bt < 32 else 0)
+    y_off = max(_contract_bytes(D, E, BASE, kt, ka_pad),
+                _contract_bytes(D, E, m2, kt2, kb_pad))
+    chunks, col_tiles = BASE // kt, -(-B // bt)
+    plan = SubPlan(kt, kt2, bt, ka_pad, kb_pad, TC_ROWS_PAD, chunks,
+                   col_tiles, chunks * col_tiles, ys, y_off,
+                   TC_ALIGN + y_off + W * m2 * ys * 4)
+    if max(E * kt, E * kt2) > TC_ROWS_PAD or plan.smem_bytes > TC_MAX_SMEM:
+        raise ValueError(f"W = {W}, m = {m}: plan {plan} exceeds the block")
+    return plan
+
+
+@functools.cache
+def sub_plan_args(field: Field, m: int, B: int) -> tuple:
+    """The plan of :func:`sub_plan` as the C entry point takes it."""
+    p = sub_plan(field, m, B)
+    return (p.kt, p.kt2, p.ka_pad, p.kb_pad, p.m_pad, p.ys, p.y_off,
+            p.blocks, p.smem_bytes)
 
 
 def _zmax_bits(field: Field, m: int) -> int:
@@ -324,7 +403,8 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
     rc = _lib_sub().mxu_fused_subntt_multi(
         _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
         _build.ptr(T3), rep, _build.ptr(out), m, B,
-        *_build.field_args(field), _build.stream(x3))
+        *_build.field_args(field), *sub_plan_args(field, m, B),
+        _build.stream(x3))
     _build.check(rc, "fused_subntt_multi")
     _build.launches["fused_subntt_multi"] += 1
     return out
@@ -376,7 +456,7 @@ def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# K7: K4's level cut off after a stage
+# K7: K3's level at rep 1 cut off after a stage
 # ---------------------------------------------------------------------------
 
 #: the stages of the fused-level probe, in pipeline order
@@ -403,13 +483,14 @@ def fused_level_probe_plain(x3, field: Field, A, stage: str, T3=None):
 
 
 def fused_level_probe(x3, field: Field, A, stage: str, T3=None):
-    """The fused level (K4, no transposed store) cut off after ``stage``,
-    for attributing its time: uint32[W, m, B] holding x itself
-    (``stream``), the sum of each element's digits on every word plane
-    (``digits``), the first W accumulator planes cast to uint32
+    """The fused level (K3 at rep 1, K4 without the transposed store) cut
+    off after ``stage``, for attributing its time: uint32[W, m, B] holding
+    x itself (``stream``), the sum of each element's digits on every word
+    plane (``digits``), the first W accumulator planes cast to uint32
     (``matmul``), the reduced transform (``reduce``) or its product with
     ``T3`` (``tw``, which is :func:`fused_level` with T3 and no
-    transpose)."""
+    transpose). The kernel runs the tensor-core level's launch plan
+    (:func:`tc_plan`)."""
     if stage not in PROBE_STAGES:
         raise ValueError(f"stage must be one of {PROBE_STAGES}, got {stage!r}")
     if (stage == "tw") != (T3 is not None):
@@ -422,7 +503,7 @@ def fused_level_probe(x3, field: Field, A, stage: str, T3=None):
     rc = _lib().mxu_fused_level_probe(
         _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
         PROBE_STAGES.index(stage), m, B, *_build.field_args(field),
-        _build.stream(x3))
+        *plan_args(field, m, B), _build.stream(x3))
     _build.check(rc, "fused_level_probe")
     _build.launches["fused_level_probe"] += 1
     return out

@@ -1,7 +1,11 @@
 """The launch plan of the tensor-core levels K1 (``base_ntt_mxu``), K2
-(``fused_level_stack``), K3 single-level (``fused_subntt``, m <= 32) and K4
-(``fused_level``), and a torch emulation of their tiled contraction and of
-the epilogue's twiddle read, on the CPU.
+(``fused_level_stack``), K3 single-level (``fused_subntt``, m <= 32), K4
+(``fused_level``) and K7 (``fused_level_probe``), and a torch emulation of
+their tiled contraction, of the epilogue's twiddle read and of K7's five
+stages read from the swizzled digit tile and the Z tile, on the CPU; the
+launch plan of the multi-level K3 (m = 64 .. 512: every (k1, b) of level A
+and every (k2, k1, b) of level B formed by exactly one block, the shared
+tiles within the block).
 
 The CUDA kernels (``csrc/mxu_core.cuh``, ``tc::contract``) run only on the
 card; what surrounds their arithmetic is held here: the plan the wrappers
@@ -259,3 +263,129 @@ def test_emulated_base_equals_plain(W, m, B):
     want = mxu_ntt.base_ntt_mxu_plain(x, field, mats[m], mats.get(-m))
     got = _emulated_level(x, field, mats[m][None], B, mats.get(-m))
     assert torch.equal(got, want)
+
+
+def test_plan_refuses_what_the_kernel_cannot_take_multi():
+    """``sub_plan`` refuses what ``launch_sub`` refuses: widths without
+    kernels, m outside 64 .. 512 or not a power of two, B < 1."""
+    gold = tfields.GOLDILOCKS
+    four_words = tfields.Field("m127", (1 << 127) - 1, 3, 1)
+    for field, m, B in ((four_words, 64, 64), (gold, 32, 64),
+                        (gold, 1024, 64), (gold, 96, 64), (gold, 64, 0)):
+        with pytest.raises(ValueError):
+            mxu_level.sub_plan(field, m, B)
+
+
+@pytest.mark.parametrize("m", [64, 128, 256, 512])
+@pytest.mark.parametrize("W", [1, 2, 8])
+def test_sub_plan_fits_the_block_and_covers_both_levels(W, m):
+    """The multi-level K3: level A's 128 virtual columns are the block's bt
+    batch columns x m2 rows i2; its row chunks of kt rows k1 and level B's
+    row passes of kt2 rows k2 fit the 320 GEMM rows; the contractions and
+    the tile Y (after both, rows i2 ``ys`` words apart) fit 227 KiB. Level A
+    of the blocks forms every (k1, i2, b) once, level B every (k2, k1, b)
+    once, walked as the kernel walks them (ragged B included)."""
+    field = FIELD_OF_WIDTH[W]
+    D, E = tdigits.n_digits(field), tdigits.out_planes(field)
+    m2, N = m // 32, mxu_level.TC_COLS
+    for B in (1, 37, 300, 512, 8192, 1 << 18):
+        p = mxu_level.sub_plan(field, m, B)
+        assert p.bt * m2 == N and p.chunks * p.kt == 32
+        assert max(E * p.kt, E * p.kt2) <= p.m_pad == mxu_level.TC_ROWS_PAD
+        assert m2 % p.kt2 == 0
+        assert p.ka_pad >= D * 32 and p.kb_pad >= D * m2
+        assert p.ka_pad % 32 == 0 and p.kb_pad % 32 == 0
+        assert p.ys >= p.kt * p.bt and p.y_off % 16 == 0
+        assert p.y_off >= max(mxu_level._contract_bytes(D, E, 32, p.kt,
+                                                        p.ka_pad),
+                              mxu_level._contract_bytes(D, E, m2, p.kt2,
+                                                        p.kb_pad))
+        assert p.smem_bytes == (mxu_level.TC_ALIGN + p.y_off
+                                + W * m2 * p.ys * 4) <= 227 * 1024
+        assert (p.col_tiles - 1) * p.bt < B <= p.col_tiles * p.bt
+        assert p.blocks == p.chunks * p.col_tiles <= 0x7FFFFFFF
+        assert mxu_level.sub_plan_args(field, m, B) == (
+            p.kt, p.kt2, p.ka_pad, p.kb_pad, p.m_pad, p.ys, p.y_off,
+            p.blocks, p.smem_bytes)
+        if B > 300:
+            continue
+        seen_a = np.zeros((32, m2, B), dtype=np.int64)
+        seen_b = np.zeros((m2, 32, B), dtype=np.int64)
+        for blk in range(p.blocks):
+            tile, chunk = divmod(blk, p.chunks)
+            b0, k0 = tile * p.bt, chunk * p.kt
+            v = np.arange(N)                      # level A: (i2, bl)
+            b = b0 + v % p.bt
+            ok = b < B
+            for kk in range(p.kt):
+                np.add.at(seen_a, (k0 + kk, v[ok] // p.bt, b[ok]), 1)
+            for u0 in range(0, p.kt * p.bt, N):   # level B: (k1, bl)
+                u = u0 + np.arange(N)
+                b = b0 + u % p.bt
+                ok = (u < p.kt * p.bt) & (b < B)
+                for k2 in range(0, m2, p.kt2):
+                    for kk2 in range(p.kt2):
+                        np.add.at(seen_b, (k2 + kk2, k0 + u[ok] // p.bt,
+                                           b[ok]), 1)
+        assert (seen_a == 1).all() and (seen_b == 1).all()
+
+
+def _digit_tile(d, b0, k_pad):
+    """The swizzled digit tile of columns b0 .. b0+127 as the kernels lay it
+    out: byte c of column bl at (c / 32) * 4096 + bl * 32 + ((c % 32) ^
+    (((bl >> 2) & 1) << 4)); d: int8[D*m, B]."""
+    K, B = d.shape
+    N = mxu_level.TC_COLS
+    tile = torch.zeros(k_pad * N, dtype=torch.int64)
+    bl = torch.arange(N)[:, None]
+    c = torch.arange(K)[None, :]
+    at = (c // 32) * (N * 32) + bl * 32 + ((c % 32) ^ (((bl >> 2) & 1) << 4))
+    cols = b0 + torch.arange(N)
+    valid = cols < B
+    vals = torch.zeros((N, K), dtype=torch.int64)
+    vals[valid] = d[:, cols[valid]].T.to(torch.int64)
+    assert len(set(at.reshape(-1).tolist())) == N * K      # a bijection
+    tile[at.reshape(-1)] = vals.reshape(-1)
+    return tile, at
+
+
+@pytest.mark.parametrize("W, m, B", [(8, 32, 200), (2, 8, 300), (1, 2, 37)])
+def test_emulated_probe_stages_equal_plain(W, m, B):
+    """K7 on the tensor-core block: ``digits`` read back from the swizzled
+    digit tile, ``matmul`` the Z tile's rows e * kt + kk for e < W,
+    ``reduce`` and ``tw`` (T3 at rep 1) through the same tiled contraction
+    give ``fused_level_probe_plain``'s words at every stage."""
+    field = FIELD_OF_WIDTH[W]
+    D, E = tdigits.n_digits(field), tdigits.out_planes(field)
+    x = _words(field, (m, B), 13 * m + W)
+    T3 = _words(field, (m, B), 17)
+    A = torch.from_numpy(tmxu._base_matrix(field, m))
+    plan = mxu_level.tc_plan(field, m, B)
+    N = mxu_level.TC_COLS
+    d = tdigits.extract_digits(x, field).reshape(D * m, B)
+    sums = torch.full((m, B), -1, dtype=torch.int64)
+    for blk in range(plan.blocks):
+        tile_i, chunk = divmod(blk, plan.chunks)
+        b0 = tile_i * N
+        tile, at = _digit_tile(d, b0, plan.k_pad)
+        cols = b0 + torch.arange(N)
+        valid = cols < B
+        for kk in range(plan.kt):
+            i = chunk * plan.kt + kk
+            got = tile[at[:, [j * m + i for j in range(D)]]].sum(dim=1)
+            sums[i, cols[valid]] = got[valid]
+    assert bool((sums >= 0).all())
+    emulated = {"stream": x.clone(),
+                "digits": sums[None].expand(W, m, B).to(torch.uint32)}
+    Z = _emulated_z(x, field, A[None], B).reshape(E, m, B)
+    emulated["matmul"] = Z[:W].to(torch.uint32)
+    F = (torch.from_numpy(tmxu._fold_matrix(field, m))
+         if tdigits.fold_active(field) else None)
+    y = tdigits.recompose_reduce(Z, field, mxu_level._zmax_bits(field, m),
+                                 fold_mat=F)
+    emulated["reduce"] = y
+    emulated["tw"] = mxu_level._twiddle_product(y, T3, field)
+    for stage in mxu_level.PROBE_STAGES:
+        want = mxu_level.fused_level_probe_plain(
+            x, field, A, stage, T3 if stage == "tw" else None)
+        assert torch.equal(emulated[stage], want), stage
