@@ -16,8 +16,9 @@ with two or more) and what it is compared with, and prints no result line.
    instructions (IGMMA, the integer wgmma) and no IDP.4A.
 2. Holds each kernel, word for word, against its plain PyTorch version on
    the card and times kernel, plain version and ``torch._int_mm`` on the
-   same int8 operands (K1-K4 and K7, and ``torch._int_mm`` beside them, also
-   by profiler device time):
+   same int8 operands (K1-K7 also by profiler device time, and
+   ``torch._int_mm`` beside the tensor-core kernels K1-K4 and K7; a K5/K6
+   line sets its device time beside its bound):
    - K1, K2, K3 (single-level) at the shapes the 2^18 BLS12-381 forward
      transform gives them, plus K3 at rep = 32 and K2 with a residual
      twiddle, and K3 at rep = 1024 and K1 at m = 4 and 16 at the full
@@ -37,7 +38,8 @@ with two or more) and what it is compared with, and prints no result line.
      tiles), K3 multi-level for m = 64 .. 512 on both
      narrow fields and on BLS12-381 Fr, K4 and K7 for every m from 2 to
      32, K5 and K6 for every m from 2 to 256, with and without T3, both
-     store orders, forward and inverse; K8 for D in {2, 4, 8}, W in
+     store orders, forward and inverse, and at B one column short of the
+     launch plan's tile and B = 4097, 8193; K8 for D in {2, 4, 8}, W in
      {1, 2, 8}, 16-byte and word moves, unaligned shards.
 3. Drives the entry points of ``ntt_tpu_torch`` on the card and checks
    every output word against the hostlib golden result:
@@ -105,19 +107,25 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 #: NVLink between the H100s of one host: 450 GB/s each way
 NVLINK_BYTES_PER_S = 450e9
-#: 32-bit integer multiply-adds a second outside the tensor cores: 132 SMs x
-#: 64 int32 lanes x 1.98 GHz boost clock (half the card's 67 TFLOP/s float32
-#: rate counted as multiply-adds)
+#: 32-bit integer multiply results a second outside the tensor cores: 132 SMs
+#: x 64 a clock (the CUDA throughput table for compute capability 9.0: 32-bit
+#: integer multiply, multiply-add) x 1.98 GHz boost clock. The low and the
+#: high half of a 32 x 32 -> 64-bit product are one result each (IMAD and
+#: IMAD.HI in the SASS)
 INT32_MADS_PER_S = 132 * 64 * 1.98e9
 SEED = 2026
-#: the tensor-core kernels (K1-K4, K7), timed on the device too, by the
-#: name of their kernel in a profiler trace
-DEVICE_TIMED = {"base_ntt_mxu": "base_ntt_mxu_kernel<",
-                "fused_level_stack": "fused_level_stack_kernel<",
-                "fused_subntt": "fused_subntt_kernel<",
-                "fused_subntt_multi": "fused_subntt_multi_kernel<",
-                "fused_level": "fused_level_kernel<",
-                "fused_level_probe": "fused_level_probe_kernel<"}
+#: the tensor-core kernels (K1-K4, K7), by the name of their kernel in a
+#: profiler trace
+TENSOR_CORE = {"base_ntt_mxu": "base_ntt_mxu_kernel<",
+               "fused_level_stack": "fused_level_stack_kernel<",
+               "fused_subntt": "fused_subntt_kernel<",
+               "fused_subntt_multi": "fused_subntt_multi_kernel<",
+               "fused_level": "fused_level_kernel<",
+               "fused_level_probe": "fused_level_probe_kernel<"}
+#: the kernels timed on the device too: the tensor-core kernels and the
+#: butterfly ladders K5 and K6
+DEVICE_TIMED = {**TENSOR_CORE, "stage_ntt": "stage_ntt_kernel<",
+                "fused_stage_level": "fused_stage_level_kernel<"}
 
 
 def check_sass() -> None:
@@ -125,7 +133,7 @@ def check_sass() -> None:
     SASS of the built ``mxu_level`` and ``mxu_sub`` libraries
     (``cuobjdump -sass``) shows tensor-core instructions (IGMMA, the
     integer wgmma, or IMMA) and no IDP.4A in each of the three
-    instantiations (W = 1, 2, 8) of each kernel of ``DEVICE_TIMED``, and
+    instantiations (W = 1, 2, 8) of each kernel of ``TENSOR_CORE``, and
     no IDP.4A anywhere in them."""
     from ntt_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -138,7 +146,7 @@ def check_sass() -> None:
             counts[part.split()[0]] = (
                 len(re.findall(r"\b(?:IGMMA|HGMMA|IMMA)\b", part)),
                 len(re.findall(r"\bIDP\.?4A", part)))
-    for kernel in (k.rstrip("<") for k in DEVICE_TIMED.values()):
+    for kernel in (k.rstrip("<") for k in TENSOR_CORE.values()):
         got = [c for name, c in counts.items() if kernel + "I" in name]
         imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
         print(f"sass {kernel}: {len(got)} instantiations, {imma} tensor-core "
@@ -222,9 +230,19 @@ def device_target(what: str, kern_ms, lib_ms, factor: float = 1.0) -> None:
 
 
 def mont_mul_mads(f) -> int:
-    """32-bit multiply-adds of one Montgomery product of W-word elements
-    (CIOS: W^2 for a*b, W^2 + W for the reduction)."""
-    return 2 * f.n_words ** 2 + f.n_words
+    """32-bit multiply results of one Montgomery product of W-word elements
+    (CIOS): a low and a high half of each of the W^2 partial products of
+    a*b and of the W^2 of q*p, and the W quotient words q (low halves
+    only)."""
+    return 4 * f.n_words ** 2 + f.n_words
+
+
+def ladder_products(m: int) -> int:
+    """Montgomery products of an m-point radix-2 ladder on one column: the
+    stage twiddles other than 1. The stage of half-size s has m/2
+    butterflies, m/(2s) of them at twiddle w^0 (none at all for s = 1)."""
+    return sum(m // 2 - m // (2 * s) for s in (1 << i for i in range(
+        m.bit_length() - 1)))
 
 
 def int_mm(A, d):
@@ -278,7 +296,7 @@ def measure(cases, results, plain_iters: int = 5) -> None:
                 lib_dev = kernel_device_ms(lib) or kernel_device_ms(lib)
             call = {"device_ms": dev_ms, "library_device_ms": lib_dev}
             timed = (f"  device {'-' if dev_ms is None else f'{dev_ms:.4f}'}"
-                     f" ms, _int_mm device "
+                     f" ms, library device "
                      f"{'-' if lib_dev is None else f'{lib_dev:.4f}'} ms")
         print(f"check {name:18s} {label:44s} word-equal  kernel {ms:.4f} ms"
               f"  plain {plain_ms:.4f} ms  _int_mm "
@@ -461,7 +479,7 @@ def check_ladder_kernels(rng, dev, results) -> None:
         W = fld.n_words
         x, T = rand(fld, m, B), rand(fld, m, B)
         nb = x.numel() * 4
-        ladder = (m.bit_length() - 2) * (m // 2) * B * mont_mul_mads(fld)
+        ladder = ladder_products(m) * B * mont_mul_mads(fld)
         tw = m * B * mont_mul_mads(fld)
         shape = f"[{W},{m},{B}]"
         measure([
@@ -701,11 +719,19 @@ def check_small_stages(f, rng, dev) -> int:
     """K5 and K6 against their plain versions at every m the kernels take
     (2 to 256; to 128 on the 256-bit fields, twice what their transforms
     use): ragged batch sizes, with and without T3, both store orders,
-    forward and inverse. Returns the number of checks."""
+    forward and inverse; and, forward, at B one column short of the
+    plan's column tile and at B = 4097 and 8193, ragged against every
+    tile width (K5, K6 with T3 and the transposed store, K6 without T3,
+    direct). Returns the number of checks."""
     from ntt_tpu_torch.kernels import vmem_ntt
 
     def rand(*shape):
         return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    def check(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{f.name} {what}: kernel != plain")
 
     checks = 0
     top = 128 if f.n_words >= 8 else vmem_ntt.MAX_M
@@ -714,28 +740,36 @@ def check_small_stages(f, rng, dev) -> int:
         while m <= top:
             for B in (1, 37, 300):
                 x, T = rand(m, B), rand(m, B)
-                got = vmem_ntt.stage_ntt(x, f, inverse)
-                torch.cuda.synchronize()
-                if not torch.equal(got, vmem_ntt.stage_ntt_plain(
-                        x, f, inverse)):
-                    raise AssertionError(
-                        f"{f.name} stage_ntt m={m} B={B} inverse={inverse}: "
-                        "kernel != plain")
+                check(f"stage_ntt m={m} B={B} inverse={inverse}",
+                      vmem_ntt.stage_ntt(x, f, inverse),
+                      vmem_ntt.stage_ntt_plain(x, f, inverse))
                 checks += 1
                 for T3 in (None, T):
                     for tr in (False, True):
-                        got = vmem_ntt.fused_stage_level(x, f, inverse, T3,
-                                                         tr)
-                        torch.cuda.synchronize()
-                        want = vmem_ntt.fused_stage_level_plain(
-                            x, f, inverse, T3, tr)
-                        if not torch.equal(got, want):
-                            raise AssertionError(
-                                f"{f.name} fused_stage_level m={m} B={B} "
-                                f"T3={T3 is not None} transpose={tr} "
-                                f"inverse={inverse}: kernel != plain")
+                        check(f"fused_stage_level m={m} B={B} "
+                              f"T3={T3 is not None} transpose={tr} "
+                              f"inverse={inverse}",
+                              vmem_ntt.fused_stage_level(x, f, inverse, T3,
+                                                         tr),
+                              vmem_ntt.fused_stage_level_plain(
+                                  x, f, inverse, T3, tr))
                         checks += 1
             m *= 2
+    m = 2
+    while m <= top:
+        bt = vmem_ntt.stage_plan(f.n_words, m, 1).bt
+        for B in sorted({max(1, bt - 1), 4097, 8193}):
+            x, T = rand(m, B), rand(m, B)
+            check(f"stage_ntt m={m} B={B}", vmem_ntt.stage_ntt(x, f),
+                  vmem_ntt.stage_ntt_plain(x, f))
+            for T3, tr in ((T, True), (None, False)):
+                check(f"fused_stage_level m={m} B={B} T3={T3 is not None} "
+                      f"transpose={tr}",
+                      vmem_ntt.fused_stage_level(x, f, False, T3, tr),
+                      vmem_ntt.fused_stage_level_plain(x, f, False, T3, tr))
+            checks += 3
+            del x, T
+        m *= 2
     return checks
 
 

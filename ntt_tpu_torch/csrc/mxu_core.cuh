@@ -9,7 +9,8 @@
 //   mxu_sub.cu    mxu_fused_subntt_multi K3 in its multi-level form, m = 64 .. 512
 //
 // (vmem_ntt.cu, the butterfly-stage kernels K5 and K6, takes only the field
-// arithmetic from here: FieldConst, cond_sub_p, mont_mul.)
+// arithmetic from here: FieldConst, the carry-chain primitives, cond_sub_p,
+// mont_mul.)
 //
 // Every kernel is a template over W, the 32-bit words per element: 8 for the
 // 256-bit fields, 2 for Goldilocks, 1 for the small Proth prime.
@@ -510,21 +511,76 @@ static inline bool stack_map(CUtensorMap* map, const int8_t* A, int E, int m, in
 
 }  // namespace tc
 
+// The carry chain: PTX add/sub/multiply-add with carry in (c) and out (.cc),
+// one instruction each, in asm statements kept in order (volatile) so that
+// nothing that touches the carry flag comes between two links of a chain.
+__device__ __forceinline__ uint32_t mul_lo(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("mul.lo.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
 // y = r mod p for r = r[0..W) + top * 2^(32 W) < 2p.
 template <int W>
 __device__ __forceinline__ void cond_sub_p(const uint32_t (&r)[W], uint32_t top,
                                            const FieldConst& fc, uint32_t (&y)[W]) {
   uint32_t u[W];
-  uint32_t borrow = 0u;
+  u[0] = sub_cc(r[0], fc.p[0]);
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const uint64_t d = (uint64_t)r[j] - fc.p[j] - borrow;
-    u[j] = (uint32_t)d;
-    borrow = (uint32_t)(d >> 63);
-  }
-  const bool ge = top != 0u || borrow == 0u;
+  for (int j = 1; j < W; ++j) u[j] = subc_cc(r[j], fc.p[j]);
+  const uint32_t lt = subc(top, 0u);  // all ones exactly where r < p
 #pragma unroll
-  for (int j = 0; j < W; ++j) y[j] = ge ? u[j] : r[j];
+  for (int j = 0; j < W; ++j) y[j] = lt == 0xFFFFFFFFu ? r[j] : u[j];
 }
 
 // y = V * 2^-(32 W + 16) mod p for V = sum_e z[e] * 2^(7e), each
@@ -579,36 +635,49 @@ __device__ __forceinline__ void reduce(const int (&z)[Geo<W>::E], const FieldCon
   cond_sub_p<W>(r, t[2 * W + 1], fc, y);
 }
 
-// y = a * b * 2^-(32 W) mod p (CIOS, 32-bit words), canonical in and out.
+// y = a * b * 2^-(32 W) mod p (CIOS, 32-bit words), canonical in and out. Each
+// step i adds a * b[i] and then q * p (q = t[0] * np0): the low halves of the
+// partial products on one carry chain, the high halves on a second one a word
+// up, so every 32 x 32 product costs one multiply for each half and its carry
+// rides in the flag; then t shifts down a word.
 template <int W>
 __device__ __forceinline__ void mont_mul(const uint32_t (&a)[W], const uint32_t (&b)[W],
                                          const FieldConst& fc, uint32_t (&y)[W]) {
   uint32_t t[W + 2];
 #pragma unroll
-  for (int j = 0; j < W + 2; ++j) t[j] = 0u;
-#pragma unroll
   for (int i = 0; i < W; ++i) {
-    uint64_t c = 0u;
+    const uint32_t bi = b[i];
+    if (i == 0) {
 #pragma unroll
-    for (int j = 0; j < W; ++j) {
-      c += (uint64_t)a[i] * b[j] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[W];
-    t[W] = (uint32_t)c;
-    t[W + 1] = (uint32_t)(c >> 32);
-    const uint32_t q = t[0] * fc.np0;
-    c = ((uint64_t)q * fc.p[0] + t[0]) >> 32;
+      for (int j = 0; j < W; ++j) t[j] = mul_lo(a[j], bi);
+      t[W] = 0u;
+      t[1] = mad_hi_cc(a[0], bi, t[1]);
 #pragma unroll
-    for (int j = 1; j < W; ++j) {
-      c += (uint64_t)q * fc.p[j] + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
+      for (int j = 1; j < W; ++j) t[j + 1] = madc_hi_cc(a[j], bi, t[j + 1]);
+      t[W + 1] = 0u;
+    } else {
+      t[0] = mad_lo_cc(a[0], bi, t[0]);
+#pragma unroll
+      for (int j = 1; j < W; ++j) t[j] = madc_lo_cc(a[j], bi, t[j]);
+      t[W] = addc_cc(t[W], 0u);
+      t[W + 1] = addc(0u, 0u);
+      t[1] = mad_hi_cc(a[0], bi, t[1]);
+#pragma unroll
+      for (int j = 1; j < W; ++j) t[j + 1] = madc_hi_cc(a[j], bi, t[j + 1]);
+      t[W + 1] = addc(t[W + 1], 0u);
     }
-    c += t[W];
-    t[W - 1] = (uint32_t)c;
-    t[W] = t[W + 1] + (uint32_t)(c >> 32);
+    const uint32_t q = mul_lo(t[0], fc.np0);
+    t[0] = mad_lo_cc(q, fc.p[0], t[0]);
+#pragma unroll
+    for (int j = 1; j < W; ++j) t[j] = madc_lo_cc(q, fc.p[j], t[j]);
+    t[W] = addc_cc(t[W], 0u);
+    t[W + 1] = addc(t[W + 1], 0u);
+    t[1] = mad_hi_cc(q, fc.p[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < W; ++j) t[j + 1] = madc_hi_cc(q, fc.p[j], t[j + 1]);
+    t[W + 1] = addc(t[W + 1], 0u);
+#pragma unroll
+    for (int j = 0; j <= W; ++j) t[j] = t[j + 1];
   }
   uint32_t r[W];
 #pragma unroll
