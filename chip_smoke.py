@@ -4,9 +4,9 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 ``--quick`` stops after the kernel checks at small shapes and K8 at its
 main-path shape (a short first call after a kernel change) and prints no
-result line. ``--cross-cards``
-runs only the multi-device forward across distinct cards (on a machine
-with two or more) and what it is compared with, and prints no result line.
+result line. ``--cross-cards`` runs only the multi-device forward across
+distinct cards (on a machine with two or more) and what it is compared
+with, and prints no result line.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
@@ -23,6 +23,14 @@ with two or more) and what it is compared with, and prints no result line.
      transform gives them, plus K3 at rep = 32 and K2 with a residual
      twiddle, and K3 at rep = 1024 and K1 at m = 4 and 16 at the full
      width of the 2^22 and 2^24 transforms;
+   - K2 with a periodic residual T3[W, 32, s0] (level 0 above 2^24): BLS
+     NT = 2 rep 128, a ragged B (NT = 5 rep 64), small-proth NT = 4 rep
+     128, and the level-0 launch of the BLS 2^26 transform at full width
+     ([8,32,2^21], T3 [8,32,2^16]; three stack entries' columns against
+     the plain version), timed beside its bound;
+   - the device table generators (``power_matrix_chunked``,
+     ``geometric_outer_chunked``, ``geometric_outer``) against the host
+     tables at 2^20 entries;
    - K3 multi-level at the shapes of the narrow-field transforms:
      Goldilocks 2^18 and 2^24, small-proth 2^22;
    - K4 (``fused_level``), K5 (``stage_ntt``), K6 (``fused_stage_level``)
@@ -35,7 +43,7 @@ with two or more) and what it is compared with, and prints no result line.
      version and ``permute().contiguous()`` of the stacked shards;
    - at small shapes: K1-K3 for every m from 2 to 32 on all four fields
      (ragged batches, odd reps, stack entries that straddle K2's column
-     tiles), K3 multi-level for m = 64 .. 512 on both
+     tiles; K2 with periodic T3s), K3 multi-level for m = 64 .. 512 on both
      narrow fields and on BLS12-381 Fr, K4 and K7 for every m from 2 to
      32, K5 and K6 for every m from 2 to 256, with and without T3, both
      store orders, forward and inverse, and at B one column short of the
@@ -50,6 +58,18 @@ with two or more) and what it is compared with, and prints no result line.
      2^24 forward, 2^24 ``coset_ntt`` and ``lde`` 2^22 -> 2^24 (launch
      counts asserted; the golden results computed on host threads while
      the card works);
+   - above 2^24 (level 0 the stack with its periodic residual, no table of
+     n entries): the tables' build time at 2^24 and 2^26 all on the host
+     against generated on the card (word-compared); BLS 2^25 and 2^26
+     forward, 2^26 ``coset_ntt`` and the 2^26 ``intt`` back to the
+     forward's input (Montgomery I/O, launch counts asserted, golden results
+     started on host threads before the kernel checks), each with its
+     runner's build time, its tables' shapes and the peak allocated
+     memory; BN254 Fr 2^25 under ``mxu_sub`` and ``lde`` 2^23 -> 2^25;
+     then every distinct K1, K2 and K3 launch those paths made (kernel,
+     field, operand shapes, rep, direction), again at its own shape with
+     the path's own tables on random input, three column spans of the
+     output against the plain version on those columns;
    - the narrow path: Goldilocks 2^18 and 2^24 and small-proth 2^22
      forward (launch counts asserted: 2, 3 and 2 + 1); Goldilocks 2^20
      ``intt(ntt(x)) == x``, ``intt`` and ``coset_ntt``; ``lde`` blowup 4
@@ -91,6 +111,7 @@ needs a CUDA device; it imports neither JAX nor ``ntt_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -575,14 +596,28 @@ def check_multi_level(rng, dev, results) -> None:
                   None if None in lib_ms else sum(lib_ms))
 
 
+def random_stack(f, NT, m, rng, dev):
+    """A random conv-matrix stack int8[NT, E*m, D*m] that K2 takes: any
+    digits for a wide field (every digit matrix is within the folded
+    reduction's window), random twiddles for a narrow one (a banded stack
+    must hold entries below p)."""
+    from ntt_tpu_torch import digits
+    from ntt_tpu_torch.transforms import mxu
+    if digits.fold_active(f):
+        D, E = digits.n_digits(f), digits.out_planes(f)
+        return torch.from_numpy(rng.integers(
+            0, 128, size=(NT, E * m, D * m), dtype=np.int8)).to(dev)
+    tvals = [[int(v) % f.p for v in rng.integers(1, 1 << 62, size=m)]
+             for _ in range(NT)]
+    return torch.from_numpy(mxu.twiddle_matrix_stack(f, m, tvals)).to(dev)
+
+
 def check_small_shapes(f, rng, dev) -> int:
     """K1-K3 (single-level) against their plain versions at every m from 2
     to 32, with ragged batch sizes (masked columns), reps that split a warp
-    between stack entries, and both twiddle layouts. Returns the number of
-    checks."""
-    from ntt_tpu_torch import digits
+    between stack entries, both twiddle layouts and K2's periodic T3.
+    Returns the number of checks."""
     from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
-    from ntt_tpu_torch.transforms import mxu
 
     def rand(*shape):
         return torch.from_numpy(random_words(f, shape, rng)).to(dev)
@@ -592,8 +627,6 @@ def check_small_shapes(f, rng, dev) -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"{f.name} {label}: kernel != plain")
 
-    D, E = digits.n_digits(f), digits.out_planes(f)
-    wide = digits.fold_active(f)
     checks = 0
     for m in (2, 4, 8, 16, 32):
         mats = sub_mats_on(f, {m}, False, dev)
@@ -614,18 +647,19 @@ def check_small_shapes(f, rng, dev) -> int:
             checks += 1
         for NT, rep in ((3, 16), (4, 7), (3, 100)):
             x, T = rand(m, NT * rep), rand(m, NT * rep)
-            if wide:
-                # any digit matrix is within the folded reduction's window
-                As = torch.from_numpy(rng.integers(
-                    0, 128, size=(NT, E * m, D * m), dtype=np.int8)).to(dev)
-            else:
-                # a banded stack must hold entries below p: random twiddles
-                tvals = [[int(v) % f.p for v in rng.integers(
-                    1, 1 << 62, size=m)] for _ in range(NT)]
-                As = torch.from_numpy(
-                    mxu.twiddle_matrix_stack(f, m, tvals)).to(dev)
+            As = random_stack(f, NT, m, rng, dev)
             for T3 in (None, T):
                 same(f"stack m={m} NT={NT} rep={rep} T3={T3 is not None}",
+                     mxu_level.fused_level_stack(x, f, As, rep, mats.get(-m),
+                                                 T3),
+                     mxu_level.fused_level_stack_plain(x, f, As, rep,
+                                                       mats.get(-m), T3))
+                checks += 1
+            # a periodic T3 [W, m, s0], read at column b mod s0
+            B = NT * rep
+            for s0 in (s for s in (1, 4, 16, 64) if B % s == 0):
+                T3 = rand(m, s0)
+                same(f"stack m={m} NT={NT} rep={rep} periodic T3 s0={s0}",
                      mxu_level.fused_level_stack(x, f, As, rep, mats.get(-m),
                                                  T3),
                      mxu_level.fused_level_stack_plain(x, f, As, rep,
@@ -946,14 +980,133 @@ def verify(f, y_mont, x_std_planes) -> None:
                golden_ntt(f, x_std_planes))
 
 
-def counted(fn) -> tuple:
-    """(fn(), launch counts of that call)."""
+def counted(fn, seen=None) -> tuple:
+    """(fn(), launch counts of that call); with a dict ``seen``, the call's
+    K1-K3 launches recorded into it as well (:func:`recording`)."""
     from ntt_tpu_torch.kernels import _build
     torch.cuda.synchronize()
     _build.launches.clear()
-    out = fn()
+    with recording(seen) if seen is not None else contextlib.nullcontext():
+        out = fn()
     torch.cuda.synchronize()
     return out, dict(_build.launches)
+
+
+def path_kernels() -> dict:
+    """The kernel wrappers the 256-bit drivers call (by their names in
+    ``ntt_tpu_torch.transforms.mxu``) with their plain versions, which
+    take the same arguments."""
+    from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
+    return {"fused_level_stack": (mxu_level.fused_level_stack,
+                                  mxu_level.fused_level_stack_plain),
+            "fused_subntt": (mxu_level.fused_subntt,
+                             mxu_level.fused_subntt_plain),
+            "base_ntt_mxu": (mxu_ntt.base_ntt_mxu, mxu_ntt.base_ntt_mxu_plain)}
+
+
+def _on(v, dev):
+    """A tensor, or the tensors of a dict of them, moved to ``dev``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    if isinstance(v, dict):
+        return {k: _on(t, dev) for k, t in v.items()}
+    return v
+
+
+@contextlib.contextmanager
+def recording(seen: dict):
+    """While the block runs, the first call of each distinct K1, K2 and K3
+    launch of the 256-bit drivers goes into ``seen``: keyed by the kernel,
+    the field, the operand shapes and the other arguments; kept as the
+    kernel's name, the input's shape and the other arguments, their
+    tensors copied to the host (so that no table stays on the card)."""
+    import inspect
+
+    from ntt_tpu_torch.transforms import mxu as drivers
+    kept = {name: getattr(drivers, name) for name in path_kernels()}
+
+    def wrap(name, kern):
+        sig = inspect.signature(kern)
+
+        def call(*args, **kw):
+            a = dict(sig.bind(*args, **kw).arguments)
+            x = a.pop(next(iter(sig.parameters)))
+            key = (name, tuple(x.shape)) + tuple(
+                (k, tuple(v.shape) if isinstance(v, torch.Tensor) else
+                 tuple(sorted(v)) if isinstance(v, dict) else
+                 getattr(v, "name", v)) for k, v in a.items())
+            if key not in seen:
+                seen[key] = (name, tuple(x.shape), _on(a, "cpu"))
+            return kern(*args, **kw)
+        return call
+
+    for name, kern in kept.items():
+        setattr(drivers, name, wrap(name, kern))
+    try:
+        yield
+    finally:
+        for name, kern in kept.items():
+            setattr(drivers, name, kern)
+
+
+def span_args(name, args, a, L) -> dict:
+    """The arguments of the plain version of kernel ``name`` on columns
+    a .. a+L-1 of the launch (L a power of two, a a multiple of it): the
+    stack entries those columns use (one, cut to L columns, where an entry
+    spans more), and the columns or rows of the twiddle they read."""
+    out = dict(args)
+    T3, rep = args.get("T3"), args.get("rep", 1)
+    if name == "fused_level_stack":
+        As = args["As"]
+        out["As"], out["rep"] = ((As[a // rep:][:1], L) if rep >= L
+                                 else (As[a // rep:(a + L) // rep], rep))
+        if T3 is not None and T3.shape[2] > L:      # else L is its periods
+            s = a % T3.shape[2]
+            out["T3"] = T3[:, :, s:s + L].contiguous()
+    elif T3 is not None and rep == 1:
+        out["T3"] = T3[:, :, a:a + L].contiguous()
+    elif T3 is not None:        # the i2-resolution table, row b // rep
+        out["T3"], out["rep"] = ((T3[:, a // rep:][:, :1].contiguous(), L)
+                                 if rep >= L else
+                                 (T3[:, a // rep:(a + L) // rep].contiguous(),
+                                  rep))
+    return out
+
+
+def check_path_launches(seen, dev, cols: int = 1 << 21) -> None:
+    """Each launch recorded on the paths above 2^24 (:func:`recording`),
+    again at its own shape with the path's own tables, on random input:
+    three spans of output columns (``cols`` / m each) against the plain
+    version on those columns, which over the whole width would need tens
+    of GB of digit planes. Off the main path: not counted, not timed."""
+    kernels = path_kernels()
+    for name, shape, args in seen.values():
+        kern, plain = kernels[name]
+        args = _on(args, dev)
+        f, (W, m, B) = args["field"], shape
+        x = random_on_card(f, (m, B), dev)
+        y = kern(x, **args)
+        torch.cuda.synchronize()
+        L = min(B, cols // m)
+        spans = sorted({0, B // 2 // L * L, B - L})
+        if B & (B - 1) or any(a % L for a in spans):
+            raise AssertionError(f"{name} [{W},{m},{B}]: spans not aligned")
+        for a in spans:
+            want = plain(x[:, :, a:a + L].contiguous(),
+                         **span_args(name, args, a, L))
+            if not torch.equal(y[:, :, a:a + L], want):
+                raise AssertionError(f"{name} {f.name} [{W},{m},{B}], "
+                                     f"columns {a}..{a + L - 1}: kernel != "
+                                     "plain")
+        T3 = args.get("T3")
+        print(f"check {name:18s} path launch {f.name} [{W},{m},{B}]"
+              + ("" if "rep" not in args else f" rep {args['rep']}")
+              + ("" if T3 is None else f" T3 {list(T3.shape)}")
+              + (" inverse" if args.get("inverse") else "")
+              + f"  word-equal on {len(spans)} spans of {L} columns",
+              flush=True)
+        del x, y, args
+        torch.cuda.empty_cache()
 
 
 def expect_counts(what, counts, want) -> None:
@@ -1090,6 +1243,390 @@ def wide_large_paths(rng, dev, path_ms) -> None:
         print(f"path {f.name} lde 2^22 blowup 4  golden-equal  {ms:.4f} ms "
               "(standard-form I/O)", flush=True)
         del xd, y
+    torch.cuda.empty_cache()
+
+
+def check_periodic_t3(rng, dev, results, level0_log: int = 26) -> None:
+    """K2 with a periodic residual T3[W, 32, s0] (level 0 above 2^24,
+    ``TwStackResid``: column b reads column b mod s0) against its plain
+    version: BLS12-381 Fr at the JAX package's test shape (NT = 2, rep 128),
+    a ragged B (NT = 5, rep 64: two and a half column tiles), small-proth
+    (NT = 4, rep 128); then the level-0 launch of the BLS12-381 Fr 2^26
+    transform at full width ([8,32,2^21], 32 entries of rep 2^16, T3
+    [8,32,2^16]), timed beside its bound, the columns of three stack entries
+    held against the plain version on those columns (the plain version of
+    the whole launch would need some 20 GB of digit planes)."""
+    from ntt_tpu_torch import BLS12_381_FR, SMALL
+    from ntt_tpu_torch.kernels import mxu_level
+
+    cases = []
+    for f, NT, rep in ((BLS12_381_FR, 2, 128), (BLS12_381_FR, 5, 64),
+                       (SMALL, 4, 128)):
+        m, B, W = 32, NT * rep, f.n_words
+        F = sub_mats_on(f, {m}, False, dev).get(-m)
+        x = torch.from_numpy(random_words(f, (m, B), rng)).to(dev)
+        T3 = torch.from_numpy(random_words(f, (m, rep), rng)).to(dev)
+        As = random_stack(f, NT, m, rng, dev)
+        cases.append((
+            "fused_level_stack",
+            f"{f.name} [{W},32,{B}] stack {NT} rep {rep} T3 [{W},32,{rep}]",
+            lambda f=f, x=x, As=As, rep=rep, F=F, T3=T3:
+                mxu_level.fused_level_stack(x, f, As, rep, F, T3),
+            lambda f=f, x=x, As=As, rep=rep, F=F, T3=T3:
+                mxu_level.fused_level_stack_plain(x, f, As, rep, F, T3),
+            2 * x.numel() * 4 + As.numel() + T3.numel() * 4,
+            conv_macs(f, As[0], B), None, False, mont_mul_mads(f) * m * B))
+    measure(cases, results)
+    del cases
+
+    f, m, NT, s0 = BLS12_381_FR, 32, 32, 1 << (level0_log - 10)
+    B = NT * s0
+    F = sub_mats_on(f, {m}, False, dev)[-m]
+    x = random_on_card(f, (m, B), dev)
+    T3 = torch.from_numpy(random_words(f, (m, s0), rng)).to(dev)
+    As = random_stack(f, NT, m, rng, dev)
+    # what the launch reads besides x: each block its kt rows of one or two
+    # entries (from L2, mostly), and T3 at every column (the table itself
+    # is 67 MB at 2^26)
+    plan = mxu_level.tc_plan(f, m, B)
+    a_read = plan.blocks * As[0].numel() // plan.chunks
+    t_read = T3.numel() * 4 * NT
+    check_full_width(
+        "fused_level_stack",
+        f"2^{level0_log} level 0 [8,32,{B}] stack 32 rep {s0} T3 [8,32,{s0}]",
+        lambda: mxu_level.fused_level_stack(x, f, As, s0, F, T3),
+        [slice(a * s0, (a + 1) * s0) for a in (0, 17, NT - 1)],
+        lambda c: mxu_level.fused_level_stack_plain(
+            x[:, :, c].contiguous(), f, As[c.start // s0:][:1], s0, F, T3),
+        (2 * x.numel() * 4 + As.numel() + T3.numel() * 4,
+         conv_macs(f, As[0], B), mont_mul_mads(f) * m * B), results,
+        note=f"; the launch reads As {a_read / 1e9:.3f} GB and T3 "
+             f"{t_read / 1e9:.3f} GB")
+    del x, T3, As
+    torch.cuda.empty_cache()
+
+
+def random_on_card(f, shape, dev) -> torch.Tensor:
+    """Canonical random elements uint32[W, *shape] drawn on the card (a
+    2 GiB operand would take seconds to draw on the host)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.randint(0, 1 << 32, (f.n_words,) + tuple(shape), generator=gen,
+                      device=dev, dtype=torch.int64)
+    x[-1] %= f.p >> (32 * (f.n_words - 1))
+    return x.to(torch.uint32)
+
+
+def check_full_width(name, label, kern, spans, plain, cost, results,
+                     lib=None, note="") -> None:
+    """One launch at a full-width shape of the path above 2^24: the columns
+    of each span of ``spans`` against ``plain(span)``, the plain version on
+    those columns (on the whole launch it would need tens of GB of digit
+    planes), then the kernel and the library call ``lib`` timed by events
+    and device time, beside the bound of ``cost`` = (bytes, int8 MACs,
+    32-bit multiply-adds). Recorded as a call off the main path."""
+    y = kern()
+    torch.cuda.synchronize()
+    for cols in spans:
+        if not torch.equal(y[:, :, cols], plain(cols)):
+            raise AssertionError(f"{name} {label}, columns {cols}: "
+                                 "kernel != plain")
+    del y
+    torch.cuda.empty_cache()
+    ms = time_ms(kern, iters=5, warmup=1)
+    dev_ms = (kernel_device_ms(kern, DEVICE_TIMED[name], 3)
+              or kernel_device_ms(kern, DEVICE_TIMED[name], 3))
+    lib_ms = lib_dev = None
+    if lib is not None:
+        lib_ms = time_ms(lib, iters=5, warmup=1)
+        lib_dev = (kernel_device_ms(lib, None, 3)
+                   or kernel_device_ms(lib, None, 3))
+    nbytes, macs, mads = cost
+    b_ms, b_by = bound(nbytes, macs, mads)
+
+    def show(v):
+        return "-" if v is None else f"{v:.4f}"
+    print(f"check {name:18s} {label}  word-equal on {len(spans)} column "
+          f"spans  kernel {ms:.4f} ms  device {show(dev_ms)} ms  _int_mm "
+          f"{show(lib_ms)} ms (device {show(lib_dev)} ms)  bound "
+          f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB, "
+          f"{2 * macs / 1e12:.3f} T int8 ops, {mads / 1e9:.2f} G int32 "
+          f"mads){note}", flush=True)
+    results[name]["calls"].append({
+        "shape": label, "ms": ms, "device_ms": dev_ms,
+        "library_device_ms": lib_dev, "plain_ms": None, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": 0,
+        "bytes": nbytes, "int8_macs": macs, "int32_mads": mads,
+        "path_launches": 0})
+
+
+def check_base_m2(rng, dev, results, log_b: int = 25) -> None:
+    """K1 at the last base of the BLS12-381 Fr 2^26 transform, m = 2 over
+    2^25 columns ([8,2,2^25]), three spans of 2^20 columns against the
+    plain version, timed beside its bound. No library time:
+    ``torch._int_mm`` on the digit operands of these 2^25 columns (an
+    int32 output of 2.7 G elements) stops at an illegal address, and K1
+    does not (``k1_wide_probe.py`` runs each alone)."""
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch.kernels import mxu_ntt
+
+    m, B = 2, 1 << log_b
+    mats = sub_mats_on(f, {m}, False, dev)
+    A, F = mats[m], mats[-m]
+    x = random_on_card(f, (m, B), dev)
+    step = min(B, 1 << 20)
+    check_full_width(
+        "base_ntt_mxu", f"2^{log_b + 1} base [8,2,{B}]",
+        lambda: mxu_ntt.base_ntt_mxu(x, f, A, F),
+        [slice(i, i + step) for i in (0, B // 2, B - step)],
+        lambda c: mxu_ntt.base_ntt_mxu_plain(x[:, :, c].contiguous(), f, A,
+                                             F),
+        (2 * x.numel() * 4 + A.numel(), conv_macs(f, A, B), 0), results)
+    del x
+    torch.cuda.empty_cache()
+
+
+def check_table_generators(dev) -> None:
+    """The device table generators against the host tables, word for word,
+    at 2^20 entries of BLS12-381 Fr, with their times on the card and on
+    the host (hostlib): ``power_matrix_chunked`` in one row chunk and in
+    four, ``geometric_outer_chunked``, ``geometric_outer``."""
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch.transforms import core
+
+    w, c = f.root_of_unity(1 << 20), f.generator
+    pm = lambda: core.host_power_matrix(f, w, 32, 1 << 15)   # noqa: E731
+    pw = lambda: core.host_powers_fast(f, c, 1 << 20)         # noqa: E731
+    todo = [
+        ("power_matrix_chunked [8,32,32768]", pm,
+         lambda: core.power_matrix_chunked(f, w, 32, 1 << 15, dev)),
+        ("power_matrix_chunked [8,32,32768], chunks of 2^18", pm,
+         lambda: core.power_matrix_chunked(f, w, 32, 1 << 15, dev,
+                                           chunk=1 << 18)),
+        ("geometric_outer_chunked [8,1048576]", pw,
+         lambda: core.geometric_outer_chunked(f, c, 1 << 20, dev)),
+        ("geometric_outer [8,1024,1024]", pw,
+         lambda: core.geometric_outer(f, c, 1024, 1024, dev).reshape(8, -1)),
+    ]
+    for label, host, card in todo:
+        card()                                  # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = host()
+        t2 = time.perf_counter()
+        same_words(f"table {label}", got, want)
+        print(f"check tables {label}  word-equal to the host table  card "
+              f"{(t1 - t0) * 1e3:.1f} ms  host {(t2 - t1) * 1e3:.1f} ms",
+              flush=True)
+
+
+def table_tensors(aux) -> list:
+    """Every tensor of an aux table list: the bare tables and the fields of
+    the fold objects (stacks, residuals, merged and deep tables)."""
+    return [v for t in aux["tws"]
+            for v in ([t] if isinstance(t, torch.Tensor) else vars(t).values())
+            if isinstance(v, torch.Tensor)]
+
+
+def table_build_times(dev, sizes=(24, 26)) -> None:
+    """The twiddle tables of the BLS12-381 Fr forward transform at 2^24 and
+    2^26, built the way the port built them before device generation (every
+    table on the host, then uploaded) and the way it builds them now (those
+    above ``core.HOST_TW_LIMIT`` entries generated on the card), host
+    seconds to resident tables, the two word-compared."""
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch.api import aux_from_numpy
+    from ntt_tpu_torch.transforms import mxu
+
+    for log_n in sizes:
+        n = 1 << log_n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = aux_from_numpy(mxu.matfold_tw_tables(f, n), {}, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        card = aux_from_numpy(mxu.matfold_tw_tables(f, n, device=dev), {},
+                              device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not all(torch.equal(a, b) for a, b in zip(
+                table_tensors(host), table_tensors(card), strict=True)):
+            raise AssertionError(f"tables 2^{log_n}: card != host")
+        kinds = [k for k, _ in mxu.matfold_plan(f, n)]
+        print(f"tables {f.name} 2^{log_n} forward {kinds}: all on the host "
+              f"and uploaded {t1 - t0:.2f} s, large ones generated on the "
+              f"card {t2 - t1:.2f} s (word-equal)", flush=True)
+        del host, card
+        torch.cuda.empty_cache()
+
+
+#: launches of one BLS12-381 Fr forward transform above 2^24: level 0 the
+#: 32-entry stack with its periodic residual (K2), level 1 a deep table at
+#: rep 32 and level 2 one at rep 1024 (K3), the deeper levels stacks (K2),
+#: the last base m = 32 over 2^20 columns (2^25) or m = 2 over 2^25 (2^26)
+HUGE_COUNTS = {
+    25: {"fused_level_stack": 2, "fused_subntt": 2, "base_ntt_mxu": 1},
+    26: {"fused_level_stack": 3, "fused_subntt": 2, "base_ntt_mxu": 1},
+}
+
+
+#: BN254 Fr 2^25 under ``mxu_sub`` (the same levels, the last base K3);
+#: ``lde`` BLS12-381 Fr 2^23 -> 2^25 (the inverse at 2^23: stack, merged
+#: table, a deep table at rep 1024, stack, K1 m = 8; then the 2^25 coset)
+SUB_COUNTS = {"fused_level_stack": 2, "fused_subntt": 3}
+LDE_COUNTS = {"fused_level_stack": 4, "fused_subntt": 4, "base_ntt_mxu": 2}
+
+
+def huge_inputs(rng) -> dict:
+    """Random inputs of the checks above 2^24 (standard form, word planes),
+    drawn as 32-bit words with the top word below p's: BLS12-381 Fr at
+    2^25 and 2^26 (keys 25, 26), BN254 Fr at 2^25 ("bn254") and the
+    BLS12-381 Fr ``lde`` input at 2^23 ("lde")."""
+    from ntt_tpu_torch import BLS12_381_FR, BN254_FR
+
+    def draw(f, log_n):
+        x = rng.integers(0, 1 << 32, size=(8, 1 << log_n), dtype=np.uint32)
+        x[7] %= np.uint32(f.p >> 224)
+        return x
+    out = {log_n: draw(BLS12_381_FR, log_n) for log_n in HUGE_COUNTS}
+    out["bn254"] = draw(BN254_FR, 25)
+    out["lde"] = draw(BLS12_381_FR, 23)
+    return out
+
+
+def start_huge_goldens(pool, xs) -> dict:
+    """The golden results of the checks above 2^24, computed on host
+    threads while the card works: the BLS12-381 Fr forward at both sizes,
+    ``coset_ntt`` at 2^26 (the 2^26 ``intt`` is checked against the
+    forward's input), BN254 Fr 2^25 and the ``lde`` 2^23 -> 2^25."""
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch import BN254_FR
+    big = max(HUGE_COUNTS)
+    want = {str(log_n): pool.submit(golden_ntt, f, xs[log_n])
+            for log_n in HUGE_COUNTS}
+    want["coset"] = pool.submit(golden_coset_ntt, f, xs[big], f.generator)
+    want["bn254"] = pool.submit(golden_ntt, BN254_FR, xs["bn254"])
+    want["lde"] = pool.submit(golden_lde, f, xs["lde"], 4)
+    return want
+
+
+def huge_sub_and_lde(dev, path_ms, xs, want, seen) -> None:
+    """Above 2^24 under the other names: BN254 Fr 2^25 forward under
+    ``mxu_sub`` (Montgomery I/O) and ``lde`` BLS12-381 Fr 2^23 -> 2^25
+    (blowup 4, standard-form I/O: its conversions, n^-1 scale and
+    transfers are plain chunked passes), launch counts asserted, every
+    output word against the golden result, each timed (median of 3)."""
+    from ntt_tpu_torch import BLS12_381_FR, BN254_FR, limbs
+    from ntt_tpu_torch.api import _chunked_pass, lde, ntt
+
+    f, tag = BN254_FR, "bn254-fr 2^25 mxu_sub"
+    xm = _chunked_pass(lambda a: limbs.to_mont(a, f),
+                       torch.from_numpy(xs["bn254"]).to(dev))
+    kw = dict(algorithm="mxu_sub", mont_io=True, device=dev)
+    y, c = counted(lambda: ntt(xm, f, **kw), seen)
+    expect_counts(tag, c, SUB_COUNTS)
+    same_words(tag, _chunked_pass(lambda a: limbs.from_mont(a, f), y).cpu(),
+               want["bn254"].result())
+    ms = path_ms[tag] = time_ms(lambda: ntt(xm, f, **kw), iters=3, warmup=1)
+    print(f"path {tag}  golden-equal  {ms:.4f} ms/transform (tables "
+          "resident)", flush=True)
+    del xm, y
+    f, tag = BLS12_381_FR, "bls12-381-fr lde 2^23 x4"
+    xd = torch.from_numpy(xs["lde"]).to(dev)
+    y, c = counted(lambda: lde(xd, f, blowup=4, device=dev), seen)
+    expect_counts(f"{f.name} lde 2^23 -> 2^25", c, LDE_COUNTS)
+    same_words(tag, y, want["lde"].result())
+    ms = path_ms[tag] = time_ms(lambda: lde(xd, f, blowup=4, device=dev),
+                                iters=3, warmup=1)
+    print(f"path {f.name} lde 2^23 blowup 4  golden-equal  {ms:.4f} ms "
+          "(standard-form I/O)", flush=True)
+    del xd, y
+    torch.cuda.empty_cache()
+
+
+def huge_paths(dev, path_ms, xs, want, seen) -> None:
+    """The 256-bit ``auto`` path above 2^24 on one card: BLS12-381 Fr forward
+    at 2^25 and 2^26, ``coset_ntt`` at 2^26 (the coset folded into the same
+    launches) and ``intt`` at 2^26 on the forward's output, back to its
+    input word for word; Montgomery I/O (the conversions are plain passes),
+    launch counts asserted, every output word against the hostlib golden
+    result, each timed (median of 3, tables resident) with the runner's
+    build time, its tables' shapes and the peak of allocated memory."""
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch import limbs
+    from ntt_tpu_torch.api import _chunked_pass, get_runner
+
+    def to_mont(x):
+        return _chunked_pass(lambda a: limbs.to_mont(a, f),
+                             torch.from_numpy(x).to(dev))
+
+    def standard(y):
+        return _chunked_pass(lambda a: limbs.from_mont(a, f), y).cpu()
+
+    def runner(n, tag, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, a = get_runner(f, n, device=dev, **kw)
+        torch.cuda.synchronize()
+        tables = [t for t in table_tensors(a) if t.dtype == torch.uint32]
+        biggest = max(t.numel() for t in tables) // f.n_words
+        if biggest >= n:
+            raise AssertionError(f"{tag}: a table of {biggest} entries")
+        print(f"tables {tag}: built and resident in "
+              f"{time.perf_counter() - t0:.2f} s; twiddle tables "
+              f"{[tuple(t.shape) for t in tables]}, the largest {biggest} "
+              "entries", flush=True)
+        return r, a
+
+    def memory(tag, x):
+        print(f"memory {tag}: peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, the data "
+              f"{x.numel() * 4 / 2**30:.2f} GiB", flush=True)
+
+    for log_n in HUGE_COUNTS:
+        n, tag = 1 << log_n, f"{f.name} 2^{log_n} random"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r, a = runner(n, f"{f.name} 2^{log_n} forward")
+        xm = to_mont(xs[log_n])
+        y, c = counted(lambda: r(xm, a), seen)
+        expect_counts(f"{f.name} 2^{log_n} forward", c, HUGE_COUNTS[log_n])
+        same_words(tag, standard(y), want[str(log_n)].result())
+        ms = path_ms[tag] = time_ms(lambda: r(xm, a), iters=3, warmup=1)
+        print(f"path {tag}  golden-equal  {ms:.4f} ms/transform (tables "
+              "resident)", flush=True)
+        memory(f"{f.name} 2^{log_n} forward", xm)
+        if log_n < max(HUGE_COUNTS):
+            del xm, y, r, a
+    breakdown(f, n, None, dev, xm=xm)
+    big = max(HUGE_COUNTS)
+    n, tag = 1 << big, f"{f.name} 2^{big} coset_ntt"
+    torch.cuda.reset_peak_memory_stats()
+    rc, ac = runner(n, tag, coset_shift=f.generator)
+    yc, c = counted(lambda: rc(xm, ac), seen)
+    expect_counts(f"{tag} (folded into the stack)", c, HUGE_COUNTS[big])
+    same_words(tag, standard(yc), want["coset"].result())
+    ms = path_ms[tag] = time_ms(lambda: rc(xm, ac), iters=3, warmup=1)
+    print(f"path {tag}  golden-equal  {ms:.4f} ms/transform (Montgomery "
+          "I/O, tables resident)", flush=True)
+    memory(tag, xm)
+    del yc, rc, ac
+    tag = f"{f.name} 2^{big} intt"
+    torch.cuda.reset_peak_memory_stats()
+    ri, ai = runner(n, tag, inverse=True)
+    back, c = counted(lambda: ri(y, ai), seen)
+    expect_counts(tag, c, HUGE_COUNTS[big])
+    if not torch.equal(back, xm):
+        raise AssertionError(f"{tag}: intt(ntt(x)) != x")
+    ms = path_ms[tag] = time_ms(lambda: ri(y, ai), iters=3, warmup=1)
+    print(f"path {tag}  golden-equal (intt(ntt(x)) == x, word for word)  "
+          f"{ms:.4f} ms/transform (Montgomery I/O, tables resident)",
+          flush=True)
+    memory(tag, xm)
+    del back, y, xm, r, a, ri, ai
     torch.cuda.empty_cache()
 
 
@@ -1565,15 +2102,16 @@ def probe_line(results) -> None:
                                 "device_ms": dev}}), flush=True)
 
 
-def breakdown(f, n, rng, dev, algorithm="auto") -> None:
+def breakdown(f, n, rng, dev, algorithm="auto", xm=None) -> None:
     """Where the time of one forward transform (Montgomery I/O, tables
     resident) goes: the transposes between levels timed alone with CUDA
     events, then the device time of each kernel from ``torch.profiler``
     over ten transforms. The trace may drop events, so a kernel's time is
     its average over the launches captured, times the launches one
-    transform makes (the wrappers' counts)."""
+    transform makes (the wrappers' counts). ``xm``: the Montgomery-form
+    input, else a random one."""
     from ntt_tpu_torch import limbs
-    from ntt_tpu_torch.api import get_runner
+    from ntt_tpu_torch.api import _chunked_pass, get_runner
     from ntt_tpu_torch.transforms import fourstep, mxu
 
     W = f.n_words
@@ -1581,7 +2119,9 @@ def breakdown(f, n, rng, dev, algorithm="auto") -> None:
     if algorithm != "auto":
         tag += f" {algorithm}"
     run, aux = get_runner(f, n, algorithm=algorithm, device=dev)
-    xm = limbs.to_mont(torch.from_numpy(random_words(f, (n,), rng)).to(dev), f)
+    if xm is None:
+        xm = _chunked_pass(lambda a: limbs.to_mont(a, f), torch.from_numpy(
+            random_words(f, (n,), rng)).to(dev))
     base_max = mxu.BASE if W >= 8 else mxu.effective_subbase(f)
     total, m, R = 0.0, n, 1
     while algorithm == "auto" and m > base_max:
@@ -1757,12 +2297,21 @@ def main() -> int:
         print(f"quick: kernel checks passed in {time.time() - t_start:.1f} s")
         return 0
 
+    # the golden results above 2^24 take minutes on the host: first
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=5)
+    huge_x = huge_inputs(rng)
+    huge_want = start_huge_goldens(pool, huge_x)
+
     t0 = time.time()
     run, aux = get_runner(BLS12_381_FR, 1 << 18, device=dev)
     print(f"tables: bls12-381-fr 2^18 built and resident in "
           f"{time.time() - t0:.1f} s", flush=True)
     results = {}
     check_kernels(BLS12_381_FR, aux, rng, dev, results)
+    check_periodic_t3(rng, dev, results)
+    check_base_m2(rng, dev, results)
+    check_table_generators(dev)
     check_multi_level(rng, dev, results)
     check_ladder_kernels(rng, dev, results)
     check_exchange(rng, dev, results)
@@ -1773,6 +2322,15 @@ def main() -> int:
     counts = wide_paths(rng, dev, run, aux, path_ms)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     wide_large_paths(rng, dev, path_ms)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    table_build_times(dev)
+    seen = {}
+    huge_paths(dev, path_ms, huge_x, huge_want, seen)
+    huge_sub_and_lde(dev, path_ms, huge_x, huge_want, seen)
+    pool.shutdown()
+    del huge_x, huge_want
+    check_path_launches(seen, dev)
+    del seen
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(narrow_paths(rng, dev, path_ms))
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)

@@ -15,10 +15,16 @@ the small Proth prime). Every other name of :data:`ALGORITHMS` runs on all
 four fields too: the butterfly ladders ``naive``, ``stockham``,
 ``fourstep``, ``fourstep_st`` (plain PyTorch), ``pallas`` and
 ``pallas_fused`` (the shared-memory stage kernels), and the digit-matmul
-transforms ``mxu``, ``mxu_pallas`` and ``mxu_fused``. ``mxu_chunked`` and
-``mxu_sub`` on a 256-bit field take n up to 2^24 and raise
-NotImplementedError above (ROADMAP.md); ``mxu_fused`` and ``pallas_fused``
-take unbatched input only.
+transforms ``mxu``, ``mxu_pallas`` and ``mxu_fused``. n may be any power
+of two up to 2^two_adicity of the field (BN254 Fr 2^28, BLS12-381 Fr 2^32,
+Goldilocks 2^32, the small Proth prime 2^26), within the card's memory;
+above it the field's root of unity raises AssertionError, as in
+``ntt_tpu``. On the 256-bit fields ``mxu_chunked`` and ``mxu_sub`` fold
+level 0's twiddle into a conv-matrix stack with a merged level-1 table up
+to 2^24 and with the periodic residual (``TwStackResid``) above, so that no
+table has n entries. Tables of more than ``core.HOST_TW_LIMIT`` entries are
+generated on the runner's device. ``mxu_fused`` and ``pallas_fused`` take
+unbatched input only.
 """
 
 from __future__ import annotations
@@ -31,12 +37,14 @@ from .fields import Field, get_field, inv_mod
 from .transforms import core as _core
 from .transforms import fourstep as _fourstep
 from .transforms import mxu as _mxu
-from .transforms.core import host_power_matrix, host_powers_fast
+from .transforms.core import (HOST_TW_LIMIT, geometric_outer_chunked,
+                              host_powers_fast, power_table, scale_columns)
 from .transforms.naive import ntt_naive
 
-#: the largest n of the 256-bit path: above it level 0 needs the periodic
-#: residual
-MAX_N = _mxu.TW_MERGED_MAX
+#: elements a plain elementwise pass (conversion, coset product, the n^-1
+#: scale) takes at once along axis 1: bounds limbs' int64 temporaries
+#: (about 0.6 KB an element at W = 8) at 2^26 and above
+PASS_CHUNK = 1 << 22
 
 
 def _device(device) -> torch.device:
@@ -59,73 +67,83 @@ def resolve_algorithm(algorithm: str, field: Field, n: int) -> str:
 
 
 def _tw_tables(field: Field, n: int, inverse: bool, requests,
-               deep: bool = False) -> list:
-    """Plain decomposition-twiddle tables ω_m^{k1·i2} as np.uint32
-    [W, n1, n2], built on the host. With ``deep`` the levels below the top
-    come in the form the level kernels read (``mxu.plain_table``)."""
+               deep: bool = False, device=None) -> list:
+    """Plain decomposition-twiddle tables ω_m^{k1·i2} [W, n1, n2]: numpy,
+    built on the host, or, above HOST_TW_LIMIT entries with a ``device``,
+    generated there. With ``deep`` the levels below the top come in the
+    form the level kernels read (``mxu.plain_table``)."""
     if deep:
-        return [_mxu.plain_table(field, n, inverse, m, n1, n2)
+        return [_mxu.plain_table(field, n, inverse, m, n1, n2, device)
                 for (m, n1, n2) in requests]
-    return [host_power_matrix(
-        field, field.inv_root_of_unity(m) if inverse
-        else field.root_of_unity(m), n1, n2) for (m, n1, n2) in requests]
+    return [power_table(field, field.inv_root_of_unity(m) if inverse
+                        else field.root_of_unity(m), n1, n2, device)
+            for (m, n1, n2) in requests]
 
 
-def _prep_none(field: Field, n: int, inverse: bool = False):
+def _prep_none(field: Field, n: int, inverse: bool = False, device=None):
     return [], {}
 
 
 def _prep_fourstep(base_max):
     """``base_max``: an int, or a callable(field) -> int."""
-    def prep(field: Field, n: int, inverse: bool = False):
+    def prep(field: Field, n: int, inverse: bool = False, device=None):
         bm = base_max(field) if callable(base_max) else base_max
         return _tw_tables(field, n, inverse,
-                          _fourstep.twiddle_requests(n, bm)), {}
+                          _fourstep.twiddle_requests(n, bm),
+                          device=device), {}
     return prep
 
 
-def _prep_mxu(field: Field, n: int, inverse: bool = False):
-    return (_tw_tables(field, n, inverse, _mxu.twiddle_requests(n)),
+def _prep_mxu(field: Field, n: int, inverse: bool = False, device=None):
+    return (_tw_tables(field, n, inverse, _mxu.twiddle_requests(n),
+                       device=device),
             _mxu.base_mats(field, n, inverse))
 
 
-def _prep_mxu_fused(field: Field, n: int, inverse: bool = False):
+def _prep_mxu_fused(field: Field, n: int, inverse: bool = False,
+                    device=None):
     return (_mxu.expanded_twiddles(field, n, inverse),
             _mxu.base_mats(field, n, inverse))
 
 
-def _prep_pallas_fused(field: Field, n: int, inverse: bool = False):
+def _prep_pallas_fused(field: Field, n: int, inverse: bool = False,
+                       device=None):
     return _mxu.expanded_twiddles(field, n, inverse,
                                   base=_fourstep.fused_m(field)), {}
 
 
 def _matfold_tws(field: Field, n: int, inverse: bool, base_max: int,
-                 coset_shift=None):
+                 coset_shift=None, device=None):
     """The matrix-fold table list where it applies: the peel-BASE
     single-level transforms on a 256-bit field. None otherwise."""
     if field.n_words < 8 or base_max != _mxu.BASE:
         return None
-    return _mxu.matfold_tw_tables(field, n, inverse, coset_shift=coset_shift)
+    return _mxu.matfold_tw_tables(field, n, inverse, coset_shift=coset_shift,
+                                  device=device)
 
 
-def _prep_mxu_chunked(field: Field, n: int, inverse: bool = False):
-    """(tws, mats) in numpy form (see :func:`aux_from_numpy`)."""
-    tws = _matfold_tws(field, n, inverse, _mxu.BASE)
+def _prep_mxu_chunked(field: Field, n: int, inverse: bool = False,
+                      device=None):
+    """(tws, mats) in numpy form (see :func:`aux_from_numpy`); with a
+    ``device``, the tables above HOST_TW_LIMIT entries generated there."""
+    tws = _matfold_tws(field, n, inverse, _mxu.BASE, device=device)
     if tws is None:
         tws = _tw_tables(field, n, inverse,
-                         _fourstep.twiddle_requests(n, _mxu.BASE), deep=True)
+                         _fourstep.twiddle_requests(n, _mxu.BASE), deep=True,
+                         device=device)
     return tws, _mxu.base_mats(field, n, inverse)
 
 
-def _prep_mxu_sub(field: Field, n: int, inverse: bool = False):
-    """(tws, mats) in numpy form: plain tables for the narrow fields, the
-    matrix fold for the 256-bit ones, whose peel is the single-level
-    BASE."""
+def _prep_mxu_sub(field: Field, n: int, inverse: bool = False, device=None):
+    """(tws, mats) as :func:`_prep_mxu_chunked`: plain tables for the
+    narrow fields, the matrix fold for the 256-bit ones, whose peel is the
+    single-level BASE."""
     sub = _mxu.effective_subbase(field)
-    tws = _matfold_tws(field, n, inverse, sub)
+    tws = _matfold_tws(field, n, inverse, sub, device=device)
     if tws is None:
         tws = _tw_tables(field, n, inverse,
-                         _fourstep.twiddle_requests(n, sub), deep=True)
+                         _fourstep.twiddle_requests(n, sub), deep=True,
+                         device=device)
     return tws, _mxu.sub_mats(field, n, inverse)
 
 
@@ -145,8 +163,9 @@ def _level_run(fn):
         pre_col=aux.get("coset_col"), first_mats=aux.get("first_mats"))
 
 
-#: algorithm -> (fn(x, field, inverse, aux), prepare(field, n, inverse) ->
-#: (tws, mats) in numpy form), every name of the JAX package's registry
+#: algorithm -> (fn(x, field, inverse, aux), prepare(field, n, inverse,
+#: device=None) -> (tws, mats) in numpy form, the large tables generated on
+#: ``device`` where one is given), every name of the JAX package's registry
 ALGORITHMS = {
     "naive": (lambda x, field, inverse, aux: ntt_naive(
         x, field, inverse=inverse), _prep_none),
@@ -177,14 +196,15 @@ def aux_from_numpy(tws, mats, device=None, first_mats=None, coset_col=None,
                    coset=None) -> dict:
     """The port's aux tables from their numpy form: ``tws`` a list of
     ``{"kind": "stack", "As": ndarray, "rep": int}`` (TwMatStack),
-    ``{"kind": "batch", "T4": ndarray}`` (TwBatch), ``{"kind": "deep",
-    "T": ndarray [W, n1, n2]}`` (a deep level's plain table, laid out here
-    once as [W, n2, n1]) or plain ndarray tables; ``mats`` a dict
-    {m: ndarray or None}; ``first_mats`` the top level's coset matrices,
-    ``coset_col`` [W, n1] and ``coset`` [W, n] the coset vectors. Arrays
-    may be tensors already; ``mats`` may be empty (the ladder transforms
-    have none). Returns {"tws": [...], "mats": {...}, ...} on
-    ``device``."""
+    ``{"kind": "resid", "As": ndarray, "rep": int, "Tres": ndarray}``
+    (TwStackResid), ``{"kind": "batch", "T4": ndarray}`` (TwBatch),
+    ``{"kind": "deep", "T": ndarray [W, n1, n2]}`` (a deep level's plain
+    table, laid out here once as [W, n2, n1]) or plain ndarray tables;
+    ``mats`` a dict {m: ndarray or None}; ``first_mats`` the top level's
+    coset matrices, ``coset_col`` [W, n1] and ``coset`` [W, n] the coset
+    vectors. Arrays may be tensors already; ``mats`` may be empty (the
+    ladder transforms have none). Returns {"tws": [...], "mats": {...},
+    ...} on ``device``."""
     dev = _device(device)
 
     def put(a):
@@ -200,6 +220,9 @@ def aux_from_numpy(tws, mats, device=None, first_mats=None, coset_col=None,
         kind = t["kind"] if isinstance(t, dict) else None
         if kind == "stack":
             out.append(_fourstep.TwMatStack(put(t["As"]), int(t["rep"])))
+        elif kind == "resid":
+            out.append(_fourstep.TwStackResid(put(t["As"]), int(t["rep"]),
+                                              put(t["Tres"])))
         elif kind == "batch":
             out.append(_fourstep.TwBatch(put(t["T4"])))
         elif kind == "deep":
@@ -234,23 +257,45 @@ def _first_level(algorithm: str, field: Field, n: int):
     return n1, n2, len(_fourstep.twiddle_requests(n1, base_max))
 
 
+def _row_powers(field: Field, base: int, count: int, dev):
+    """base^0 .. base^{count-1} (Montgomery uint32[W, count]) on ``dev``:
+    from the host up to HOST_TW_LIMIT entries, generated there above."""
+    if count <= HOST_TW_LIMIT:
+        return torch.from_numpy(host_powers_fast(field, base, count)).to(dev)
+    return geometric_outer_chunked(field, base, count, dev)
+
+
+def _chunked_pass(fn, x, *vs):
+    """``fn(x, *vs)`` for an elementwise ``fn``, PASS_CHUNK elements of
+    axis 1 at a time: an operand as long as x along axis 1 is cut with it,
+    a broadcast one is passed whole."""
+    n = x.shape[1]
+    step = max(1, PASS_CHUNK // max(x[0, :1].numel(), 1))
+    if n <= step:
+        return fn(x, *vs)
+    out = torch.empty_like(x)
+    for i in range(0, n, step):
+        out[:, i:i + step] = fn(x[:, i:i + step], *[
+            v[:, i:i + step] if v.shape[1] == n else v for v in vs])
+    return out
+
+
 def get_runner(field: Field, n: int, inverse: bool = False,
                algorithm: str = "auto", mont_io: bool = True,
                coset_shift=None, device=None):
     """(run, aux): ``run(x, aux)`` transforms uint32[W, n, *batch] on
-    ``aux``'s device; ``aux`` holds the tables, resident on the device."""
+    ``aux``'s device; ``aux`` holds the tables, resident on the device.
+    AssertionError for n above the field's two-adicity, as in
+    ``ntt_tpu``."""
     if n & (n - 1) or n < 1:
         raise ValueError(f"transform size must be a power of two, got {n}")
+    field.root_of_unity(n)          # asserts n <= 2^two_adicity
     algorithm = resolve_algorithm(algorithm, field, n)
     fn, prepare = ALGORITHMS[algorithm]
     matfold = algorithm in _MATFOLD_ALGORITHMS and field.n_words >= 8
-    if matfold and n > MAX_N:
-        raise NotImplementedError(
-            f"n = 2^{n.bit_length() - 1} (above 2^24) is not ported to "
-            "ntt_tpu_torch yet; see ROADMAP.md")
     dev = _device(device)
     p = field.p
-    tws, mats = prepare(field, n, inverse)
+    tws, mats = prepare(field, n, inverse, dev)
     extra = {}
     fused_coset = False
     if coset_shift is not None:
@@ -263,16 +308,15 @@ def get_runner(field: Field, n: int, inverse: bool = False,
             # no single matrix)
             n1, n2, idx = fl
             T0 = tws[idx]
-            if isinstance(T0, dict) and T0["kind"] == "stack":
+            if isinstance(T0, dict) and T0["kind"] in ("stack", "resid"):
                 # matrix-folded level 0: rebuild the fold with the coset
                 # absorbed; the coset NTT runs the plain NTT's launches
                 tws = _mxu.matfold_tw_tables(field, n, inverse,
-                                             coset_shift=shift)
+                                             coset_shift=shift, device=dev)
             else:
-                rowv = torch.from_numpy(
-                    host_powers_fast(field, shift, n2)).to(dev)
-                tws[idx] = limbs.mont_mul(
-                    torch.from_numpy(T0).to(dev), rowv[:, None, :], field)
+                T0 = torch.as_tensor(T0).to(dev)
+                tws[idx] = scale_columns(
+                    T0, _row_powers(field, shift, n2, dev), field)
                 col = pow(shift, n2, p)
                 if n1 in mats:
                     extra["first_mats"] = {n1: _mxu.coset_base_matrix(
@@ -281,26 +325,32 @@ def get_runner(field: Field, n: int, inverse: bool = False,
                     extra["coset_col"] = host_powers_fast(field, col, n1)
             fused_coset = True
         else:
-            extra["coset"] = host_powers_fast(field, shift, n)
+            extra["coset"] = _row_powers(field, shift, n, dev)
     aux = aux_from_numpy(tws, mats, device=dev, **extra)
+    del tws
     ninv = field.to_mont_int(inv_mod(n, p))
 
     def one(c, aux):
         tail = (1,) * (c.dim() - 2)
+        cs = aux.get("coset")
+        if cs is not None:
+            cs = cs.reshape(tuple(cs.shape) + tail)
         if not mont_io:
-            c = limbs.to_mont(c, field)
+            c = _chunked_pass(lambda a: limbs.to_mont(a, field), c)
         if coset_shift is not None and not inverse and not fused_coset:
-            cs = aux["coset"]
-            c = limbs.mont_mul(c, cs.reshape(tuple(cs.shape) + tail), field)
+            c = _chunked_pass(lambda a, v: limbs.mont_mul(a, v, field), c, cs)
         y = fn(c, field, inverse, aux)
         if inverse:
-            y = limbs.mont_mul(y, limbs.const_planes(
-                ninv, field, ndim=y.dim() - 1, device=y.device), field)
-            if coset_shift is not None:
-                cs = aux["coset"]
-                y = limbs.mont_mul(y, cs.reshape(tuple(cs.shape) + tail),
-                                   field)
-        return y if mont_io else limbs.from_mont(y, field)
+            scale = limbs.const_planes(ninv, field, ndim=y.dim() - 1,
+                                       device=y.device)
+
+            def post(a, *v):
+                a = limbs.mont_mul(a, scale, field)
+                return limbs.mont_mul(a, v[0], field) if v else a
+            y = _chunked_pass(post, y, *([] if cs is None else [cs]))
+        if not mont_io:
+            y = _chunked_pass(lambda a: limbs.from_mont(a, field), y)
+        return y
 
     def run(x, aux):
         if x.dim() == 2 or not matfold:

@@ -150,6 +150,8 @@ struct Level {
   long long a_rep;       // batch columns per stack entry
   const uint32_t* T3;    // twiddle, or nullptr
   long long t_rep;       // 1: T3 is [W, m, B]; > 1: T3 is [W, B / t_rep, m]
+  long long t_period;    // t_rep == 1: T3 is [W, m, t_period], column b read at
+                         // b mod t_period (B, or a power of two dividing B)
   uint32_t* out;         // [W, m, B], or [W, B, m] when transpose
   int m;
   long long B;
@@ -685,13 +687,19 @@ __device__ __forceinline__ void mont_mul(const uint32_t (&a)[W], const uint32_t 
   cond_sub_p<W>(r, t[W], fc, y);
 }
 
-// The decomposition twiddle of output row k, batch column b (m rows in all).
+// The decomposition twiddle of output row k, batch column b (m rows in all):
+// at batch resolution (t_rep == 1) from column b mod t_period of T3[W, m,
+// t_period], where t_period is B or a power of two dividing it (the periodic
+// residual of level 0, TwStackResid, read compact); else from the
+// i2-resolution table T3[W, B / t_rep, m].
 template <int W>
-__device__ __forceinline__ void load_twiddle(const uint32_t* T3, long long t_rep, int m,
-                                             long long B, int k, long long b, uint32_t (&t)[W]) {
+__device__ __forceinline__ void load_twiddle(const uint32_t* T3, long long t_rep,
+                                             long long t_period, int m, long long B, int k,
+                                             long long b, uint32_t (&t)[W]) {
   if (t_rep == 1) {
+    const long long c = t_period == B ? b : (b & (t_period - 1));
 #pragma unroll
-    for (int q = 0; q < W; ++q) t[q] = T3[((long long)q * m + k) * B + b];
+    for (int q = 0; q < W; ++q) t[q] = T3[((long long)q * m + k) * t_period + c];
   } else {
     const long long rows = B / t_rep;
 #pragma unroll

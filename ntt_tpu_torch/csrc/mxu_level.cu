@@ -8,7 +8,10 @@
 // K2 mxu_fused_level_stack replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
 // (entry fused_level_stack): the twiddle is folded into a stack of conv
 // matrices As[NT, E*m, D*m] and batch column b uses As[b / rep]; an optional
-// batch-resolution residual twiddle T3[W, m, B] is multiplied into the output.
+// residual twiddle is multiplied into the output, at batch resolution
+// T3[W, m, B] or periodic T3[W, m, s0], column b reading column b mod s0 (s0 a
+// power of two dividing B): level 0 above 2^24, whose residual the JAX package
+// tiles to each chunk's width, reads its compact [W, 32, s0] table here.
 //
 // K3 mxu_fused_subntt replaces the single-level form (m <= 32) of
 // ntt_tpu/kernels/mxu_level.py::_kernel_sub (entry fused_subntt): one conv matrix,
@@ -82,7 +85,8 @@ __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b
     const int kk = idx / N, bl = idx % N;
     const long long b = b0 + bl;
     uint32_t t[W];  // the twiddle's load runs under the reduction
-    if (L.T3 != nullptr && b < L.B) load_twiddle<W>(L.T3, L.t_rep, m, L.B, k0 + kk, b, t);
+    if (L.T3 != nullptr && b < L.B)
+      load_twiddle<W>(L.T3, L.t_rep, L.t_period, m, L.B, k0 + kk, b, t);
     int z[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) z[e] = Z[(e * kt + kk) * tc::ZS + bl];
@@ -232,7 +236,10 @@ static int launch_tc(TcKind kind, mxu::tc::Level& L, long long NT, long long blo
                   blocks == (L.B + tc::N - 1) / tc::N * (m / kt) && blocks <= 0x7fffffffLL &&
                   smem >= tc::smem_bytes(W, D, E, m, kt, L.k_pad) && smem <= tc::MAX_SMEM &&
                   (L.a_stride == 0 || L.a_rep >= 1) && NT >= 1 && L.t_rep >= 1 &&
-                  L.B % L.t_rep == 0;
+                  L.B % L.t_rep == 0 &&
+                  (L.t_period == L.B || (L.t_rep == 1 && L.t_period >= 1 &&
+                                         L.B % L.t_period == 0 &&
+                                         !(L.t_period & (L.t_period - 1))));
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap map{};
   L.tma = K % 16 == 0;
@@ -268,6 +275,7 @@ static mxu::tc::Level tc_operands(const void* x, const void* A, const void* T3, 
   L.A = static_cast<const int8_t*>(A);
   L.T3 = static_cast<const uint32_t*>(T3);
   L.t_rep = 1;
+  L.t_period = B;
   L.out = static_cast<uint32_t*>(out);
   L.m = m;
   L.B = B;
@@ -300,13 +308,15 @@ static long long stack_stride(int n_words, int m) {
   return n_words == 8 ? entry_bytes<8>(m) : n_words == 2 ? entry_bytes<2>(m) : entry_bytes<1>(m);
 }
 
+// t_period: T3's columns, B or the period s0 of a periodic T3[W, m, s0].
 extern "C" int mxu_fused_level_stack(const void* x, const void* As, long long rep,
-                                     const void* T3, void* out, int m, long long B,
-                                     const uint32_t* p, uint32_t np0, int n_words, int kt,
-                                     int k_pad, int m_pad, long long blocks, int smem,
+                                     const void* T3, long long t_period, void* out, int m,
+                                     long long B, const uint32_t* p, uint32_t np0, int n_words,
+                                     int kt, int k_pad, int m_pad, long long blocks, int smem,
                                      void* stream) {
   if (rep < 1 || B % rep) return (int)cudaErrorInvalidValue;
   mxu::tc::Level L = tc_operands(x, As, T3, out, m, B);
+  L.t_period = t_period;
   L.a_stride = stack_stride(n_words, m);
   L.a_rep = rep;
   return tc_entry(TC_STACK, L, B / rep, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);

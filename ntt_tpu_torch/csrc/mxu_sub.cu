@@ -108,7 +108,7 @@ __device__ __forceinline__ void epilogue_b(const SubLevel& S, long long b0, int 
     if (u >= V || b >= S.B) continue;
     const int row = (k2_0 + kk2) * MAX_M + k0 + (u >> S.lbt);
     uint32_t t[W];  // the twiddle's load runs under the reduction
-    if (S.T3 != nullptr) load_twiddle<W>(S.T3, S.t_rep, S.m, S.B, row, b, t);
+    if (S.T3 != nullptr) load_twiddle<W>(S.T3, S.t_rep, S.B, S.m, S.B, row, b, t);
     int z[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) z[e] = Z[(e * kt2 + kk2) * tc::ZS + col];

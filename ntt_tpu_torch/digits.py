@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import limbs
+from . import hostlib, limbs
 from .fields import HALF_BITS, Field
 
 DIGIT_BITS = 7
@@ -62,17 +62,26 @@ def out_planes(field: Field) -> int:
 # Host-side constructors (numpy; byte-equal to ntt_tpu.digits)
 # ---------------------------------------------------------------------------
 
+def _digits_of_bytes(raw: np.ndarray, n_digits: int) -> np.ndarray:
+    """Little-endian byte rows uint8[n, nbytes] -> int8[n, n_digits] 7-bit
+    digits: digit d is bits 7d .. 7d+6, read from the two bytes that hold
+    them (bytes past the row read as zero)."""
+    nb = (7 * n_digits + 7) // 8 + 1
+    wide = np.zeros((max(nb, raw.shape[1]), raw.shape[0]), dtype=np.uint16)
+    wide[:raw.shape[1]] = raw.T                 # byte-major: rows gather
+    pos = 7 * np.arange(n_digits)
+    pair = wide[pos // 8] | (wide[pos // 8 + 1] << 8)
+    shift = (pos % 8).astype(np.uint16)[:, None]
+    return np.ascontiguousarray(((pair >> shift) & 0x7F).astype(np.int8).T)
+
+
 def digits_of_ints(vals, n_digits: int) -> np.ndarray:
     """Python ints (each < 2^(7*n_digits)) -> int8[len(vals), n_digits]
-    little-endian 7-bit digits, vectorised through a bit matrix."""
+    little-endian 7-bit digits."""
     nbytes = (7 * n_digits + 7) // 8
     buf = b"".join(v.to_bytes(nbytes, "little") for v in vals)
-    raw = np.frombuffer(buf, np.uint8).reshape(len(vals), nbytes)
-    bits = np.unpackbits(raw, axis=1, bitorder="little")[:, :7 * n_digits]
-    w = (1 << np.arange(7, dtype=np.uint8))
-    digs = (bits.reshape(len(vals), n_digits, 7) * w).sum(
-        axis=2, dtype=np.uint8)
-    return digs.astype(np.int8)
+    return _digits_of_bytes(
+        np.frombuffer(buf, np.uint8).reshape(len(vals), nbytes), n_digits)
 
 
 def conv_matrix(entries, field: Field) -> np.ndarray:
@@ -96,18 +105,17 @@ def conv_matrix(entries, field: Field) -> np.ndarray:
 def conv_matrix_folded(entries, field: Field) -> np.ndarray:
     """Pre-folded conv matrix: row (d2, i) holds the digits of
     M̃[k][i]·2^(7·d2) mod p, so the matmul emits D planes instead of 2D-1
-    (residues preserved term by term)."""
+    (residues preserved term by term). The D products an entry needs are
+    one call of the hostlib's modular product on limb rows."""
     m = len(entries)
     D = n_digits(field)
     p = field.p
-    vals = []
-    for row in entries:
-        for v in row:
-            cur = v
-            for _ in range(D):
-                vals.append(cur)
-                cur = (cur << DIGIT_BITS) % p
-    digs = digits_of_ints(vals, D).reshape(m, m, D, D)  # [k, i, d2, t]
+    ents = hostlib.ints_to_rows([v for row in entries for v in row])
+    shifts = hostlib.ints_to_rows([pow(2, DIGIT_BITS * d, p)
+                                   for d in range(D)])
+    vals = hostlib.mul_mod_vec_np(np.repeat(ents, D, axis=0),
+                                  np.tile(shifts, (m * m, 1)), field)
+    digs = _digits_of_bytes(vals.view(np.uint8), D).reshape(m, m, D, D)
     A = digs.transpose(3, 0, 2, 1)                      # [t, k, d2, i]
     return np.ascontiguousarray(A).reshape(D * m, D * m)
 

@@ -100,6 +100,12 @@ def mul_mod_vec_np(a: np.ndarray, b: np.ndarray, field: Field) -> np.ndarray:
     return out
 
 
+def ints_to_rows(vals) -> np.ndarray:
+    """Python ints (each < 2^256) -> np.uint64[len(vals), 4] limb rows."""
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    return np.frombuffer(buf, np.uint64).reshape(len(vals), 4).copy()
+
+
 def planes_to_rows(planes: np.ndarray) -> np.ndarray:
     """np.uint32[W, n] word planes (W <= 8) -> np.uint64[n, 4] limb rows."""
     W, n = planes.shape

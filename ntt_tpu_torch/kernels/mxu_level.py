@@ -4,8 +4,9 @@ share with K1 (``kernels/mxu_ntt.py``).
 
 - ``fused_level_stack`` (K2): the twiddle is folded into a stack of conv
   matrices As[NT, E*m, D*m]; batch column b uses ``As[b // rep]``; an
-  optional batch-resolution residual twiddle T3 [W, m, B] multiplies the
-  output.
+  optional residual twiddle T3 multiplies the output, at batch resolution
+  [W, m, B] or periodic [W, m, s0] (column b reads column b mod s0; s0 a
+  power of two dividing B).
 - ``fused_subntt`` (K3): an m-point sub-NTT, then the decomposition
   twiddle by a Montgomery product from T3 [W, m, B] (rep == 1) or from the
   i2-resolution table T3 [W, B // rep, m] (rep > 1). Single-level for
@@ -53,8 +54,8 @@ def _lib() -> ctypes.CDLL:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     plan = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ll, ctypes.c_int]
     lib.mxu_fused_level_stack.argtypes = [
-        vp, vp, ll, vp, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, *plan,
-        vp]
+        vp, vp, ll, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
+        *plan, vp]
     lib.mxu_fused_level_stack.restype = ctypes.c_int
     lib.mxu_fused_subntt.argtypes = [
         vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, *plan,
@@ -251,9 +252,24 @@ def _twiddle_product(y, T3, field: Field, F2=None):
 # K2: the twiddle folded into a conv-matrix stack
 # ---------------------------------------------------------------------------
 
+def t3_period(T3, W: int, m: int, B: int) -> int:
+    """The period s0 of K2's residual T3: B for [W, m, B], s0 for a
+    periodic [W, m, s0] with s0 a power of two dividing B. ValueError for
+    any other shape."""
+    shape = tuple(T3.shape)
+    s0 = shape[2] if len(shape) == 3 else 0
+    if (shape[:2] != (W, m) or s0 < 1 or B % s0
+            or (s0 != B and s0 & (s0 - 1))):
+        raise ValueError(
+            f"T3 must be uint32[{W}, {m}, {B}] or periodic [{W}, {m}, s0] "
+            f"with s0 a power of two dividing {B}; got {shape}")
+    return s0
+
+
 def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
                             T3=None):
-    """Plain PyTorch version of K2."""
+    """Plain PyTorch version of K2. A periodic T3 is expanded to batch
+    resolution by indexing."""
     W, m, B = x3.shape
     D = digits.n_digits(field)
     d = digits.extract_digits(x3, field).reshape(D * m, B)
@@ -265,6 +281,10 @@ def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
     y = digits.recompose_reduce(Z.reshape(-1, m, B), field,
                                 _zmax_bits(field, m), fold_mat=F)
     if T3 is not None:
+        s0 = t3_period(T3, W, m, B)
+        if s0 != B:     # (CUDA indexes no uint32 tensor: as int32 bits)
+            cols = torch.arange(B, device=T3.device) % s0
+            T3 = T3.view(torch.int32)[:, :, cols].view(torch.uint32)
         y = _twiddle_product(y, T3, field)
     return y
 
@@ -272,24 +292,27 @@ def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
 def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
     """m-point level on uint32[W, m, B] with the decomposition twiddle
     folded into the conv-matrix stack ``As`` (int8[NT, D*m, D*m],
-    NT * rep == B). ``T3``: optional uint32[W, m, B] residual twiddle.
-    ``F``: the fold matrix, which only the plain version reads."""
+    NT * rep == B). ``T3``: optional residual twiddle, uint32[W, m, B] or
+    periodic [W, m, s0] (:func:`t3_period`), which the kernel reads
+    compact. ``F``: the fold matrix, which only the plain version reads."""
     W, m, B = x3.shape
     NT = As.shape[0]
     if NT * rep != B:
         raise ValueError(f"stack of {NT} entries x rep {rep} != B = {B}")
+    period = B if T3 is None else t3_period(T3, W, m, B)
     if x3.device.type == "cpu":
         return fused_level_stack_plain(x3, field, As, rep, F, T3)
     _build.check_level(x3, field)
     D, E = digits.n_digits(field), digits.out_planes(field)
     _build.check_operand(As, "As", torch.int8, (NT, E * m, D * m), x3.device)
     if T3 is not None:
-        _build.check_operand(T3, "T3", torch.uint32, (W, m, B), x3.device)
+        _build.check_operand(T3, "T3", torch.uint32, (W, m, period),
+                             x3.device)
     out = torch.empty_like(x3)
     rc = _lib().mxu_fused_level_stack(
-        _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), _build.ptr(out),
-        m, B, *_build.field_args(field), *plan_args(field, m, B),
-        _build.stream(x3))
+        _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), period,
+        _build.ptr(out), m, B, *_build.field_args(field),
+        *plan_args(field, m, B), _build.stream(x3))
     _build.check(rc, "fused_level_stack")
     _build.launches["fused_level_stack"] += 1
     return out

@@ -1,11 +1,12 @@
-"""Host-side twiddle tables and the radix-2 butterfly ladders (the port's
-part of ``ntt_tpu.transforms.core``).
+"""Twiddle tables and the radix-2 butterfly ladders (the port's part of
+``ntt_tpu.transforms.core``).
 
-Every twiddle table is built on the host with the native hostlib and moved
-to the device once, for every n up to 2^24. The values equal the JAX
-package's, which builds the tables above 2^18 on its device instead
-(``ntt_tpu/api.py``, ``_HOST_TW_LIMIT``; ``power_matrix`` on the
-distributed path).
+A twiddle table of up to :data:`HOST_TW_LIMIT` entries is built on the host
+with the native hostlib and moved to the device once; a larger one is
+generated on the device that will hold it (:func:`power_matrix_chunked`,
+:func:`geometric_outer_chunked`), in row chunks that bound the plain
+Montgomery product's temporaries, as ``ntt_tpu/api.py`` does above its
+``_HOST_TW_LIMIT``. Both forms give the same words.
 
 The ladders (:func:`ntt_along_axis`, :func:`ntt_along_axis_stockham`) are
 plain PyTorch on the caller's device, one pass over the data per stage: in
@@ -59,6 +60,97 @@ def power_matrix(field: Field, base: int, n1: int, n2: int,
     base^{i*j}, uint32[W, n1, n2] in Montgomery form. The JAX package
     generates the same words on its device by log-doubling."""
     return torch.from_numpy(host_power_matrix(field, base, n1, n2)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Device-side generation of the data-sized tables
+# ---------------------------------------------------------------------------
+
+#: tables of more entries than this are generated on their device
+HOST_TW_LIMIT = 1 << 18
+#: entries a row chunk of the generators and of :func:`scale_columns`
+#: holds: a plain Montgomery product keeps about 0.6 KB of int64
+#: temporaries an element at W = 8, so a chunk costs at most about 2.5 GB;
+#: each chunk is some 4000 small launches (a doubling step is a plain
+#: product), so fewer, larger chunks build faster
+TABLE_CHUNK = 1 << 22
+
+
+def _rows_per_chunk(n1: int, n2: int, chunk: int) -> int:
+    return max(1, min(n1, chunk // max(n2, 1)))
+
+
+def power_matrix_chunked(field: Field, base: int, n1: int, n2: int, device,
+                         chunk: int = TABLE_CHUNK) -> torch.Tensor:
+    """T[i, j] = base^{i*j} as Montgomery uint32[W, n1, n2], generated on
+    ``device`` row chunk by row chunk: each chunk's rows start at 1 and
+    double along j (T[:, k + j] = T[:, j] * (base^i)^k, then square),
+    log2(n2) plain products over at most ``chunk`` entries each. Only the
+    column base^i (n1 entries) comes from the host."""
+    W = field.n_words
+    col = torch.from_numpy(host_powers_fast(field, base, n1)).to(device)
+    one = torch.tensor(field.int_to_words(field.R), dtype=torch.int64,
+                       device=device).to(torch.uint32)
+    out = torch.empty((W, n1, n2), dtype=torch.uint32, device=device)
+    rows = _rows_per_chunk(n1, n2, chunk)
+    for r0 in range(0, n1, rows):
+        T = out[:, r0:r0 + rows]
+        wk = col[:, r0:r0 + rows, None]
+        T[:, :, 0] = one[:, None]
+        k = 1
+        while k < n2:
+            grow = min(k, n2 - k)
+            T[:, :, k:k + grow] = limbs.mont_mul(T[:, :, :grow], wk, field)
+            if 2 * k < n2:
+                wk = limbs.mont_sqr(wk, field)
+            k *= 2
+    return out
+
+
+def geometric_outer(field: Field, base: int, n1: int, n2: int, device,
+                    chunk: int = TABLE_CHUNK) -> torch.Tensor:
+    """base^0 .. base^{n1*n2-1} as Montgomery uint32[W, n1, n2] on
+    ``device``, by the rank-1 product base^{i1*n2+i2} = (base^{n2})^{i1} *
+    base^{i2} of two host vectors, at most ``chunk`` entries a product."""
+    row = torch.from_numpy(host_powers_fast(field, base, n2)).to(device)
+    col = torch.from_numpy(host_powers_fast(
+        field, pow(base, n2, field.p), n1)).to(device)
+    out = torch.empty((field.n_words, n1, n2), dtype=torch.uint32,
+                      device=device)
+    rows = _rows_per_chunk(n1, n2, chunk)
+    for r0 in range(0, n1, rows):
+        out[:, r0:r0 + rows] = limbs.mont_mul(
+            col[:, r0:r0 + rows, None], row[:, None, :], field)
+    return out
+
+
+def geometric_outer_chunked(field: Field, base: int, n: int, device,
+                            chunk: int = TABLE_CHUNK) -> torch.Tensor:
+    """base^0 .. base^{n-1} as Montgomery uint32[W, n] on ``device``:
+    :func:`geometric_outer` over n = n1 * n2 (:func:`split_log`)."""
+    return geometric_outer(field, base, *split_log(n), device,
+                           chunk).reshape(field.n_words, n)
+
+
+def power_table(field: Field, base: int, n1: int, n2: int, device=None):
+    """T[i, j] = base^{i*j} [W, n1, n2]: built on the host (numpy) up to
+    :data:`HOST_TW_LIMIT` entries or without a ``device``, above it
+    generated on ``device`` (:func:`power_matrix_chunked`)."""
+    if device is None or n1 * n2 <= HOST_TW_LIMIT:
+        return host_power_matrix(field, base, n1, n2)
+    return power_matrix_chunked(field, base, n1, n2, device)
+
+
+def scale_columns(T: torch.Tensor, v: torch.Tensor, field: Field,
+                  chunk: int = TABLE_CHUNK) -> torch.Tensor:
+    """T[W, r, c] times the row vector v[W, c] (Montgomery product), in row
+    chunks of at most ``chunk`` entries, into a new tensor."""
+    out = torch.empty_like(T)
+    rows = _rows_per_chunk(T.shape[1], T.shape[2], chunk)
+    vt = v[:, None, :]
+    for r0 in range(0, T.shape[1], rows):
+        out[:, r0:r0 + rows] = limbs.mont_mul(T[:, r0:r0 + rows], vt, field)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,21 @@ class TwMatStack:
         self.rep = rep
 
 
+class TwStackResid:
+    """Level 0's matrix fold above ``mxu.TW_MERGED_MAX``, where the merged
+    level-1 table would have n entries: the stack ``As`` (as in
+    :class:`TwMatStack`, entry a covering ``rep`` = s0 batch columns)
+    carries the slow factor w^{k·a·s0}, and the fast residual w^{k·b}
+    (b = i2 mod s0) is the compact periodic table ``Tres`` uint32[W, n1,
+    s0], which the level kernel multiplies in at column b mod s0: n1·s0
+    resident entries instead of n. A top-level-only form."""
+
+    def __init__(self, As, rep: int, Tres):
+        self.As = As
+        self.rep = rep
+        self.Tres = Tres
+
+
 class TwBatch:
     """A decomposition twiddle merged to full batch resolution: ``T4``
     uint32[W, n1, n2, R] Montgomery form — the level's own twiddle times
@@ -72,7 +87,10 @@ def twiddle_requests(m: int, base_max: int) -> list:
 def ntt_axis_fourstep(x, field: Field, base_fn, base_max: int, tws,
                       tw_base_fn=None, pre_col=None, first_base_fn=None,
                       first_tw_base_fn=None):
-    """Recursive four-step NTT along axis 1 of uint32[W, m, *batch].
+    """Four-step NTT along axis 1 of uint32[W, m, *batch]: the JAX
+    package's recursion on the n2 half, run as a loop, so that each
+    level's input is released once the level has read it (at 2^26 on the
+    256-bit fields every buffer is 2 GiB).
 
     ``base_fn(x, field)``: the base transform for m <= base_max (any batch
     rank); ``tw_base_fn(c3 [W, n1, B], t3, rep)``: a level's column
@@ -88,28 +106,32 @@ def ntt_axis_fourstep(x, field: Field, base_fn, base_max: int, tws,
     ``first_base_fn`` / ``first_tw_base_fn``: replacements for base_fn /
     tw_base_fn at the top level only (base transforms whose conv matrix has
     the coset column absorbed)."""
-    W, m = x.shape[0], x.shape[1]
-    rest = tuple(x.shape[2:])
-    if m <= base_max:
-        if pre_col is not None:
-            x = limbs.mont_mul(
-                x, pre_col.reshape((W, m) + (1,) * len(rest)), field)
-        return (first_base_fn or base_fn)(x, field)
-    n1, n2 = _split(m, base_max)
-    A = x.reshape((W, n1, n2) + rest)
-    Ct = _fused_level(A, next(tws), field, first_base_fn or base_fn,
-                      first_tw_base_fn or tw_base_fn, pre_col)  # [W,i2,k1,..]
-    D = ntt_axis_fourstep(Ct, field, base_fn, base_max, tws, tw_base_fn)
-    return D.reshape((W, m) + rest)                          # X[k2*n1+k1]
+    shape = x.shape
+    W, m = shape[0], shape[1]
+    rest = tuple(shape[2:])
+    if m <= base_max and pre_col is not None:
+        x = limbs.mont_mul(
+            x, pre_col.reshape((W, m) + (1,) * len(rest)), field)
+    base = first_base_fn or base_fn
+    while m > base_max:
+        n1, n2 = _split(m, base_max)
+        x = _fused_level(x.reshape((W, n1, n2) + rest), next(tws), field,
+                         base, first_tw_base_fn or tw_base_fn,
+                         pre_col)                        # [W, i2, k1, ...]
+        base, first_tw_base_fn, pre_col = base_fn, None, None
+        m, rest = n2, (n1,) + rest
+    return base(x, field).reshape(shape)                 # X[k2*n1 + k1]
 
 
 def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
     """One four-step level: x4 [W, n1, n2, *rest] -> [W, n2, n1, *rest].
 
     ``T`` is a :class:`TwMatStack` (twiddle folded into the matrices), a
-    :class:`TwBatch` (merged batch-resolution table), a :class:`TwDeep`
-    (deep level, R > 1: the i2-resolution table, each row covering rep = R
-    consecutive batch columns) or a plain table uint32[W, n1, n2]:
+    :class:`TwStackResid` (level 0's stack with its periodic residual,
+    handed to the kernel compact), a :class:`TwBatch` (merged
+    batch-resolution table), a :class:`TwDeep` (deep level, R > 1: the
+    i2-resolution table, each row covering rep = R consecutive batch
+    columns) or a plain table uint32[W, n1, n2]:
     batch-resolution at the top level (R == 1); a batched input makes the
     top level deep too, and its table is then re-laid per call.
 
@@ -122,7 +144,7 @@ def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
     for r in rest:
         R *= r
     if pre_col is not None or tw_base_fn is None:
-        assert not isinstance(T, (TwMatStack, TwBatch, TwDeep))
+        assert not isinstance(T, (TwMatStack, TwStackResid, TwBatch, TwDeep))
         c = x4.reshape(W, n1, n2, R)
         if pre_col is not None:
             c = limbs.mont_mul(c, pre_col[:, :, None, None], field)
@@ -130,7 +152,11 @@ def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
         y = limbs.mont_mul(y, T[:, :, :, None], field)
         return y.transpose(1, 2).contiguous().reshape((W, n2, n1) + rest)
     c3 = x4.reshape(W, n1, n2 * R)          # flat batch: i2 major, r minor
-    if isinstance(T, TwMatStack):
+    if isinstance(T, TwStackResid):
+        assert R == 1 and T.rep == T.Tres.shape[2], (R, T.rep, T.Tres.shape)
+        assert T.rep * T.As.shape[0] == n2, (T.rep, T.As.shape, n2)
+        y3 = tw_base_fn(c3, T, rep=T.rep)
+    elif isinstance(T, TwMatStack):
         assert T.rep % R == 0 and T.rep * T.As.shape[0] == n2 * R, \
             (T.rep, T.As.shape, n2, R)
         y3 = tw_base_fn(c3, T, rep=T.rep)

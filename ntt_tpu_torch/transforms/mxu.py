@@ -15,10 +15,13 @@ PyTorch product or as kernel K1; ``mxu_fused`` is the flat peel loop with one
 ``fused_level`` launch per level. The JAX package's knobs are hard-wired to
 their defaults:
 NTT_MXU_BASE_LOG=5, NTT_TW_MATFOLD=1, NTT_FUSE_TW=1, NTT_RESIDENT_SPLIT=0,
-NTT_MXU_SUBBASE_LOG=9, NTT_MXU_SUB256_LOG=0.
+NTT_MXU_SUBBASE_LOG=9, NTT_MXU_SUB256_LOG=0, NTT_TW_MERGED_MAX=2^24,
+NTT_TW_RESID=auto (the periodic residual above TW_MERGED_MAX only).
 
-The host-side constructors here return the aux tables in their numpy
-form (see ``api.aux_from_numpy``), byte-equal to the JAX package's.
+The constructors here return the aux tables in their numpy form (see
+``api.aux_from_numpy``), byte-equal to the JAX package's; given a device,
+the tables above ``core.HOST_TW_LIMIT`` entries come as tensors generated
+there, with the same words.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ from .. import digits, limbs
 from ..fields import Field
 from ..kernels.mxu_level import fused_level, fused_level_stack, fused_subntt
 from ..kernels.mxu_ntt import base_ntt_mxu
-from .core import host_power_matrix, host_powers_fast
-from .fourstep import (TwMatStack, check_unbatched, ntt_axis_fourstep,
-                       undo_peel_order)
+from .core import (host_power_matrix, host_powers_fast, power_table,
+                   scale_columns)
+from .fourstep import (TwMatStack, TwStackResid, check_unbatched,
+                       ntt_axis_fourstep, undo_peel_order)
 from .fourstep import twiddle_requests as _fourstep_requests
 
 BASE_LOG = 5
@@ -40,9 +44,8 @@ BASE = 1 << BASE_LOG
 
 #: largest per-level matrix stack the twiddle fold may build
 TW_STACK_MAX_NT = 128
-#: largest n whose merged level-1 table (TwBatch) is built; above it the
-#: JAX package switches level 0 to the periodic residual (TwStackResid),
-#: which this port does not have yet
+#: largest n whose merged level-1 table (TwBatch, n entries) is built;
+#: above it level 0 takes the periodic residual (TwStackResid)
 TW_MERGED_MAX = 1 << 24
 
 _matrix_cache: dict = {}
@@ -104,98 +107,128 @@ def twiddle_matrix_stack(field: Field, m: int, tvals, inverse: bool = False,
     return np.stack(mats, axis=0)
 
 
-def _mont_mul_np(T: np.ndarray, v: np.ndarray, field: Field) -> np.ndarray:
-    """T[W, r, c] times the row vector v[W, c] (Montgomery product), on the
-    host in row chunks so that the CIOS temporaries stay small."""
-    vt = torch.from_numpy(np.ascontiguousarray(v))[:, None, :]
-    out = np.empty_like(T)
-    step = max(1, (1 << 16) // max(T.shape[2], 1))
-    for r0 in range(0, T.shape[1], step):
-        blk = torch.from_numpy(np.ascontiguousarray(T[:, r0:r0 + step]))
-        out[:, r0:r0 + step] = limbs.mont_mul(blk, vt, field).numpy()
-    return out
+def _scale_cols(T, v: np.ndarray, field: Field):
+    """T[W, r, c] times the host row vector v[W, c] (Montgomery product) in
+    row chunks: on the host for a numpy T, on T's device for a tensor."""
+    vt = torch.from_numpy(np.ascontiguousarray(v))
+    if isinstance(T, np.ndarray):
+        return scale_columns(torch.from_numpy(T), vt, field,
+                             chunk=1 << 16).numpy()
+    return scale_columns(T, vt.to(T.device), field)
 
 
-def matfold_tw_tables(field: Field, n: int, inverse: bool = False,
-                      coset_shift: int | None = None):
-    """Twiddle tables (numpy form) with the decomposition twiddles folded
-    into conv-matrix stacks where the geometry allows, or None when
-    nothing folds. ``coset_shift`` (forward only) folds the coset
-    premultiply c^i in exactly: c^{i1*n2_0} as the level-0 stack's
-    input-side diagonal, c^{a*s0} as a per-stack-entry scalar, c^b into the
-    merged level-1 table, so the coset costs no extra pass:
-
-    - level 0 (when level 1 exists and s0 = n2_0/BASE >= 128): a BASE-entry
-      stack over the high digit a of i2 = a*s0 + b; the residual w^{k*b}
-      is deferred into level 1;
-    - level 1 then takes ONE merged batch-resolution table
-      M[k1, b, k0] = w_n^{(BASE*k1 + k0)*b};
-    - deeper levels fold entirely into an n2-entry stack when n2 <=
-      TW_STACK_MAX_NT and the stack stays below four data sizes."""
+def matfold_plan(field: Field, n: int):
+    """The form each level's table takes under the matrix fold, without
+    building any: a list of (kind, (m, n1, n2)) in twiddle-request order,
+    or None when nothing folds. Kinds: ``"stack"`` (a conv-matrix stack:
+    level 0 below TW_MERGED_MAX, or a deep level folded whole), ``"resid"``
+    (level 0's stack with the periodic residual, above TW_MERGED_MAX),
+    ``"batch"`` (the merged level-1 table, n entries), ``"deep"`` (a deep
+    level's plain table) and ``"plain"`` (the top level's plain table)."""
     requests = _fourstep_requests(n, BASE)
     if not requests:
         return None
-    if n > TW_MERGED_MAX:
-        raise NotImplementedError(
-            f"n = 2^{n.bit_length() - 1} > 2^24 needs the periodic-residual "
-            "level 0 (TwStackResid), not ported yet (ROADMAP.md, Queue 1 "
-            "item 2)")
-    p = field.p
-    shift = None if coset_shift is None else coset_shift % p
     D = digits.n_digits(field)
     E = digits.out_planes(field)
     s0 = requests[0][2] // BASE
-    fold0 = len(requests) >= 2 and s0 >= 128
-    deep_fold = [False] * len(requests)
-    for l in range(2, len(requests)):
-        m_l, _, n2_l = requests[l]
+    geom0 = len(requests) >= 2 and s0 >= 128
+    resid0 = geom0 and n > TW_MERGED_MAX
+    fold0 = geom0 and not resid0
+    kinds = []
+    for l, (m_l, _, n2_l) in enumerate(requests):
         R_l = n // m_l
-        if (n2_l <= TW_STACK_MAX_NT and R_l % 128 == 0
-                and n2_l * E * BASE * D * BASE <= 4 * n * field.n_words * 4):
-            deep_fold[l] = True
-    if not fold0 and not any(deep_fold):
+        if l == 0 and (fold0 or resid0):
+            kinds.append("stack" if fold0 else "resid")
+        elif l == 1 and fold0:
+            kinds.append("batch")
+        elif (l >= 2 and n2_l <= TW_STACK_MAX_NT and R_l % 128 == 0
+              and n2_l * E * BASE * D * BASE <= 4 * n * field.n_words * 4):
+            kinds.append("stack")
+        else:
+            kinds.append("plain" if m_l == n else "deep")
+    if not fold0 and not resid0 and "stack" not in kinds:
         return None
+    return list(zip(kinds, requests))
 
+
+def matfold_tw_tables(field: Field, n: int, inverse: bool = False,
+                      coset_shift: int | None = None, device=None):
+    """Twiddle tables with the decomposition twiddles folded into
+    conv-matrix stacks where :func:`matfold_plan` says so, or None when
+    nothing folds. The tables are in numpy form, built on the host; with a
+    ``device``, those above HOST_TW_LIMIT entries are tensors generated
+    there (the same words). ``coset_shift`` (forward only) folds the coset
+    premultiply c^i in exactly: c^{i1*n2_0} as the level-0 stack's
+    input-side diagonal, c^{a*s0} as a per-stack-entry scalar, c^b into the
+    merged level-1 table or the residual, so the coset costs no extra pass:
+
+    - level 0 (when level 1 exists and s0 = n2_0/BASE >= 128): a BASE-entry
+      stack over the high digit a of i2 = a*s0 + b. Up to TW_MERGED_MAX
+      the residual w^{k*b} is deferred into level 1, which then takes ONE
+      merged batch-resolution table M[k1, b, k0] = w_n^{(BASE*k1 + k0)*b};
+      above it the residual stays at level 0 as the compact periodic table
+      Tres[W, BASE, s0] (``"resid"``), which the level kernel reads at
+      column b mod s0, and level 1 keeps its plain table: no table has n
+      entries;
+    - deeper levels fold entirely into an n2-entry stack when n2 <=
+      TW_STACK_MAX_NT and the stack stays below four data sizes."""
+    plan = matfold_plan(field, n)
+    if plan is None:
+        return None
+    p = field.p
+    shift = None if coset_shift is None else coset_shift % p
+    s0 = plan[0][1][2] // BASE
     out = []
-    for l, (m_l, n1, n2_l) in enumerate(requests):
+    for l, (kind, (m_l, n1, n2_l)) in enumerate(plan):
         w = _root(field, m_l, inverse)
-        if l == 0 and fold0:
+        if l == 0 and kind in ("stack", "resid"):
             lam = [1] * BASE if shift is None else [
                 pow(shift, a * s0, p) for a in range(BASE)]
             tvals = [[pow(w, (k * a * s0) % m_l, p) * lam[a] % p
                       for k in range(BASE)] for a in range(BASE)]
             col = None if shift is None else pow(shift, m_l // BASE, p)
-            out.append({"kind": "stack", "rep": s0,
-                        "As": twiddle_matrix_stack(field, BASE, tvals,
-                                                   inverse, col_shift=col)})
-        elif l == 1 and fold0:
+            As = twiddle_matrix_stack(field, BASE, tvals, inverse,
+                                      col_shift=col)
+            entry = {"kind": kind, "rep": s0, "As": As}
+            if kind == "resid":
+                Tres = power_table(field, w, BASE, s0, device)
+                if shift is not None:
+                    Tres = _scale_cols(
+                        Tres, host_powers_fast(field, shift, s0), field)
+                entry["Tres"] = Tres
+            out.append(entry)
+        elif kind == "batch":
             BB = BASE * BASE
-            M = host_power_matrix(field, _root(field, n, inverse), BB, n2_l)
+            M = power_table(field, _root(field, n, inverse), BB, n2_l,
+                             device)
             if shift is not None:
-                M = _mont_mul_np(M, host_powers_fast(field, shift, n2_l),
-                                 field)
-            M = M.reshape(field.n_words, BASE, BASE, n2_l).transpose(
-                0, 1, 3, 2)                                # [W, k1, b, k0]
-            out.append({"kind": "batch", "T4": np.ascontiguousarray(M)})
-        elif deep_fold[l]:
+                M = _scale_cols(M, host_powers_fast(field, shift, n2_l),
+                                field)
+            M = M.reshape(field.n_words, BASE, BASE, n2_l)
+            M = (np.ascontiguousarray(M.transpose(0, 1, 3, 2))
+                 if isinstance(M, np.ndarray)
+                 else M.permute(0, 1, 3, 2).contiguous())  # [W, k1, b, k0]
+            out.append({"kind": "batch", "T4": M})
+        elif kind == "stack":
             tvals = [[pow(w, (k * s) % m_l, p) for k in range(BASE)]
                      for s in range(n2_l)]
             out.append({"kind": "stack", "rep": n // m_l,
                         "As": twiddle_matrix_stack(field, BASE, tvals,
                                                    inverse)})
         else:
-            out.append(plain_table(field, n, inverse, m_l, n1, n2_l))
+            out.append(plain_table(field, n, inverse, m_l, n1, n2_l, device))
     return out
 
 
 def plain_table(field: Field, n: int, inverse: bool, m: int, n1: int,
-                n2: int):
-    """The plain decomposition twiddle ω_m^{k1·i2} of one level in numpy
-    form: the table [W, n1, n2] itself at the top level (m == n), and
+                n2: int, device=None):
+    """The plain decomposition twiddle ω_m^{k1·i2} of one level (numpy, or
+    generated on ``device`` above HOST_TW_LIMIT entries): the table
+    [W, n1, n2] itself at the top level (m == n), and
     ``{"kind": "deep", "T": table}`` below it, which ``aux_from_numpy``
     lays out once in the i2-resolution form [W, n2, n1] that a deep level
     hands to its kernel."""
-    T = host_power_matrix(field, _root(field, m, inverse), n1, n2)
+    T = power_table(field, _root(field, m, inverse), n1, n2, device)
     return T if m == n else {"kind": "deep", "T": T}
 
 
@@ -290,6 +323,9 @@ def _drive(x, field: Field, tws, mats, inverse, pre_col, first_mats,
             return base_kernel(c.reshape(W, m, -1), md).reshape(c.shape)
 
         def tw_base(c3, t3, rep=1):
+            if isinstance(t3, TwStackResid):
+                return fused_level_stack(c3, field, t3.As, t3.rep,
+                                         md.get(-c3.shape[1]), T3=t3.Tres)
             if isinstance(t3, TwMatStack):
                 return fused_level_stack(c3, field, t3.As, t3.rep,
                                          md.get(-c3.shape[1]))

@@ -11,6 +11,7 @@ import ntt_tpu as nt
 import ntt_tpu_torch as tnt
 from ntt_tpu_torch import api as tapi
 from ntt_tpu_torch import limbs as tlimbs
+from ntt_tpu_torch.transforms import mxu as tmxu
 
 torch.set_num_threads(1)
 
@@ -121,13 +122,19 @@ def test_unknown_algorithm():
 
 
 def test_algorithms_still_to_port_say_so():
-    """Every name of the JAX package's registry runs; what is still to
-    port says so: n above 2^24 on the 256-bit matrix-fold paths."""
+    """Every name of the JAX package's registry runs, at every size the
+    field allows: only n above BN254 Fr's two-adicity (2^28) raises, as in
+    ntt_tpu; at 2^25 the 256-bit paths' plan takes the periodic residual at
+    level 0 (no table is built to say so)."""
     assert sorted(tapi.ALGORITHMS) == sorted(nt.api.ALGORITHMS)
     for alg in ("mxu_chunked", "mxu_sub"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.get_runner(tnt.BN254_FR, 1 << 25, algorithm=alg,
+        with pytest.raises(AssertionError, match="two-adicity"):
+            nt.api.get_runner(nt.BN254_FR, 1 << 29, False, alg, True, None)
+        with pytest.raises(AssertionError, match="two-adicity"):
+            tapi.get_runner(tnt.BN254_FR, 1 << 29, algorithm=alg,
                             device="cpu")
+    plan = tmxu.matfold_plan(tnt.BN254_FR, 1 << 25)
+    assert [kind for kind, _ in plan] == ["resid", "deep", "deep", "stack"]
 
 
 @pytest.mark.parametrize("alg", ["naive", "fourstep", "pallas", "mxu_fused",

@@ -341,8 +341,16 @@ def test_mxu_sub_256_bit_takes_the_matrix_fold():
     x = _words(tf, (n,), 17)
     got = tnt.ntt(x, tf, algorithm="mxu_sub", device="cpu")
     assert np.array_equal(got.numpy(), _golden(tf, x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.get_runner(tf, 1 << 25, algorithm="mxu_sub", device="cpu")
+    with pytest.raises(AssertionError, match="two-adicity"):
+        j_get_runner(nt.BN254_FR, 1 << 29, False, "mxu_sub", True, None)
+    with pytest.raises(AssertionError, match="two-adicity"):
+        tapi.get_runner(tf, 1 << 29, algorithm="mxu_sub", device="cpu")
+    # above 2^24 level 0 takes the periodic residual; no table has n
+    # entries (the plan builds none)
+    for kind, (m, n1, n2) in tmxu.matfold_plan(tf, 1 << 25):
+        entries = n1 * n2 // tmxu.BASE if kind == "resid" else n1 * n2
+        assert entries < 1 << 25, (kind, m)
+    assert tmxu.matfold_plan(tf, 1 << 25)[0][0] == "resid"
 
 
 # --- the wider sweep, against the host golden NTT -----------------------------

@@ -153,12 +153,17 @@ def test_batched_and_small_sizes_equal_golden():
 
 
 def test_outside_the_slice_raises():
-    """What still raises: n above 2^24 on the 256-bit matrix-fold paths, a
-    batched input to a flat-peel transform, an unknown name, a size that is
-    no power of two."""
+    """What still raises: n above BLS12-381 Fr's two-adicity (2^32), as in
+    ntt_tpu, a batched input to a flat-peel transform, an unknown name, a
+    size that is no power of two. 2^25 plans the periodic residual at
+    level 0 instead of raising."""
     for alg in ("auto", "mxu_chunked", "mxu_sub"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.get_runner(BLS, 1 << 25, algorithm=alg, device="cpu")
+        with pytest.raises(AssertionError, match="two-adicity"):
+            j_get_runner(JBLS, 1 << 33, False, alg, True, None)
+        with pytest.raises(AssertionError, match="two-adicity"):
+            tapi.get_runner(BLS, 1 << 33, algorithm=alg, device="cpu")
+    assert [kind for kind, _ in tmxu.matfold_plan(BLS, 1 << 25)] == [
+        "resid", "deep", "deep", "stack"]
     xb = torch.from_numpy(_words(BLS, 128, 1).reshape(8, 64, 2))
     for alg in ("mxu_fused", "pallas_fused"):
         with pytest.raises(AssertionError, match="unbatched"):
