@@ -49,7 +49,21 @@ with, and prints no result line.
      store orders, forward and inverse, and at B one column short of the
      launch plan's tile and B = 4097, 8193; K8 for D in {2, 4, 8}, W in
      {1, 2, 8}, 16-byte and word moves, unaligned shards.
-3. Drives the entry points of ``ntt_tpu_torch`` on the card and checks
+3. Runs every op of the big-integer layer (``ntt_tpu_torch.bigint``, the
+   68 public names, and ``limbs.eq``) on the card at W = 2 and W = 8 on
+   2^16 columns of seeded operands (``tests/test_bigint.py``'s special
+   values in the first columns, zero divisors, moduli without inverses)
+   and holds every output column against Python-int arithmetic, sentinels
+   included, with every output on the card (``modular_power`` at W = 8 on
+   2^14 columns: Python's ``pow`` is the phase's slowest part). Before
+   that, while no host thread computes a golden result, it times each op
+   at W = 8 on 2^20 columns, 2^18 for ``gcd``, ``modular_inverse`` and
+   ``modular_power`` (one warm call traced by ``torch.profiler`` for its
+   device kernels, then the median of three by CUDA events), holds 4096
+   sampled columns of the result against Python ints and prints the
+   ``bigint`` JSON line (op -> ms, launches, elements, W). These ops are
+   plain PyTorch: no TPU kernel stands behind ``ntt_tpu.bigint``.
+4. Drives the entry points of ``ntt_tpu_torch`` on the card and checks
    every output word against the hostlib golden result:
    - the 256-bit path: BLS12-381 Fr 2^18 forward on the ramp (launch
      counts asserted) and on random input, BN254 Fr 2^18, BLS 2^14, BLS
@@ -94,12 +108,12 @@ with, and prints no result line.
    the two 2^18 forward transforms it prints where the time goes (the
    transposes between levels timed alone, and device time by kernel from
    ``torch.profiler`` where that traces the card).
-4. Holds the tensor-core kernels to their device-time targets where the
+5. Holds the tensor-core kernels to their device-time targets where the
    profiler traces the card: the two K3 multi-level launches of Goldilocks
    2^18 below ``torch._int_mm`` on their two matmuls, K7's ``matmul``,
    ``reduce`` and ``tw`` stages below ``_int_mm`` on the level's matmul,
    and ``tw`` within 15% of K3 single-level at [8,32,8192] rep 1.
-5. Prints a ``kernels`` JSON
+6. Prints a ``kernels`` JSON
    line (a kernel's bound is the sum of its launches' own bounds,
    ``bound_by`` the kind with the larger share and ``bound_split`` both
    shares), the card line, and last the result line
@@ -113,6 +127,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import shutil
 import statistics
@@ -2180,6 +2195,510 @@ def breakdown(f, n, rng, dev, algorithm="auto", xm=None) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The big-integer layer (ntt_tpu_torch.bigint): plain PyTorch on the card;
+# no TPU kernel stands behind ntt_tpu.bigint, so it adds no kernel
+# ---------------------------------------------------------------------------
+
+#: columns every op is held on against Python ints, at W = 2 and W = 8
+BIGINT_CHECK_COLS = 1 << 16
+#: columns each op is timed on at W = 8 (one BLS12-381 Fr vector of 2^20),
+#: and the ops timed on fewer
+BIGINT_TIMED_COLS = 1 << 20
+BIGINT_TIMED_LESS = {"modular_power": 1 << 18, "modular_inverse": 1 << 18,
+                     "gcd": 1 << 18}
+#: timed columns held against Python ints
+BIGINT_SAMPLE = 4096
+#: columns modular_power is checked on at W = 8 (Python's pow takes about
+#: 0.17 ms a column there)
+BIGINT_POWER_CHECK_COLS = 1 << 14
+M32 = 0xFFFFFFFF
+
+
+def col_ints(a) -> list:
+    """uint32[W, n] words (numpy) -> Python ints, one ``int.from_bytes`` a
+    column."""
+    return [int.from_bytes(c.tobytes(), "little")
+            for c in np.ascontiguousarray(a.T)]
+
+
+def bigint_inputs(W, n, rng) -> dict:
+    """Seeded operands, numpy uint32 [W, n] words (``u``: a uint32 [n]
+    plane). The first columns hold tests/test_bigint.py's special values
+    (0, 1, 2, 3, all-ones, the top bit, ...), some columns are equal, and
+    the divisors hold zeros."""
+    bits = 32 * W
+    top = (1 << bits) - 1
+    special = [0, 1, 2, 3, top, top - 1, top >> 1, (top >> 1) + 1,
+               1 << (16 * W), (1 << (16 * W)) - 1]
+    sp = np.frombuffer(b"".join(v.to_bytes(4 * W, "little")
+                                for v in special),
+                       dtype="<u4").reshape(len(special), W).T
+
+    def words():
+        return rng.integers(0, 1 << 32, size=(W, n),
+                            dtype=np.uint64).astype(np.uint32)
+
+    x, y, z, lo = words(), words(), words(), words()
+    x[:, :10], y[:, :10] = sp, sp[:, ::-1]
+    y[:, 10:14] = x[:, 10:14]                  # equal columns
+    x[:, 14] = y[:, 14] = y[:, 15] = 0         # gcd(0, 0), x / 0
+    dnz = y.copy()
+    dnz[0, (y == 0).all(axis=0)] = 7
+
+    def below(dv):
+        """Random words below dv column by column (0 where dv's top word
+        is 0)."""
+        h = words()
+        h[W - 1] = dv[W - 1] >> 1
+        h[:, dv[W - 1] == 0] = 0
+        return h
+
+    hi = below(y)
+    hi[:, 16:18] = y[:, 16:18]                 # hi >= y: q truncates
+    u = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    u[:6] = [0, 1, 2, M32, 0x80000000, 0x7FFFFFFF]
+    u[10:14] = x[0, :4]                        # x == u
+    m, pm = y.copy(), y.copy()
+    m[0] |= 3                                  # odd moduli >= 3
+    pm[0] |= 2                                 # power moduli >= 2
+    odd = x.copy()
+    odd[0] |= 1
+    return {"x": x, "y": y, "z": z, "lo": lo, "d": y, "dnz": dnz,
+            "hi": hi, "hib": below(dnz), "m": m, "pm": pm, "odd": odd,
+            "u": u, "oddu": u | 1}
+
+
+def bigint_cases(W, dev) -> list:
+    """Every op of ``ntt_tpu_torch.bigint`` and ``limbs.eq`` as
+    (name, output kinds, call on the device tensors T, Python-int result
+    from the columns' ints v). Kinds: w words uint32 [W, n], u uint32 [n],
+    i int32 [n], b bool [n]. The first case of a name is the one timed."""
+    from ntt_tpu_torch import bigint as tb
+    from ntt_tpu_torch import limbs
+
+    bits, top = 32 * W, (1 << (32 * W)) - 1
+
+    def each(f, *keys):
+        return lambda v: [f(*t) for t in zip(*(v[k] for k in keys))]
+
+    def pair(f, g, *keys):
+        return lambda v: (each(f, *keys)(v), each(g, *keys)(v))
+
+    def mask(nb):
+        if 0 <= nb < bits:
+            return (1 << nb) - 1
+        if -bits < nb < 0:
+            return ((1 << -nb) - 1) << (bits + nb)
+        return top
+
+    def field(start, length):
+        return (1 << max(min(length, bits - start), 0)) - 1
+
+    def inverse_2k(a):
+        """a^-1 mod 2^bits (odd a) by Newton's steps on Python ints, each
+        doubling the bits that are right; the result is checked."""
+        r = a
+        for _ in range(bits.bit_length()):
+            r = r * (2 - a * r) & top
+        assert a * r & top == 1
+        return r
+
+    def inv(a, m):
+        return pow(a, -1, m) if math.gcd(a, m) == 1 else 0
+
+    def wide(h, lo):
+        return (h << bits) | lo
+
+    def sqrt_rem_wide(v):
+        root, r_lo, r_hi = [], [], []
+        for lo, h in zip(v["x"], v["y"]):
+            r = math.isqrt(wide(h, lo))
+            root.append(r)
+            r_lo.append((wide(h, lo) - r * r) & top)
+            r_hi.append((wide(h, lo) - r * r) >> bits)
+        return root, r_lo, r_hi
+
+    def approx(dv):
+        s = bits - dv.bit_length()
+        return top if dv == 0 else ((1 << (2 * bits)) - 1) // (dv << s) \
+            - (1 << bits)
+
+    cases = [
+        ("add", "wu", lambda T: tb.add(T["x"], T["y"]),
+         pair(lambda a, b: (a + b) & top, lambda a, b: (a + b) >> bits,
+              "x", "y")),
+        ("sub", "wu", lambda T: tb.sub(T["x"], T["y"]),
+         pair(lambda a, b: (a - b) & top, lambda a, b: int(a < b),
+              "x", "y")),
+        ("compare", "i", lambda T: tb.compare(T["x"], T["y"]),
+         each(lambda a, b: (a > b) - (a < b), "x", "y")),
+        ("equals", "b", lambda T: tb.equals(T["x"], T["y"]),
+         each(lambda a, b: a == b, "x", "y")),
+        ("limbs.eq", "b", lambda T: limbs.eq(T["x"], T["y"]),
+         each(lambda a, b: a == b, "x", "y")),
+        ("pop_count", "i", lambda T: tb.pop_count(T["x"]),
+         each(lambda a: bin(a).count("1"), "x")),
+        ("clz", "i", lambda T: tb.clz(T["x"]),
+         each(lambda a: bits - a.bit_length(), "x")),
+        ("ctz", "i", lambda T: tb.ctz(T["x"]),
+         each(lambda a: bits if a == 0 else (a & -a).bit_length() - 1,
+              "x")),
+        ("set_", "w", lambda T: tb.set_(T["x"]), each(lambda a: a, "x")),
+        ("swap", "ww", lambda T: tb.swap(T["x"], T["y"]),
+         lambda v: (list(v["y"]), list(v["x"]))),
+        ("negate", "w", lambda T: tb.negate(T["x"]),
+         each(lambda a: -a & top, "x")),
+        ("bitwise_and", "w", lambda T: tb.bitwise_and(T["x"], T["y"]),
+         each(lambda a, b: a & b, "x", "y")),
+        ("bitwise_ior", "w", lambda T: tb.bitwise_ior(T["x"], T["y"]),
+         each(lambda a, b: a | b, "x", "y")),
+        ("bitwise_xor", "w", lambda T: tb.bitwise_xor(T["x"], T["y"]),
+         each(lambda a, b: a ^ b, "x", "y")),
+        ("bitwise_complement", "w", lambda T: tb.bitwise_complement(T["x"]),
+         each(lambda a: a ^ top, "x")),
+        ("bitwise_select", "w",
+         lambda T: tb.bitwise_select(T["x"], T["y"], T["z"]),
+         each(lambda a, b, c: (a & ~c & top) | (b & c), "x", "y", "z")),
+    ]
+    for k in (37, 0, bits - 1, bits + 3):
+        r = k % bits
+        cases += [
+            ("shift_left", "w", lambda T, k=k: tb.shift_left(T["x"], k),
+             each(lambda a, k=k: (a << k) & top, "x")),
+            ("shift_right", "w", lambda T, k=k: tb.shift_right(T["x"], k),
+             each(lambda a, k=k: a >> k, "x")),
+            ("rotate_left", "w", lambda T, k=k: tb.rotate_left(T["x"], k),
+             each(lambda a, r=r: ((a << r) | (a >> (bits - r))) & top,
+                  "x")),
+            ("rotate_right", "w", lambda T, k=k: tb.rotate_right(T["x"], k),
+             each(lambda a, r=r: ((a >> r) | (a << (bits - r))) & top,
+                  "x"))]
+    for nb in (-13, 45, 0, 2 * bits):
+        mv = mask(nb)
+        cases += [
+            ("bitwise_mask_copy", "w",
+             lambda T, nb=nb: tb.bitwise_mask_copy(W, nb, (T["n"],),
+                                                   device=dev),
+             lambda v, mv=mv: [mv] * len(v["x"])),
+            ("bitwise_mask_and", "w",
+             lambda T, nb=nb: tb.bitwise_mask_and(T["x"], nb),
+             each(lambda a, mv=mv: a & mv, "x")),
+            ("bitwise_mask_ior", "w",
+             lambda T, nb=nb: tb.bitwise_mask_ior(T["x"], nb),
+             each(lambda a, mv=mv: a | mv, "x")),
+            ("bitwise_mask_xor", "w",
+             lambda T, nb=nb: tb.bitwise_mask_xor(T["x"], nb),
+             each(lambda a, mv=mv: a ^ mv, "x")),
+            ("bitwise_mask_select", "w",
+             lambda T, nb=nb: tb.bitwise_mask_select(T["x"], T["y"], nb),
+             each(lambda a, b, mv=mv: (a & ~mv & top) | (b & mv),
+                  "x", "y"))]
+    for st, ln in ((13, 37), (bits - 5, 20)):
+        f = field(st, ln)
+        fu = field(st, min(ln, 32))
+        cases += [
+            ("bit_extract", "w",
+             lambda T, st=st, ln=ln: tb.bit_extract(T["x"], st, ln),
+             each(lambda a, st=st, f=f: (a >> st) & f, "x")),
+            ("bit_insert", "w",
+             lambda T, st=st, ln=ln: tb.bit_insert(T["x"], T["y"], st, ln),
+             each(lambda a, b, st=st, f=f: (a & ~(f << st) & top)
+                  | ((b & f) << st & top), "x", "y")),
+            ("extract_bits_ui32", "u",
+             lambda T, st=st, ln=ln: tb.extract_bits_ui32(T["x"], st, ln),
+             each(lambda a, st=st, ln=ln: (a >> st) & ((1 << min(ln, 32))
+                                                       - 1), "x")),
+            ("insert_bits_ui32", "w",
+             lambda T, st=st, ln=ln: tb.insert_bits_ui32(T["x"], st, ln,
+                                                         T["u"]),
+             each(lambda a, c, st=st, f=fu: (a & ~(f << st) & top)
+                  | ((c & f) << st & top), "x", "u"))]
+    cases += [
+        ("mul_wide", "ww", lambda T: tb.mul_wide(T["x"], T["y"]),
+         pair(lambda a, b: a * b & top, lambda a, b: a * b >> bits,
+              "x", "y")),
+        ("mul", "w", lambda T: tb.mul(T["x"], T["y"]),
+         each(lambda a, b: a * b & top, "x", "y")),
+        ("mul_high", "w", lambda T: tb.mul_high(T["x"], T["y"]),
+         each(lambda a, b: a * b >> bits, "x", "y")),
+        ("sqr", "w", lambda T: tb.sqr(T["x"]),
+         each(lambda a: a * a & top, "x")),
+        ("sqr_wide", "ww", lambda T: tb.sqr_wide(T["x"]),
+         pair(lambda a: a * a & top, lambda a: a * a >> bits, "x")),
+        ("sqr_high", "w", lambda T: tb.sqr_high(T["x"]),
+         each(lambda a: a * a >> bits, "x")),
+        ("div_rem", "ww", lambda T: tb.div_rem(T["x"], T["d"]),
+         pair(lambda a, b: a // b if b else top,
+              lambda a, b: a % b if b else a, "x", "d")),
+        ("div", "w", lambda T: tb.div(T["x"], T["d"]),
+         each(lambda a, b: a // b if b else top, "x", "d")),
+        ("rem", "w", lambda T: tb.rem(T["x"], T["d"]),
+         each(lambda a, b: a % b if b else a, "x", "d")),
+        ("div_rem_wide", "ww",
+         lambda T: tb.div_rem_wide(T["lo"], T["hi"], T["d"]),
+         pair(lambda lo, h, b: wide(h, lo) // b & top if b else top,
+              lambda lo, h, b: wide(h, lo) % b if b else lo,
+              "lo", "hi", "d")),
+        ("div_wide", "w", lambda T: tb.div_wide(T["lo"], T["hi"], T["d"]),
+         each(lambda lo, h, b: wide(h, lo) // b & top if b else top,
+              "lo", "hi", "d")),
+        ("rem_wide", "w", lambda T: tb.rem_wide(T["lo"], T["hi"], T["d"]),
+         each(lambda lo, h, b: wide(h, lo) % b if b else lo,
+              "lo", "hi", "d")),
+        ("sqrt", "w", lambda T: tb.sqrt(T["x"]),
+         each(math.isqrt, "x")),
+        ("sqrt_rem", "ww", lambda T: tb.sqrt_rem(T["x"]),
+         pair(math.isqrt, lambda a: a - math.isqrt(a) ** 2, "x")),
+        ("sqrt_wide", "w", lambda T: tb.sqrt_wide(T["x"], T["y"]),
+         each(lambda lo, h: math.isqrt(wide(h, lo)), "x", "y")),
+        ("sqrt_rem_wide", "www", lambda T: tb.sqrt_rem_wide(T["x"], T["y"]),
+         sqrt_rem_wide),
+        ("gcd", "w", lambda T: tb.gcd(T["x"], T["y"]),
+         each(math.gcd, "x", "y")),
+        ("modular_inverse", "w",
+         lambda T: tb.modular_inverse(T["x"], T["m"]), each(inv, "x", "m")),
+        ("binary_inverse", "w", lambda T: tb.binary_inverse(T["odd"]),
+         each(inverse_2k, "odd")),
+        ("modular_power", "w",
+         lambda T: tb.modular_power(*(T[k][:, :T["power_cols"]]
+                                      for k in ("x", "z", "pm"))),
+         lambda v: [pow(*t) for t in zip(*(v[k][:v.get("power_cols")]
+                                          for k in ("x", "z", "pm")))]),
+        ("get_ui32", "u", lambda T: tb.get_ui32(T["x"]),
+         each(lambda a: a & M32, "x")),
+        ("set_ui32", "w",
+         lambda T: tb.set_ui32(W, T["u"], (T["n"],), device=dev),
+         each(lambda c: c, "u")),
+        ("add_ui32", "wu", lambda T: tb.add_ui32(T["x"], T["u"]),
+         pair(lambda a, c: (a + c) & top, lambda a, c: (a + c) >> bits,
+              "x", "u")),
+        ("sub_ui32", "wu", lambda T: tb.sub_ui32(T["x"], T["u"]),
+         pair(lambda a, c: (a - c) & top, lambda a, c: int(a < c),
+              "x", "u")),
+        ("mul_ui32", "wu", lambda T: tb.mul_ui32(T["x"], T["u"]),
+         pair(lambda a, c: a * c & top, lambda a, c: a * c >> bits & M32,
+              "x", "u")),
+        ("div_rem_ui32", "wu", lambda T: tb.div_rem_ui32(T["x"], T["u"]),
+         pair(lambda a, c: a // c if c else top,
+              lambda a, c: a % c if c else a & M32, "x", "u")),
+        ("div_ui32", "w", lambda T: tb.div_ui32(T["x"], T["u"]),
+         each(lambda a, c: a // c if c else top, "x", "u")),
+        ("rem_ui32", "u", lambda T: tb.rem_ui32(T["x"], T["u"]),
+         each(lambda a, c: a % c if c else a & M32, "x", "u")),
+        ("equals_ui32", "b", lambda T: tb.equals_ui32(T["x"], T["u"]),
+         each(lambda a, c: a == c, "x", "u")),
+        ("compare_ui32", "i", lambda T: tb.compare_ui32(T["x"], T["u"]),
+         each(lambda a, c: (a > c) - (a < c), "x", "u")),
+        ("binary_inverse_ui32", "u",
+         lambda T: tb.binary_inverse_ui32(T["oddu"]),
+         each(lambda c: pow(c, -1, 1 << 32), "oddu")),
+        ("gcd_ui32", "u", lambda T: tb.gcd_ui32(T["x"], T["u"]),
+         each(lambda a, c: math.gcd(a, c) if c else 0, "x", "u")),
+        ("barrett_approximation", "wi",
+         lambda T: tb.barrett_approximation(T["d"]),
+         pair(approx, lambda dv: bits - dv.bit_length(), "d")),
+        ("barrett_div_rem", "ww",
+         lambda T: tb.barrett_div_rem(T["x"], T["dnz"], *T["approx"]),
+         pair(lambda a, b: a // b, lambda a, b: a % b, "x", "dnz")),
+        ("barrett_div", "w",
+         lambda T: tb.barrett_div(T["x"], T["dnz"], *T["approx"]),
+         each(lambda a, b: a // b, "x", "dnz")),
+        ("barrett_rem", "w",
+         lambda T: tb.barrett_rem(T["x"], T["dnz"], *T["approx"]),
+         each(lambda a, b: a % b, "x", "dnz")),
+        ("barrett_div_rem_wide", "ww",
+         lambda T: tb.barrett_div_rem_wide(T["lo"], T["hib"], T["dnz"],
+                                           *T["approx"]),
+         pair(lambda lo, h, b: wide(h, lo) // b,
+              lambda lo, h, b: wide(h, lo) % b, "lo", "hib", "dnz")),
+        ("barrett_div_wide", "w",
+         lambda T: tb.barrett_div_wide(T["lo"], T["hib"], T["dnz"],
+                                       *T["approx"]),
+         each(lambda lo, h, b: wide(h, lo) // b, "lo", "hib", "dnz")),
+        ("barrett_rem_wide", "w",
+         lambda T: tb.barrett_rem_wide(T["lo"], T["hib"], T["dnz"],
+                                       *T["approx"]),
+         each(lambda lo, h, b: wide(h, lo) % b, "lo", "hib", "dnz")),
+        ("Accumulator", "w",
+         lambda T: tb.Accumulator(W, (T["n"],), device=dev).add(T["x"]).add(
+             T["y"]).sub(T["z"]).resolve(),
+         each(lambda a, b, c: (a + b - c) & top, "x", "y", "z")),
+    ]
+    return cases
+
+
+def bigint_tensors(arrays, dev) -> dict:
+    """The operands on the card, with the Barrett approximation of the
+    nonzero divisors (its own op is checked separately)."""
+    from ntt_tpu_torch import bigint as tb
+    T = {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
+    T["n"] = T["power_cols"] = arrays["x"].shape[1]
+    T["approx"] = tb.barrett_approximation(T["dnz"])
+    return T
+
+
+def bigint_ints(arrays, idx) -> dict:
+    """The operands' Python ints at the columns ``idx`` (None: all)."""
+    return {k: (a.tolist() if idx is None else a[idx].tolist())
+            if a.ndim == 1 else col_ints(a if idx is None else a[:, idx])
+            for k, a in arrays.items()}
+
+
+def flat_outputs(out) -> list:
+    """An op's outputs (a tensor or nested tuples) as a flat list."""
+    if isinstance(out, tuple):
+        return [o for part in out for o in flat_outputs(part)]
+    return [out]
+
+
+def bigint_same(what, out, kinds, want, idx, dev) -> None:
+    """Every output on the card, of its kind's dtype, and equal at the
+    columns ``idx`` (None: all) to the Python-int result."""
+    outs = flat_outputs(out)
+    dtypes = {"w": torch.uint32, "u": torch.uint32, "i": torch.int32,
+              "b": torch.bool}
+    want = (want,) if len(kinds) == 1 else want
+    if len(outs) != len(kinds):
+        raise AssertionError(f"bigint {what}: {len(outs)} outputs")
+    for k, (o, kind, w) in enumerate(zip(outs, kinds, want)):
+        if o.device != dev or o.dtype != dtypes[kind]:
+            raise AssertionError(f"bigint {what}: output {k} {o.dtype} on "
+                                 f"{o.device}")
+        o = o.cpu().numpy()
+        if idx is not None:
+            o = o[:, idx] if kind == "w" else o[idx]
+        got = col_ints(o) if kind == "w" else o.tolist()
+        if got != list(w):
+            bad = sum(g != v for g, v in zip(got, w))
+            raise AssertionError(f"bigint {what}: output {k}: {bad} of "
+                                 f"{len(got)} columns differ from Python "
+                                 "ints")
+
+
+def bigint_check_width(W, n, rng, dev) -> int:
+    """Every op at width W on n columns (modular_power at W = 8 on the
+    first BIGINT_POWER_CHECK_COLS), each output held in full against
+    Python ints; returns the calls made."""
+    arrays = bigint_inputs(W, n, rng)
+    T, v = bigint_tensors(arrays, dev), bigint_ints(arrays, None)
+    if W == 8:
+        T["power_cols"] = v["power_cols"] = min(n, BIGINT_POWER_CHECK_COLS)
+    cases = bigint_cases(W, dev)
+    for name, kinds, fn, want in cases:
+        bigint_same(f"{name} W={W}", fn(T), kinds, want(v), None, dev)
+    from ntt_tpu_torch import bigint as tb
+    public = {k for k in dir(tb) if not k.startswith("_")
+              and getattr(getattr(tb, k), "__module__", None) == tb.__name__}
+    missed = public - {c[0] for c in cases}
+    if missed or len(public) != 68:
+        raise AssertionError(f"bigint: {len(public)} public names, not run: "
+                             f"{sorted(missed)}")
+    return len(cases)
+
+
+def device_launches(fn, dev) -> tuple:
+    """(the device kernels one call of ``fn`` launches, whether the trace
+    holds the whole call), by ``torch.profiler`` (device activity only,
+    counted from the raw trace events: the per-op summary costs about 0.2
+    ms an event to build). The tracer can drop kernels at a window's
+    edges, so 256 float multiplies before the call and 256 float adds
+    after it (the ops here run no float kernel) pad the window and are
+    left out of the count; the call is whole where some of both show. A
+    trace that shows no device kernel at all fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pad = torch.ones(1, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):
+            pad.mul_(1.0)
+        fn()
+        for _ in range(256):
+            pad.add_(0.0)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and not e.name().startswith(("Memcpy", "Memset"))]
+    if not names:
+        raise AssertionError("torch.profiler traced no device kernel")
+    lead = sum("MulFunctor<float>" in n for n in names)
+    trail = sum("float" in n for n in names) - lead
+    return len(names) - lead - trail, lead > 0 and trail > 0
+
+
+def bigint_times(rng, dev) -> tuple:
+    """Each op at W = 8 on BIGINT_TIMED_COLS columns (BIGINT_TIMED_LESS for
+    the ops named there): one warm call traced for its launches, then the
+    median of three by CUDA events; the last result held against Python
+    ints on BIGINT_SAMPLE columns (the special ones among them). Returns
+    (op -> times, the ops whose trace lost kernels at an edge)."""
+    W = 8
+    sizes = sorted({BIGINT_TIMED_COLS, *BIGINT_TIMED_LESS.values()})
+    times, cut = {}, []
+    for n in sizes:
+        arrays = bigint_inputs(W, n, rng)
+        idx = np.unique(np.concatenate([
+            np.arange(20), rng.choice(n, BIGINT_SAMPLE - 20,
+                                      replace=False)]))
+        T, v = bigint_tensors(arrays, dev), bigint_ints(arrays, idx)
+        seen = set()
+        for name, kinds, fn, want in bigint_cases(W, dev):
+            if name in seen or BIGINT_TIMED_LESS.get(name,
+                                                     BIGINT_TIMED_COLS) != n:
+                continue
+            seen.add(name)
+            # the warm call, traced for its launches
+            t_traced = time.time()
+            launches, whole = device_launches(lambda: fn(T), dev)
+            t_traced = time.time() - t_traced
+            ms = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(T)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            bigint_same(f"{name} W={W} n={n}", out, kinds, want(v), idx,
+                        dev)
+            del out
+            times[name] = {"ms": statistics.median(ms),
+                           "launches": launches, "elements": n, "W": W}
+            per = (f"{times[name]['ms'] * 1e3 / launches:.2f} us a launch"
+                   if launches else "no launch")
+            if not whole:
+                cut.append(name)
+                per += ", the trace cut into the call"
+            print(f"bigint {name}: {times[name]['ms']:.4f} ms at W={W}, "
+                  f"n={n}, {launches} launches, {per} (traced call "
+                  f"{t_traced:.1f} s)", flush=True)
+        del T
+        torch.cuda.empty_cache()
+    return times, cut
+
+
+def time_bigint(rng, dev) -> None:
+    """The bigint phase's timings (``bigint_times``), made while no host
+    thread computes a golden result; prints the ``bigint`` JSON line."""
+    t0 = time.time()
+    times, cut = bigint_times(rng, dev)
+    print(json.dumps({"bigint": times}))
+    print(f"bigint timings: {time.time() - t0:.1f} s; traces cut at an "
+          f"edge: {len(cut)} {cut}", flush=True)
+
+
+def check_bigint(rng, dev) -> None:
+    """The bigint phase's checks: every op of ``ntt_tpu_torch.bigint`` and
+    ``limbs.eq`` on the card at W = 2 and 8 on BIGINT_CHECK_COLS columns
+    against Python ints (sentinels included)."""
+    t0 = time.time()
+    for W in (2, 8):
+        calls = bigint_check_width(W, BIGINT_CHECK_COLS, rng, dev)
+        print(f"bigint W={W}: {calls} calls on {BIGINT_CHECK_COLS} columns "
+              f"equal to Python ints ({time.time() - t0:.1f} s)", flush=True)
+
+
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "base_ntt_mxu": ("ntt_tpu_torch/csrc/mxu_level.cu",
@@ -2296,12 +2815,16 @@ def main() -> int:
         check_exchange(rng, dev, {})
         print(f"quick: kernel checks passed in {time.time() - t_start:.1f} s")
         return 0
-
-    # the golden results above 2^24 take minutes on the host: first
+    # the bigint timings read the host's cost to issue a launch: before the
+    # golden results above 2^24, which take minutes on host threads and
+    # then run under the bigint checks and the kernel checks
+    time_bigint(rng, dev)
     from concurrent.futures import ThreadPoolExecutor
     pool = ThreadPoolExecutor(max_workers=5)
     huge_x = huge_inputs(rng)
     huge_want = start_huge_goldens(pool, huge_x)
+    check_bigint(rng, dev)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
 
     t0 = time.time()
     run, aux = get_runner(BLS12_381_FR, 1 << 18, device=dev)

@@ -6,13 +6,16 @@ every algorithm name of ``ntt_tpu`` (``auto``: ``mxu_chunked`` on the 256-bit
 fields, n up to 2^24, ``mxu_sub`` on the narrow ones), word-equal to
 ``ntt_tpu``. Its digit-matmul and butterfly-stage kernels are hand-written
 CUDA C++ for sm_90a (``ntt_tpu_torch/csrc``); on the CPU (``device="cpu"``)
-the same functions run as plain PyTorch. This package imports neither JAX
-nor ``ntt_tpu``.
+the same functions run as plain PyTorch. ``ntt_tpu_torch.bigint`` is the
+general fixed-width big-integer layer (CGBN's breadth: division, square
+root, gcd, inverses, Barrett, modular power, bit ops), plain PyTorch on
+either device. This package imports neither JAX nor ``ntt_tpu``.
 """
 
 from .api import (coset_intt, coset_ntt, intt, lde, ntt, polymul, ramp_mont)
 from .fields import (BLS12_381_FR, BN254_FR, FIELDS, GOLDILOCKS, SMALL, Field,
                      get_field)
+from . import bigint
 from .limbs import from_ints, from_mont, to_ints, to_mont
 
 __version__ = "0.1.0"

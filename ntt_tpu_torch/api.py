@@ -34,6 +34,7 @@ import torch
 
 from . import limbs
 from .fields import Field, get_field, inv_mod
+from .limbs import resolve_device
 from .transforms import core as _core
 from .transforms import fourstep as _fourstep
 from .transforms import mxu as _mxu
@@ -45,17 +46,6 @@ from .transforms.naive import ntt_naive
 #: scale) takes at once along axis 1: bounds limbs' int64 temporaries
 #: (about 0.6 KB an element at W = 8) at 2^26 and above
 PASS_CHUNK = 1 << 22
-
-
-def _device(device) -> torch.device:
-    """``None`` means the CUDA card; without one, only an explicit
-    ``device="cpu"`` runs (the plain versions)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the plain versions")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def resolve_algorithm(algorithm: str, field: Field, n: int) -> str:
@@ -205,7 +195,7 @@ def aux_from_numpy(tws, mats, device=None, first_mats=None, coset_col=None,
     vectors. Arrays may be tensors already; ``mats`` may be empty (the
     ladder transforms have none). Returns {"tws": [...], "mats": {...},
     ...} on ``device``."""
-    dev = _device(device)
+    dev = resolve_device(device)
 
     def put(a):
         if isinstance(a, torch.Tensor):
@@ -293,7 +283,7 @@ def get_runner(field: Field, n: int, inverse: bool = False,
     algorithm = resolve_algorithm(algorithm, field, n)
     fn, prepare = ALGORITHMS[algorithm]
     matfold = algorithm in _MATFOLD_ALGORITHMS and field.n_words >= 8
-    dev = _device(device)
+    dev = resolve_device(device)
     p = field.p
     tws, mats = prepare(field, n, inverse, dev)
     extra = {}
@@ -391,7 +381,7 @@ def ntt(x, field: Field | str, inverse: bool = False,
     the output is written into its storage and returned, so the caller
     keeps one buffer instead of two, and the input's contents are gone."""
     field = _as_field(field)
-    dev = _device(device)
+    dev = resolve_device(device)
     x = _as_tensor(x)
     if x.dim() >= 2:
         n = x.shape[1]
@@ -446,7 +436,7 @@ def polymul(a, b, field: Field | str, algorithm: str = "auto",
     2n-point domain (zero-padded), uint32[W, 2n]. The pipeline stays in
     Montgomery form: one conversion in, one out, one pointwise product."""
     field = _as_field(field)
-    dev = _device(device)
+    dev = resolve_device(device)
     a = _as_tensor(a).to(dev)
     b = _as_tensor(b).to(dev)
     if b.shape != a.shape:
@@ -469,7 +459,7 @@ def lde(x, field: Field | str, blowup: int = 4, shift: int | None = None,
     on a coset domain of size blowup*n (zero-padded coefficients, coset
     NTT)."""
     field = _as_field(field)
-    dev = _device(device)
+    dev = resolve_device(device)
     x = _as_tensor(x).to(dev)
     shift = field.generator if shift is None else shift
     coeffs = intt(x, field, algorithm=algorithm, device=dev)
@@ -484,6 +474,6 @@ def ramp_mont(field: Field | str, n: int, device=None) -> torch.Tensor:
     """The ramp 0..n-1 in Montgomery form, uint32[W, n] on ``device``."""
     field = _as_field(field)
     planes = torch.zeros((field.n_words, n), dtype=torch.int64,
-                         device=_device(device))
+                         device=resolve_device(device))
     planes[0] = torch.arange(n, device=planes.device)
     return limbs.to_mont(planes, field)

@@ -25,6 +25,17 @@ from .fields import HALF_BITS, HALF_MASK, Field
 _I64 = torch.int64
 
 
+def resolve_device(device) -> torch.device:
+    """The port's device rule: ``None`` means the CUDA card; without one,
+    only an explicit ``device="cpu"`` runs (the plain versions)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain versions")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
 # ---------------------------------------------------------------------------
 # Host <-> tensor conversions
 # ---------------------------------------------------------------------------
@@ -267,6 +278,13 @@ def from_mont(x, field: Field) -> torch.Tensor:
     """Montgomery -> standard form: mont_mul(x, 1)."""
     one = const_planes(1, field, ndim=x.dim() - 1, device=x.device)
     return mont_mul(x, one, field)
+
+
+def eq(x, y) -> torch.Tensor:
+    """Elementwise equality over all word planes (CGBN cgbn_equals analog,
+    cgbn.h:156-159), compared as int64: PyTorch compares no uint32 on the
+    CPU."""
+    return torch.all(x.to(_I64) == y.to(_I64), dim=0)
 
 
 def is_canonical(x, field: Field) -> torch.Tensor:

@@ -4,6 +4,8 @@ is exact equality.
 """
 
 import inspect
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -72,3 +74,14 @@ def test_top_level_names():
     assert tnt.__version__ == nt.__version__
     for name in ("to_mont", "from_mont"):
         assert name in tnt.__all__ and hasattr(tnt, name)
+    # ``bigint`` at the top, as ``ntt_tpu.bigint`` is; importing it alone
+    # loads neither JAX nor ntt_tpu
+    import ntt_tpu_torch.bigint
+    assert tnt.bigint is ntt_tpu_torch.bigint
+    code = ("import sys, ntt_tpu_torch.bigint; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ntt_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
