@@ -51,11 +51,10 @@ with, and prints no result line.
      {1, 2, 8}, 16-byte and word moves, unaligned shards.
 3. Runs every op of the big-integer layer (``ntt_tpu_torch.bigint``, the
    68 public names, and ``limbs.eq``) on the card at W = 2 and W = 8 on
-   2^16 columns of seeded operands (``tests/test_bigint.py``'s special
+   2^14 columns of seeded operands (``tests/test_bigint.py``'s special
    values in the first columns, zero divisors, moduli without inverses)
    and holds every output column against Python-int arithmetic, sentinels
-   included, with every output on the card (``modular_power`` at W = 8 on
-   2^14 columns: Python's ``pow`` is the phase's slowest part). Before
+   included, with every output on the card. Before
    that, while no host thread computes a golden result, it times each op
    at W = 8 on 2^20 columns, 2^18 for ``gcd``, ``modular_inverse`` and
    ``modular_power`` (one warm call traced by ``torch.profiler`` for its
@@ -84,10 +83,30 @@ with, and prints no result line.
      field, operand shapes, rep, direction), again at its own shape with
      the path's own tables on random input, three column spans of the
      output against the plain version on those columns;
+   - at 2^27 and 2^28 (a 128-entry deep stack and K1 [8,4,2^25] at 2^27,
+     a third deep level and K1 [8,8,2^25] at 2^28): BLS12-381 Fr 2^27
+     forward against the golden result (started on a host thread first),
+     BLS12-381 Fr and BN254 Fr 2^28 forward on random words, launch counts
+     asserted, each with its runner's build time, its time and the peak
+     allocated memory; then every distinct K1-K3 launch of the three
+     against the plain version on three column spans;
    - the narrow path: Goldilocks 2^18 and 2^24 and small-proth 2^22
      forward (launch counts asserted: 2, 3 and 2 + 1); Goldilocks 2^20
      ``intt(ntt(x)) == x``, ``intt`` and ``coset_ntt``; ``lde`` blowup 4
      from 2^18; ``polymul`` at n = 2^17;
+   - the knobs (``ntt_tpu_torch.config``): each setting of ``KNOB_RUNS``
+     (the peel sizes NTT_MXU_BASE_LOG=4, NTT_MXU_SUBBASE_LOG=8 and 10,
+     NTT_MXU_SUB256_LOG=6 and 7; NTT_TW_MATFOLD=0 with NTT_FUSE_TW 1 and
+     0; NTT_TW_RESID=1; NTT_TW_STACK_MAX_NT=32) on the runs it changes
+     (BLS12-381 Fr 2^18 to 2^22, Goldilocks and small-proth 2^20), every
+     output word against the golden result, a fresh runner under each
+     setting (``config_key()`` changes, and comes back after), the runner
+     built under the knob golden-equal again once the knobs are restored
+     (it keeps its plan), one ``knob`` line a run with its time beside the
+     default knobs' and the card; every distinct K1-K3 launch under the
+     knobs against the plain
+     version on three column spans; NTT_MXU_BASE_LOG=6 rejected by design
+     (K1-K4 take m <= 32) and NTT_DEBUG=1 firing on one corrupted word;
    - every explicit algorithm name (``naive``, ``stockham``, ``fourstep``,
      ``fourstep_st``, ``pallas``, ``pallas_fused``, ``mxu``,
      ``mxu_pallas``, ``mxu_fused`` and the cross pairs ``mxu_sub`` on a
@@ -624,7 +643,8 @@ def random_stack(f, NT, m, rng, dev):
             0, 128, size=(NT, E * m, D * m), dtype=np.int8)).to(dev)
     tvals = [[int(v) % f.p for v in rng.integers(1, 1 << 62, size=m)]
              for _ in range(NT)]
-    return torch.from_numpy(mxu.twiddle_matrix_stack(f, m, tvals)).to(dev)
+    return torch.from_numpy(
+        mxu.twiddle_matrix_stack(f, m, False, tvals)).to(dev)
 
 
 def check_small_shapes(f, rng, dev) -> int:
@@ -887,8 +907,11 @@ def kernel_device_ms(fn, key=None, iters: int = 10):
                 if e.device_type == DeviceType.CUDA and e.count
                 and e.self_device_time_total > 0]
         if key is None:
+            # per call: a trace that lost some calls' events (seen: one of
+            # ten) keeps the count of those it holds
             total = sum(e.self_device_time_total for e in rows)
-            return total / 1e3 / iters if total > 0 else None
+            calls = max((e.count for e in rows), default=0)
+            return total / 1e3 / min(calls, iters) if total > 0 else None
         for e in rows:
             if key in e.key:
                 return e.self_device_time_total / 1e3 / e.count
@@ -1088,12 +1111,49 @@ def span_args(name, args, a, L) -> dict:
     return out
 
 
-def check_path_launches(seen, dev, cols: int = 1 << 21) -> None:
-    """Each launch recorded on the paths above 2^24 (:func:`recording`),
-    again at its own shape with the path's own tables, on random input:
-    three spans of output columns (``cols`` / m each) against the plain
-    version on those columns, which over the whole width would need tens
-    of GB of digit planes. Off the main path: not counted, not timed."""
+#: the largest digit operand (bytes) on which a launch's library call,
+#: ``torch._int_mm``, is timed (it faults at 2^25 columns)
+LIB_DIGIT_BYTES = 1 << 30
+
+
+def launch_cost(name, f, shape, args) -> tuple:
+    """(bytes, int8 MACs, 32-bit multiply-adds) of one K1-K3 launch of
+    :func:`path_kernels` with its recorded arguments: the data read and
+    written once, its matrices (a stack's every entry) and twiddle table
+    read once; the digit matmuls' MACs (the multi-level K3's two levels)
+    and a Montgomery product an element for the twiddle (the multi-level
+    K3's inner one too)."""
+    W, m, B = shape
+    nbytes = 2 * W * m * B * 4
+    T3 = args.get("T3")
+    mads = 0 if T3 is None else mont_mul_mads(f) * m * B
+    if T3 is not None:
+        nbytes += T3.numel() * 4
+    if name == "fused_level_stack":
+        As = args["As"]
+        return nbytes + As.numel(), conv_macs(f, As[0], B), mads
+    mats = args.get("mats") or {m: args["A"]}
+    if m <= 32:
+        A = mats[m]
+        return nbytes + A.numel(), conv_macs(f, A, B), mads
+    A1, A2 = mats[32], mats[m // 32]
+    return (nbytes + A1.numel() + A2.numel(),
+            conv_macs(f, A1, B * (m // 32)) + conv_macs(f, A2, B * 32),
+            mads + mont_mul_mads(f) * m * B)
+
+
+def check_path_launches(seen, dev, cols: int = 1 << 21,
+                        timed: bool = False) -> None:
+    """Each launch recorded on a path (:func:`recording`), again at its
+    own shape with the path's own tables, on random input: three spans of
+    output columns (``cols`` / m each) against the plain version on those
+    columns, which over the whole width would need tens of GB of digit
+    planes; then, when ``timed``, the launch timed (median of 3 by events)
+    beside its bound (:func:`launch_cost`) and, for a single-level launch
+    whose digit operand is at most ``LIB_DIGIT_BYTES``, ``torch._int_mm``
+    on it (a stack level: one entry over all columns). Off the main path:
+    not counted in the ``kernels`` line."""
+    from ntt_tpu_torch import digits
     kernels = path_kernels()
     for name, shape, args in seen.values():
         kern, plain = kernels[name]
@@ -1113,14 +1173,32 @@ def check_path_launches(seen, dev, cols: int = 1 << 21) -> None:
                 raise AssertionError(f"{name} {f.name} [{W},{m},{B}], "
                                      f"columns {a}..{a + L - 1}: kernel != "
                                      "plain")
+        del y
         T3 = args.get("T3")
-        print(f"check {name:18s} path launch {f.name} [{W},{m},{B}]"
-              + ("" if "rep" not in args else f" rep {args['rep']}")
-              + ("" if T3 is None else f" T3 {list(T3.shape)}")
-              + (" inverse" if args.get("inverse") else "")
-              + f"  word-equal on {len(spans)} spans of {L} columns",
+        line = (f"check {name:18s} path launch {f.name} [{W},{m},{B}]"
+                + ("" if "rep" not in args else f" rep {args['rep']}")
+                + ("" if T3 is None else f" T3 {list(T3.shape)}")
+                + (" inverse" if args.get("inverse") else "")
+                + f"  word-equal on {len(spans)} spans of {L} columns")
+        if not timed:
+            print(line, flush=True)
+            del x, args
+            torch.cuda.empty_cache()
+            continue
+        ms = time_ms(lambda: kern(x, **args), iters=3, warmup=1)
+        b_ms, b_by = bound(*launch_cost(name, f, shape, args))
+        D = digits.n_digits(f)
+        lib = ""
+        if m <= 32 and D * m * B <= LIB_DIGIT_BYTES:
+            A = (args["As"][0] if name == "fused_level_stack" else
+                 (args.get("mats") or {m: args.get("A")})[m])
+            d = digits.extract_digits(x, f).reshape(D * m, B)
+            lib_ms = time_ms(int_mm(A, d), iters=3, warmup=1)
+            lib = f", _int_mm {lib_ms:.4f} ms"
+            del d
+        print(f"{line}  {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}{lib})",
               flush=True)
-        del x, y, args
+        del x, args
         torch.cuda.empty_cache()
 
 
@@ -1498,8 +1576,8 @@ LDE_COUNTS = {"fused_level_stack": 4, "fused_subntt": 4, "base_ntt_mxu": 2}
 def huge_inputs(rng) -> dict:
     """Random inputs of the checks above 2^24 (standard form, word planes),
     drawn as 32-bit words with the top word below p's: BLS12-381 Fr at
-    2^25 and 2^26 (keys 25, 26), BN254 Fr at 2^25 ("bn254") and the
-    BLS12-381 Fr ``lde`` input at 2^23 ("lde")."""
+    2^25, 2^26 and 2^27 (keys 25, 26, 27), BN254 Fr at 2^25 ("bn254") and
+    the BLS12-381 Fr ``lde`` input at 2^23 ("lde")."""
     from ntt_tpu_torch import BLS12_381_FR, BN254_FR
 
     def draw(f, log_n):
@@ -1509,19 +1587,23 @@ def huge_inputs(rng) -> dict:
     out = {log_n: draw(BLS12_381_FR, log_n) for log_n in HUGE_COUNTS}
     out["bn254"] = draw(BN254_FR, 25)
     out["lde"] = draw(BLS12_381_FR, 23)
+    out[GIANT_GOLDEN] = draw(BLS12_381_FR, GIANT_GOLDEN)
     return out
 
 
 def start_huge_goldens(pool, xs) -> dict:
     """The golden results of the checks above 2^24, computed on host
-    threads while the card works: the BLS12-381 Fr forward at both sizes,
+    threads while the card works: the BLS12-381 Fr forward at 2^27 (the
+    longest, first), 2^25 and 2^26,
     ``coset_ntt`` at 2^26 (the 2^26 ``intt`` is checked against the
     forward's input), BN254 Fr 2^25 and the ``lde`` 2^23 -> 2^25."""
     from ntt_tpu_torch import BLS12_381_FR as f
     from ntt_tpu_torch import BN254_FR
     big = max(HUGE_COUNTS)
-    want = {str(log_n): pool.submit(golden_ntt, f, xs[log_n])
-            for log_n in HUGE_COUNTS}
+    # the longest first: the 2^27 forward
+    want = {str(GIANT_GOLDEN): pool.submit(golden_ntt, f, xs[GIANT_GOLDEN])}
+    want.update({str(log_n): pool.submit(golden_ntt, f, xs[log_n])
+                 for log_n in HUGE_COUNTS})
     want["coset"] = pool.submit(golden_coset_ntt, f, xs[big], f.generator)
     want["bn254"] = pool.submit(golden_ntt, BN254_FR, xs["bn254"])
     want["lde"] = pool.submit(golden_lde, f, xs["lde"], 4)
@@ -1562,6 +1644,32 @@ def huge_sub_and_lde(dev, path_ms, xs, want, seen) -> None:
     torch.cuda.empty_cache()
 
 
+def big_runner(f, n, tag, dev, **kw):
+    """``get_runner`` above 2^24 with its build time, its tables' shapes
+    and the largest table's entries printed (fewer than n: no table of
+    the data's size)."""
+    from ntt_tpu_torch.api import get_runner
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r, a = get_runner(f, n, device=dev, **kw)
+    torch.cuda.synchronize()
+    tables = [t for t in table_tensors(a) if t.dtype == torch.uint32]
+    biggest = max(t.numel() for t in tables) // f.n_words
+    if biggest >= n:
+        raise AssertionError(f"{tag}: a table of {biggest} entries")
+    print(f"tables {tag}: built and resident in "
+          f"{time.perf_counter() - t0:.2f} s; twiddle tables "
+          f"{[tuple(t.shape) for t in tables]}, the largest {biggest} "
+          "entries", flush=True)
+    return r, a
+
+
+def memory_line(tag, x) -> None:
+    print(f"memory {tag}: peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, the data "
+          f"{x.numel() * 4 / 2**30:.2f} GiB", flush=True)
+
+
 def huge_paths(dev, path_ms, xs, want, seen) -> None:
     """The 256-bit ``auto`` path above 2^24 on one card: BLS12-381 Fr forward
     at 2^25 and 2^26, ``coset_ntt`` at 2^26 (the coset folded into the same
@@ -1572,7 +1680,7 @@ def huge_paths(dev, path_ms, xs, want, seen) -> None:
     build time, its tables' shapes and the peak of allocated memory."""
     from ntt_tpu_torch import BLS12_381_FR as f
     from ntt_tpu_torch import limbs
-    from ntt_tpu_torch.api import _chunked_pass, get_runner
+    from ntt_tpu_torch.api import _chunked_pass
 
     def to_mont(x):
         return _chunked_pass(lambda a: limbs.to_mont(a, f),
@@ -1582,24 +1690,7 @@ def huge_paths(dev, path_ms, xs, want, seen) -> None:
         return _chunked_pass(lambda a: limbs.from_mont(a, f), y).cpu()
 
     def runner(n, tag, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r, a = get_runner(f, n, device=dev, **kw)
-        torch.cuda.synchronize()
-        tables = [t for t in table_tensors(a) if t.dtype == torch.uint32]
-        biggest = max(t.numel() for t in tables) // f.n_words
-        if biggest >= n:
-            raise AssertionError(f"{tag}: a table of {biggest} entries")
-        print(f"tables {tag}: built and resident in "
-              f"{time.perf_counter() - t0:.2f} s; twiddle tables "
-              f"{[tuple(t.shape) for t in tables]}, the largest {biggest} "
-              "entries", flush=True)
-        return r, a
-
-    def memory(tag, x):
-        print(f"memory {tag}: peak allocated "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, the data "
-              f"{x.numel() * 4 / 2**30:.2f} GiB", flush=True)
+        return big_runner(f, n, tag, dev, **kw)
 
     for log_n in HUGE_COUNTS:
         n, tag = 1 << log_n, f"{f.name} 2^{log_n} random"
@@ -1613,7 +1704,7 @@ def huge_paths(dev, path_ms, xs, want, seen) -> None:
         ms = path_ms[tag] = time_ms(lambda: r(xm, a), iters=3, warmup=1)
         print(f"path {tag}  golden-equal  {ms:.4f} ms/transform (tables "
               "resident)", flush=True)
-        memory(f"{f.name} 2^{log_n} forward", xm)
+        memory_line(f"{f.name} 2^{log_n} forward", xm)
         if log_n < max(HUGE_COUNTS):
             del xm, y, r, a
     breakdown(f, n, None, dev, xm=xm)
@@ -1627,7 +1718,7 @@ def huge_paths(dev, path_ms, xs, want, seen) -> None:
     ms = path_ms[tag] = time_ms(lambda: rc(xm, ac), iters=3, warmup=1)
     print(f"path {tag}  golden-equal  {ms:.4f} ms/transform (Montgomery "
           "I/O, tables resident)", flush=True)
-    memory(tag, xm)
+    memory_line(tag, xm)
     del yc, rc, ac
     tag = f"{f.name} 2^{big} intt"
     torch.cuda.reset_peak_memory_stats()
@@ -1640,8 +1731,79 @@ def huge_paths(dev, path_ms, xs, want, seen) -> None:
     print(f"path {tag}  golden-equal (intt(ntt(x)) == x, word for word)  "
           f"{ms:.4f} ms/transform (Montgomery I/O, tables resident)",
           flush=True)
-    memory(tag, xm)
+    memory_line(tag, xm)
     del back, y, xm, r, a, ri, ai
+    torch.cuda.empty_cache()
+
+
+#: launches of one forward transform at 2^27 and 2^28 (the plan of
+#: ``mxu.matfold_plan``): level 0 the stack with its periodic residual
+#: (K2), deep tables (K3: two at 2^27, three at 2^28, where 2^26 has a
+#: stack), stacks (K2: 128 and 4 entries at 2^27, 8 at 2^28), the last
+#: base over 2^25 columns (K1 at m = 4, m = 8)
+GIANT_COUNTS = {
+    27: {"fused_level_stack": 3, "fused_subntt": 2, "base_ntt_mxu": 1},
+    28: {"fused_level_stack": 2, "fused_subntt": 3, "base_ntt_mxu": 1},
+}
+#: the size whose forward is held against the hostlib golden result (2^28
+#: is held by its launches)
+GIANT_GOLDEN = 27
+
+
+def random_mont_on_card(f, n, dev) -> torch.Tensor:
+    """Canonical random words uint32[W, n] drawn on the card a word plane
+    at a time (at 2^28 one int64 draw of all planes would take 16 GiB),
+    used as Montgomery-form input."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.empty((f.n_words, n), dtype=torch.uint32, device=dev)
+    for w in range(f.n_words):
+        hi = (1 << 32) if w < f.n_words - 1 else f.p >> (32 * w)
+        x[w] = torch.randint(0, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.uint32)
+    return x
+
+
+def giant_paths(dev, path_ms, xs, want, seen) -> None:
+    """The 256-bit ``auto`` path at 2^27 and 2^28, where the plan has
+    shapes no smaller size has (a 128-entry deep stack and K1 [8, 4, 2^25]
+    at 2^27; a third deep level (8192, 32, 256) and K1 [8, 8, 2^25] at
+    2^28): BLS12-381 Fr 2^27 forward against the hostlib golden result
+    (computed on a host thread since the start of the run), BLS12-381 Fr
+    and BN254 Fr 2^28 forward on random words; launch counts asserted,
+    each launch recorded into ``seen`` for :func:`check_path_launches`,
+    each transform timed (median of 3, tables resident) with its runner's
+    build time and the peak of allocated memory."""
+    from ntt_tpu_torch import BLS12_381_FR, BN254_FR, limbs
+    from ntt_tpu_torch.api import _chunked_pass
+
+    for f, log_n in ((BLS12_381_FR, 27), (BLS12_381_FR, 28), (BN254_FR, 28)):
+        n, tag = 1 << log_n, f"{f.name} 2^{log_n} random"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r, a = big_runner(f, n, f"{f.name} 2^{log_n} forward", dev)
+        if log_n == GIANT_GOLDEN:
+            xm = _chunked_pass(lambda c: limbs.to_mont(c, f),
+                               torch.from_numpy(xs[log_n]).to(dev))
+        else:
+            xm = random_mont_on_card(f, n, dev)
+        y, c = counted(lambda: r(xm, a), seen)
+        expect_counts(f"{f.name} 2^{log_n} forward", c, GIANT_COUNTS[log_n])
+        if tuple(y.shape) != (f.n_words, n):
+            raise AssertionError(f"{tag}: output shape {tuple(y.shape)}")
+        if log_n == GIANT_GOLDEN:
+            same_words(tag, _chunked_pass(
+                lambda c: limbs.from_mont(c, f), y).cpu(),
+                want[str(log_n)].result())
+            verdict = "golden-equal"
+        else:
+            verdict = "launches held below"
+        del y
+        ms = path_ms[tag] = time_ms(lambda: r(xm, a), iters=3, warmup=1)
+        print(f"path {tag}  {verdict}  {ms:.4f} ms/transform (tables "
+              "resident)", flush=True)
+        memory_line(f"{f.name} 2^{log_n} forward", xm)
+        del xm, r, a
     torch.cuda.empty_cache()
 
 
@@ -1729,6 +1891,164 @@ def narrow_paths(rng, dev, path_ms) -> dict:
     print(f"path goldilocks polymul n = 2^17 (full product)  golden-equal  "
           f"{ms:.4f} ms (standard-form I/O)", flush=True)
     return gold_counts
+
+
+#: the knob settings of the knobs phase: (label, constants, the runs it
+#: changes as (field, log2 n, algorithm)). The constants are set on the
+#: module that consumes them, as a test does
+KNOB_RUNS = [
+    ("NTT_MXU_BASE_LOG=4", {"mxu.BASE_LOG": 4, "mxu.BASE": 16},
+     [("bls12-381-fr", 18, "auto"), ("bls12-381-fr", 20, "auto")]),
+    ("NTT_MXU_SUBBASE_LOG=8", {"mxu.SUBBASE_LOG": 8, "mxu.SUBBASE": 256},
+     [("goldilocks", 20, "auto")]),
+    ("NTT_MXU_SUBBASE_LOG=10", {"mxu.SUBBASE_LOG": 10, "mxu.SUBBASE": 1024},
+     [("goldilocks", 20, "auto"), ("small-proth", 20, "auto")]),
+    ("NTT_MXU_SUB256_LOG=6", {"mxu.SUB256_LOG": 6},
+     [("bls12-381-fr", 18, "mxu_sub")]),
+    ("NTT_MXU_SUB256_LOG=7", {"mxu.SUB256_LOG": 7},
+     [("bls12-381-fr", 18, "mxu_sub")]),
+    ("NTT_TW_MATFOLD=0", {"mxu.TW_MATFOLD": False},
+     [("bls12-381-fr", 18, "auto"), ("bls12-381-fr", 22, "auto")]),
+    ("NTT_TW_MATFOLD=0 NTT_FUSE_TW=0",
+     {"mxu.TW_MATFOLD": False, "mxu.FUSE_TW": False},
+     [("bls12-381-fr", 18, "auto"), ("bls12-381-fr", 22, "auto")]),
+    ("NTT_TW_RESID=1", {"mxu.TW_RESID": "1"}, [("bls12-381-fr", 20, "auto")]),
+    ("NTT_TW_STACK_MAX_NT=32", {"mxu.TW_STACK_MAX_NT": 32},
+     [("bls12-381-fr", 22, "auto")]),
+]
+
+
+@contextlib.contextmanager
+def knobs_set(settings: dict):
+    """The knob constants (``"mxu.NAME"``) and environment variables
+    (``"env.NAME"``) of ``settings`` set for the block, then restored."""
+    import os
+
+    from ntt_tpu_torch.transforms import mxu
+    mods = {"mxu": mxu}
+    saved = []
+    for key, v in settings.items():
+        where, name = key.split(".")
+        if where == "env":
+            saved.append((where, name, os.environ.get(name)))
+            os.environ[name] = str(v)
+        else:
+            saved.append((where, name, getattr(mods[where], name)))
+            setattr(mods[where], name, v)
+    try:
+        yield
+    finally:
+        for where, name, v in reversed(saved):
+            if where != "env":
+                setattr(mods[where], name, v)
+            elif v is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = v
+
+
+def knob_paths(rng, dev, path_ms, card) -> None:
+    """Every knob setting of ``KNOB_RUNS`` on the card: each run it changes
+    at its full width (random input, Montgomery I/O), every output word
+    against the hostlib golden result, its launches counted and each
+    distinct K1-K3 launch recorded and then held against its plain version
+    and timed (:func:`check_path_launches`); each run timed (median of 10,
+    5 at 2^22; tables resident) right after the same run at the default
+    knobs, on one line with the card. ``api.ntt``'s runner cache must
+    build a fresh runner under the knob (``config.config_key()`` changes)
+    and the key must come back after it; the runner built under the knob,
+    run again after, must give the golden words again (a runner keeps the
+    plan it was built under). Then the by-design rejection of
+    NTT_MXU_BASE_LOG=6 (K1-K4 take m <= 32) and the NTT_DEBUG tripwire on
+    one corrupted word."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ntt_tpu_torch import get_field, limbs
+    from ntt_tpu_torch import api
+    from ntt_tpu_torch.config import config_key
+
+    runs = sorted({r for _, _, rs in KNOB_RUNS for r in rs})
+    inputs = {}
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for name, log_n, _ in runs:
+            if (name, log_n) not in inputs:
+                f = get_field(name)
+                xs = random_words(f, (1 << log_n,), rng)
+                inputs[(name, log_n)] = (xs, pool.submit(golden_ntt, f, xs))
+        inputs = {k: (xs, w.result()) for k, (xs, w) in inputs.items()}
+    def iters(log_n, alg):
+        return 5 if log_n >= 22 else 10
+
+    default_key = config_key()
+    default = {}
+    for name, log_n, alg in runs:
+        f = get_field(name)
+        default[(name, log_n, alg)] = api.get_runner(
+            f, 1 << log_n, algorithm=alg, device=dev)
+    seen = {}
+    for label, settings, rs in KNOB_RUNS:
+        for name, log_n, alg in rs:
+            f = get_field(name)
+            tag = f"{name} 2^{log_n} {alg}"
+            xs, want = inputs[(name, log_n)]
+            xm = limbs.to_mont(torch.from_numpy(xs).to(dev), f)
+            # the default runner timed just before, at the default knobs
+            rd, ad = default[(name, log_n, alg)]
+            ms_d = time_ms(lambda: rd(xm, ad), iters=iters(log_n, alg))
+            with knobs_set(settings):
+                if config_key() == default_key:
+                    raise AssertionError(f"{label}: config_key() unchanged")
+                cached = len(api._runner_cache)
+                y, c = counted(lambda: api.ntt(xm, f, algorithm=alg,
+                                               mont_io=True, device=dev),
+                               seen)
+                if len(api._runner_cache) != cached + 1:
+                    raise AssertionError(f"{label} {tag}: no fresh runner")
+                same_words(f"{label} {tag}", limbs.from_mont(y, f), want)
+                r, a = list(api._runner_cache.values())[-1]
+                ms = path_ms[f"knob {label} {tag}"] = time_ms(
+                    lambda: r(xm, a), iters=iters(log_n, alg))
+            if config_key() != default_key:
+                raise AssertionError(f"{label}: the knobs were not restored")
+            same_words(f"{label} {tag} (its runner, knobs restored)",
+                       limbs.from_mont(r(xm, a), f), want)
+            print(f"knob {label}  {tag}  golden-equal  {ms:.4f} "
+                  f"ms/transform, default knobs {ms_d:.4f} ms  launches "
+                  f"{c}  ({card})", flush=True)
+            del y, r, a, xm
+    del default
+    api._runner_cache.clear()
+    torch.cuda.empty_cache()
+    check_path_launches(seen, dev, timed=True)
+
+    f = get_field("bls12-381-fr")
+    with knobs_set({"mxu.BASE_LOG": 6, "mxu.BASE": 64}):
+        try:
+            api.get_runner(f, 1 << 18, device=dev)
+        except ValueError as e:
+            print(f"knob NTT_MXU_BASE_LOG=6  bls12-381-fr 2^18 auto  "
+                  f"rejected as designed: {e}", flush=True)
+        else:
+            raise AssertionError("NTT_MXU_BASE_LOG=6 ran a kernel at m = 64")
+    xs = inputs[min(k for k in inputs if k[0] == f.name)][0]
+    bad = xs.copy()
+    bad[f.n_words - 1, 1234] = 0xFFFFFFFF            # one element >= p
+    xd, bad = torch.from_numpy(xs).to(dev), torch.from_numpy(bad).to(dev)
+    with knobs_set({"env.NTT_DEBUG": "1"}):
+        api.ntt(xd, f, device=dev)                  # canonical: passes
+        try:
+            api.ntt(bad, f, device=dev)
+        except ValueError as e:
+            if "1 non-canonical" not in str(e):
+                raise
+            log_n = xs.shape[1].bit_length() - 1
+            print(f"knob NTT_DEBUG=1  {f.name} 2^{log_n} on the card: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("NTT_DEBUG=1 let a non-canonical word by")
+    del xd, bad
+    api._runner_cache.clear()
+    torch.cuda.empty_cache()
 
 
 #: launches of one forward transform under each explicit algorithm name:
@@ -2201,7 +2521,8 @@ def breakdown(f, n, rng, dev, algorithm="auto", xm=None) -> None:
 # ---------------------------------------------------------------------------
 
 #: columns every op is held on against Python ints, at W = 2 and W = 8
-BIGINT_CHECK_COLS = 1 << 16
+#: (2^16 before: cut to keep the script near half its time limit)
+BIGINT_CHECK_COLS = 1 << 14
 #: columns each op is timed on at W = 8 (one BLS12-381 Fr vector of 2^20),
 #: and the ops timed on fewer
 BIGINT_TIMED_COLS = 1 << 20
@@ -2605,21 +2926,28 @@ def device_launches(fn, dev) -> tuple:
     edges, so 256 float multiplies before the call and 256 float adds
     after it (the ops here run no float kernel) pad the window and are
     left out of the count; the call is whole where some of both show. A
-    trace that shows no device kernel at all fails."""
+    trace with no device kernel at all, not even the 512 pads, is a tracer
+    that recorded nothing: the call is traced again, up to three times in
+    all, and fails if no trace shows a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     pad = torch.ones(1, device=dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(256):
-            pad.mul_(1.0)
-        fn()
-        for _ in range(256):
-            pad.add_(0.0)
-        torch.cuda.synchronize()
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA
-             and not e.name().startswith(("Memcpy", "Memset"))]
-    if not names:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(256):
+                pad.mul_(1.0)
+            fn()
+            for _ in range(256):
+                pad.add_(0.0)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA
+                 and not e.name().startswith(("Memcpy", "Memset"))]
+        if names:
+            break
+        print("device_launches: the trace holds no device kernel, not "
+              "even the pads; tracing the call again", flush=True)
+    else:
         raise AssertionError("torch.profiler traced no device kernel")
     lead = sum("MulFunctor<float>" in n for n in names)
     trail = sum("float" in n for n in names) - lead
@@ -2820,7 +3148,7 @@ def main() -> int:
     # then run under the bigint checks and the kernel checks
     time_bigint(rng, dev)
     from concurrent.futures import ThreadPoolExecutor
-    pool = ThreadPoolExecutor(max_workers=5)
+    pool = ThreadPoolExecutor(max_workers=6)
     huge_x = huge_inputs(rng)
     huge_want = start_huge_goldens(pool, huge_x)
     check_bigint(rng, dev)
@@ -2850,12 +3178,18 @@ def main() -> int:
     seen = {}
     huge_paths(dev, path_ms, huge_x, huge_want, seen)
     huge_sub_and_lde(dev, path_ms, huge_x, huge_want, seen)
+    check_path_launches(seen, dev)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    seen = {}
+    giant_paths(dev, path_ms, huge_x, huge_want, seen)
     pool.shutdown()
     del huge_x, huge_want
-    check_path_launches(seen, dev)
+    check_path_launches(seen, dev, timed=True)
     del seen
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(narrow_paths(rng, dev, path_ms))
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    knob_paths(rng, dev, path_ms, card)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(ladder_paths(rng, dev, path_ms))
     counts.update(probe_path(rng, dev))

@@ -3,10 +3,11 @@
 Forward, inverse and coset NTT, low-degree extension and polynomial product
 over BN254 Fr, BLS12-381 Fr, Goldilocks and the small Proth prime, under
 every algorithm name of ``ntt_tpu`` (``auto``: ``mxu_chunked`` on the 256-bit
-fields, n up to 2^24, ``mxu_sub`` on the narrow ones), word-equal to
-``ntt_tpu``. Its digit-matmul and butterfly-stage kernels are hand-written
-CUDA C++ for sm_90a (``ntt_tpu_torch/csrc``); on the CPU (``device="cpu"``)
-the same functions run as plain PyTorch. ``ntt_tpu_torch.bigint`` is the
+fields, ``mxu_sub`` on the narrow ones; n up to 2^two_adicity of the field),
+word-equal to ``ntt_tpu``, under the same knobs (``ntt_tpu_torch.config``).
+Its digit-matmul and butterfly-stage kernels are hand-written CUDA C++ for
+sm_90a (``ntt_tpu_torch/csrc``); on the CPU (``device="cpu"``) the same
+functions run as plain PyTorch. ``ntt_tpu_torch.bigint`` is the
 general fixed-width big-integer layer (CGBN's breadth: division, square
 root, gcd, inverses, Barrett, modular power, bit ops), plain PyTorch on
 either device. This package imports neither JAX nor ``ntt_tpu``.

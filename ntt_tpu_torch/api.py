@@ -25,6 +25,11 @@ to 2^24 and with the periodic residual (``TwStackResid``) above, so that no
 table has n entries. Tables of more than ``core.HOST_TW_LIMIT`` entries are
 generated on the runner's device. ``mxu_fused`` and ``pallas_fused`` take
 unbatched input only.
+
+The JAX package's knobs are read from the environment under the same names
+and defaults (``ntt_tpu_torch.config``); a runner is cached under
+``config.config_key()``, so a knob flip builds a fresh one. A knob changes
+the plan and the launches, never the output words.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ import numpy as np
 import torch
 
 from . import limbs
+from .config import config_key
 from .fields import Field, get_field, inv_mod
+from .kernels import mxu_level
 from .limbs import resolve_device
 from .transforms import core as _core
 from .transforms import fourstep as _fourstep
@@ -92,7 +99,7 @@ def _prep_mxu(field: Field, n: int, inverse: bool = False, device=None):
 
 def _prep_mxu_fused(field: Field, n: int, inverse: bool = False,
                     device=None):
-    return (_mxu.expanded_twiddles(field, n, inverse),
+    return (_mxu.expanded_twiddles(field, n, inverse, base=_mxu.BASE),
             _mxu.base_mats(field, n, inverse))
 
 
@@ -102,11 +109,19 @@ def _prep_pallas_fused(field: Field, n: int, inverse: bool = False,
                                   base=_fourstep.fused_m(field)), {}
 
 
+def _matfold_on(field: Field, n: int, base_max: int) -> bool:
+    """Whether the matrix fold applies: NTT_TW_MATFOLD on, a 256-bit field,
+    the peel-BASE single-level transforms, and some level folds
+    (``mxu.matfold_plan``)."""
+    return (_mxu.TW_MATFOLD and field.n_words >= 8 and base_max == _mxu.BASE
+            and _mxu.matfold_plan(field, n) is not None)
+
+
 def _matfold_tws(field: Field, n: int, inverse: bool, base_max: int,
                  coset_shift=None, device=None):
-    """The matrix-fold table list where it applies: the peel-BASE
-    single-level transforms on a 256-bit field. None otherwise."""
-    if field.n_words < 8 or base_max != _mxu.BASE:
+    """The matrix-fold table list where it applies (:func:`_matfold_on`),
+    else None."""
+    if not _matfold_on(field, n, base_max):
         return None
     return _mxu.matfold_tw_tables(field, n, inverse, coset_shift=coset_shift,
                                   device=device)
@@ -118,16 +133,18 @@ def _prep_mxu_chunked(field: Field, n: int, inverse: bool = False,
     ``device``, the tables above HOST_TW_LIMIT entries generated there."""
     tws = _matfold_tws(field, n, inverse, _mxu.BASE, device=device)
     if tws is None:
+        # deep levels in the level kernels' layout; NTT_FUSE_TW=0 runs
+        # generic levels, which take the plain tables
         tws = _tw_tables(field, n, inverse,
-                         _fourstep.twiddle_requests(n, _mxu.BASE), deep=True,
-                         device=device)
+                         _fourstep.twiddle_requests(n, _mxu.BASE),
+                         deep=_mxu.FUSE_TW, device=device)
     return tws, _mxu.base_mats(field, n, inverse)
 
 
 def _prep_mxu_sub(field: Field, n: int, inverse: bool = False, device=None):
     """(tws, mats) as :func:`_prep_mxu_chunked`: plain tables for the
-    narrow fields, the matrix fold for the 256-bit ones, whose peel is the
-    single-level BASE."""
+    narrow fields, the matrix fold for the 256-bit ones when their peel is
+    the single-level BASE."""
     sub = _mxu.effective_subbase(field)
     tws = _matfold_tws(field, n, inverse, sub, device=device)
     if tws is None:
@@ -144,13 +161,14 @@ def _fourstep_run(fn):
 
 def _mxu_run(fn):
     return lambda x, field, inverse, aux: fn(
-        x, field, iter(aux["tws"]), aux["mats"])
+        x, field, iter(aux["tws"]), aux["mats"], **aux.get("plan", {}))
 
 
 def _level_run(fn):
     return lambda x, field, inverse, aux: fn(
-        x, field, iter(aux["tws"]), aux["mats"], inverse=inverse,
-        pre_col=aux.get("coset_col"), first_mats=aux.get("first_mats"))
+        x, field, inverse, iter(aux["tws"]), aux["mats"],
+        pre_col=aux.get("coset_col"), first_mats=aux.get("first_mats"),
+        **aux.get("plan", {}))
 
 
 #: algorithm -> (fn(x, field, inverse, aux), prepare(field, n, inverse,
@@ -247,6 +265,20 @@ def _first_level(algorithm: str, field: Field, n: int):
     return n1, n2, len(_fourstep.twiddle_requests(n1, base_max))
 
 
+def _plan(algorithm: str, field: Field) -> dict:
+    """The knobs a digit-matmul driver reads when it runs, as keyword
+    arguments: its peel and, for ``mxu_chunked``, whether the twiddle rides
+    the level kernels. ``get_runner`` reads them when it builds the tables
+    and keeps them in ``aux``, so a knob flip afterwards changes neither."""
+    if algorithm in ("mxu", "mxu_pallas", "mxu_fused"):
+        return {"base_max": _mxu.BASE}
+    if algorithm == "mxu_chunked":
+        return {"base_max": _mxu.BASE, "fuse": _mxu.FUSE_TW}
+    if algorithm == "mxu_sub":
+        return {"base_max": _mxu.effective_subbase(field)}
+    return {}
+
+
 def _row_powers(field: Field, base: int, count: int, dev):
     """base^0 .. base^{count-1} (Montgomery uint32[W, count]) on ``dev``:
     from the host up to HOST_TW_LIMIT entries, generated there above."""
@@ -282,6 +314,7 @@ def get_runner(field: Field, n: int, inverse: bool = False,
     field.root_of_unity(n)          # asserts n <= 2^two_adicity
     algorithm = resolve_algorithm(algorithm, field, n)
     fn, prepare = ALGORITHMS[algorithm]
+    _check_knobs(field, n, algorithm)
     matfold = algorithm in _MATFOLD_ALGORITHMS and field.n_words >= 8
     dev = resolve_device(device)
     p = field.p
@@ -317,6 +350,7 @@ def get_runner(field: Field, n: int, inverse: bool = False,
         else:
             extra["coset"] = _row_powers(field, shift, n, dev)
     aux = aux_from_numpy(tws, mats, device=dev, **extra)
+    aux["plan"] = _plan(algorithm, field)
     del tws
     ninv = field.to_mont_int(inv_mod(n, p))
 
@@ -325,11 +359,13 @@ def get_runner(field: Field, n: int, inverse: bool = False,
         cs = aux.get("coset")
         if cs is not None:
             cs = cs.reshape(tuple(cs.shape) + tail)
+        c = limbs.debug_check(c, field, "ntt input")
         if not mont_io:
             c = _chunked_pass(lambda a: limbs.to_mont(a, field), c)
         if coset_shift is not None and not inverse and not fused_coset:
             c = _chunked_pass(lambda a, v: limbs.mont_mul(a, v, field), c, cs)
-        y = fn(c, field, inverse, aux)
+        y = limbs.debug_check(fn(c, field, inverse, aux), field,
+                              "transform output")
         if inverse:
             scale = limbs.const_planes(ninv, field, ndim=y.dim() - 1,
                                        device=y.device)
@@ -352,6 +388,33 @@ def get_runner(field: Field, n: int, inverse: bool = False,
         return torch.stack(ys, dim=2).reshape(x.shape)
 
     return run, aux
+
+
+def _check_knobs(field: Field, n: int, algorithm: str) -> None:
+    """ValueError for the knob settings the port does not run:
+
+    - NTT_FUSE_TW=0 with the matrix fold on: the folded tables ride the
+      fused level kernels (the JAX package fails at trace time here; set
+      NTT_TW_MATFOLD=0 too);
+    - an NTT_MXU_BASE_LOG above 5 where a single-level kernel (K1-K4)
+      would take m = BASE > 32 points: they contract one conv matrix of at
+      most 32 points (``kernels/mxu_level.tc_plan``)."""
+    if (algorithm == "mxu_chunked" and not _mxu.FUSE_TW
+            and _matfold_on(field, n, _mxu.BASE)):
+        raise ValueError(
+            f"NTT_FUSE_TW=0 with NTT_TW_MATFOLD=1: the folded tables of "
+            f"{field.name} 2^{n.bit_length() - 1} need the fused level "
+            "kernels; set NTT_TW_MATFOLD=0 as well")
+    single = mxu_level.BASE
+    if _mxu.BASE <= single or n <= single:
+        return
+    if (algorithm in ("mxu_pallas", "mxu_fused", "mxu_chunked")
+            or algorithm == "mxu_sub" and _matfold_on(
+                field, n, _mxu.effective_subbase(field))):
+        raise ValueError(
+            f"NTT_MXU_BASE_LOG={_mxu.BASE_LOG}: {algorithm} would run a "
+            f"single-level kernel at m = {_mxu.BASE}; they take m <= "
+            f"{single}")
 
 
 _runner_cache: dict = {}
@@ -393,7 +456,9 @@ def ntt(x, field: Field | str, inverse: bool = False,
             f"expected limb-leading uint32[{field.n_words}, n, *batch], "
             f"got {x.dtype}{tuple(x.shape)}")
     x = x.to(dev)
-    key = (field.name, n, inverse, algorithm, mont_io, coset_shift, str(dev))
+    # every knob is part of the key: a knob flip builds a fresh runner
+    key = (field.name, n, inverse, algorithm, mont_io, coset_shift, str(dev),
+           config_key())
     got = _runner_cache.get(key)
     if got is None:
         got = _runner_cache[key] = get_runner(

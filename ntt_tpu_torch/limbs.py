@@ -17,6 +17,8 @@ and the ``mont_io=False`` conversion passes of the API; none is a kernel.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -291,3 +293,22 @@ def is_canonical(x, field: Field) -> torch.Tensor:
     """Elementwise check: every element < p."""
     _, brw = _sub_halves(unpack(x), list(field.p_halves))
     return brw != 0
+
+
+#: elements :func:`debug_check` tests at once (bounds the int64 halves)
+DEBUG_CHUNK = 1 << 22
+
+
+def debug_check(x, field: Field, where: str):
+    """NTT_DEBUG=1 (read live) tripwire: ValueError naming the count of
+    elements >= p in ``x`` (uint32[W, ...]); ``x`` itself otherwise, and
+    nothing is computed unless the variable is set."""
+    if os.environ.get("NTT_DEBUG", "0") != "1":
+        return x
+    flat = x.reshape(x.shape[0], -1)
+    bad = sum(int((~is_canonical(flat[:, i:i + DEBUG_CHUNK], field)).sum())
+              for i in range(0, flat.shape[1], DEBUG_CHUNK))
+    if bad:
+        raise ValueError(f"NTT_DEBUG: {bad} non-canonical element(s) (>= p) "
+                         f"at {where} [{field.name}]")
+    return x

@@ -37,6 +37,7 @@ import torch
 
 from .. import limbs
 from ..api import _as_tensor, _tw_tables, aux_from_numpy
+from ..config import config_key
 from ..fields import Field, inv_mod
 from ..kernels.exchange import MAX_SHARDS, a2a_transpose, a2a_transpose_plain
 from ..transforms import fourstep, mxu
@@ -176,11 +177,13 @@ def _on(device):
     return contextlib.nullcontext()
 
 
-def _axis_fn(algorithm: str):
+def _axis_fn(algorithm: str, field: Field):
     """The local sub-NTT of the distributed four-step: (``fn(x, field,
     inverse, aux)``, ``prepare(field, m, batch, inverse) -> (tws, mats)``)
     for a length-m transform along axis 1 of uint32[W, m, batch]. The
-    tables are built on the host, as for ``api.get_runner``."""
+    tables are built on the host, as for ``api.get_runner``; the peel of
+    the digit-matmul transforms is read here, when the transform is made,
+    as the tables are (:func:`make_dist_ntt`)."""
     if algorithm == "jnp":
         return (lambda x, field, inverse, aux: fourstep.ntt_fourstep(
             x, field, inverse, iter(aux["tws"])),
@@ -192,13 +195,16 @@ def _axis_fn(algorithm: str):
             _plain_prepare(fourstep.pallas_base_max))
     if algorithm == "mxu":
         # the plain digit-matmul base, as the JAX package's local transform
+        peel = mxu.BASE
         return (lambda x, field, inverse, aux: mxu.ntt_axis_mxu(
-            x, field, iter(aux["tws"]), aux["mats"]), _prepare_mxu)
+            x, field, inverse, iter(aux["tws"]), mats=aux["mats"],
+            base_max=peel), _prepare_mxu)
     if algorithm == "mxu_sub":
         # kernel K3 (multi-level on the narrow fields) for every level
+        peel = mxu.effective_subbase(field)
         return (lambda x, field, inverse, aux: mxu.ntt_mxu_sub(
-            x, field, iter(aux["tws"]), aux["mats"], inverse=inverse),
-            _prepare_mxu_sub)
+            x, field, inverse, iter(aux["tws"]), aux["mats"],
+            base_max=peel), _prepare_mxu_sub)
     raise ValueError(f"unknown local algorithm {algorithm!r}")
 
 
@@ -322,7 +328,7 @@ def make_dist_ntt(field: Field, n: int, mesh: Mesh, inverse: bool = False,
             f"{opt['why']}"
             + ("; use exchange='all_to_all' or 'ring'"
                if exchange == "pallas" else ""))
-    fn, prepare = _axis_fn(algorithm)
+    fn, prepare = _axis_fn(algorithm, field)
     p = field.p
     n1_loc, n2_loc = n1 // D, n2 // D
     omega = field.inv_root_of_unity(n) if inverse else field.root_of_unity(n)
@@ -331,13 +337,19 @@ def make_dist_ntt(field: Field, n: int, mesh: Mesh, inverse: bool = False,
     coset = (None if coset_shift is None
              else coset_tables(field, n, D, coset_shift, inverse))
 
+    # the local tables, built now with the peel of ``fn``; put on each
+    # shard's device when it first runs
+    host = {}
+    for m, batch in ((n1, n2_loc), (n2, n1_loc)):
+        if (m, batch == 1) not in host:
+            host[(m, batch == 1)] = prepare(field, m, batch, inverse)
     aux_cache: dict = {}
 
     def local_aux(m: int, batch: int, dev):
         key = (m, batch == 1, str(dev))
         if key not in aux_cache:
-            tws, mats = prepare(field, m, batch, inverse)
-            aux_cache[key] = aux_from_numpy(tws, mats, device=dev)
+            aux_cache[key] = aux_from_numpy(*host[(m, batch == 1)],
+                                            device=dev)
         return aux_cache[key]
 
     def shard_tables(d: int, dev) -> dict:
@@ -416,7 +428,7 @@ def _get(field: Field, n: int, mesh: Mesh, inverse: bool, mont_io: bool,
          algorithm: str = "jnp", exchange: str = "all_to_all",
          coset_shift: int | None = None):
     key = (field.name, n, mesh, inverse, mont_io, algorithm, exchange,
-           coset_shift)
+           coset_shift, config_key())
     if key not in _dist_cache:
         _dist_cache[key] = make_dist_ntt(field, n, mesh, inverse, mont_io,
                                          algorithm, coset_shift=coset_shift,

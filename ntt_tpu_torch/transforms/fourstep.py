@@ -70,11 +70,12 @@ class TwDeep:
 
 
 def _split(m: int, base_max: int):
-    """Peel base_max columns (the JAX package's default split)."""
+    """Peel base_max columns (the JAX package's default split; its
+    residency-aware split, NTT_RESIDENT_SPLIT, has no counterpart here)."""
     return base_max, m // base_max
 
 
-def twiddle_requests(m: int, base_max: int) -> list:
+def twiddle_requests(m: int, base_max: int = BASE_MAX) -> list:
     """The (m, n1, n2) decomposition-twiddle tables the recursion
     consumes, in consumption order."""
     if m <= base_max:
@@ -84,20 +85,21 @@ def twiddle_requests(m: int, base_max: int) -> list:
             + twiddle_requests(n2, base_max))
 
 
-def ntt_axis_fourstep(x, field: Field, base_fn, base_max: int, tws,
-                      tw_base_fn=None, pre_col=None, first_base_fn=None,
+def ntt_axis_fourstep(x, field: Field, inverse: bool, base_fn,
+                      base_max: int = BASE_MAX, tws=None, pre_col=None,
+                      tw_base_fn=None, first_base_fn=None,
                       first_tw_base_fn=None):
     """Four-step NTT along axis 1 of uint32[W, m, *batch]: the JAX
     package's recursion on the n2 half, run as a loop, so that each
     level's input is released once the level has read it (at 2^26 on the
     256-bit fields every buffer is 2 GiB).
 
-    ``base_fn(x, field)``: the base transform for m <= base_max (any batch
-    rank); ``tw_base_fn(c3 [W, n1, B], t3, rep)``: a level's column
-    transform with its decomposition twiddle applied in the same kernel, or
-    None for the generic level (base transform, then the twiddle as a
-    separate Montgomery product); ``tws``: an iterator over the level
-    tables in :func:`twiddle_requests` order.
+    ``base_fn(x, field, inverse)``: the base transform for m <= base_max
+    (any batch rank); ``tw_base_fn(c3 [W, n1, B], t3, rep)``: a level's
+    column transform with its decomposition twiddle applied in the same
+    kernel, or None for the generic level (base transform, then the
+    twiddle as a separate Montgomery product); ``tws``: an iterator over
+    the level tables in :func:`twiddle_requests` order.
 
     ``pre_col``: optional [W, n1] Montgomery column vector multiplied into
     the data before the top level's column transforms (the c^{i1·n2}
@@ -116,14 +118,15 @@ def ntt_axis_fourstep(x, field: Field, base_fn, base_max: int, tws,
     while m > base_max:
         n1, n2 = _split(m, base_max)
         x = _fused_level(x.reshape((W, n1, n2) + rest), next(tws), field,
-                         base, first_tw_base_fn or tw_base_fn,
-                         pre_col)                        # [W, i2, k1, ...]
+                         inverse, base, pre_col,
+                         first_tw_base_fn or tw_base_fn)  # [W, i2, k1, ...]
         base, first_tw_base_fn, pre_col = base_fn, None, None
         m, rest = n2, (n1,) + rest
-    return base(x, field).reshape(shape)                 # X[k2*n1 + k1]
+    return base(x, field, inverse).reshape(shape)        # X[k2*n1 + k1]
 
 
-def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
+def _fused_level(x4, T, field: Field, inverse: bool, base_fn, pre_col=None,
+                 tw_base_fn=None):
     """One four-step level: x4 [W, n1, n2, *rest] -> [W, n2, n1, *rest].
 
     ``T`` is a :class:`TwMatStack` (twiddle folded into the matrices), a
@@ -131,9 +134,9 @@ def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
     handed to the kernel compact), a :class:`TwBatch` (merged
     batch-resolution table), a :class:`TwDeep` (deep level, R > 1: the
     i2-resolution table, each row covering rep = R consecutive batch
-    columns) or a plain table uint32[W, n1, n2]:
-    batch-resolution at the top level (R == 1); a batched input makes the
-    top level deep too, and its table is then re-laid per call.
+    columns) or a plain table uint32[W, n1, n2] (batch-resolution at the
+    top level, R == 1; a batched input makes the top level deep too, and
+    its table is then re-laid per call).
 
     With ``pre_col``, or without a ``tw_base_fn``, the level runs unfused
     (the generic level): pre-multiply, column transforms without twiddle,
@@ -148,7 +151,7 @@ def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
         c = x4.reshape(W, n1, n2, R)
         if pre_col is not None:
             c = limbs.mont_mul(c, pre_col[:, :, None, None], field)
-        y = base_fn(c, field)
+        y = base_fn(c, field, inverse)
         y = limbs.mont_mul(y, T[:, :, :, None], field)
         return y.transpose(1, 2).contiguous().reshape((W, n2, n1) + rest)
     c3 = x4.reshape(W, n1, n2 * R)          # flat batch: i2 major, r minor
@@ -178,6 +181,20 @@ def _fused_level(x4, T, field: Field, base_fn, tw_base_fn, pre_col=None):
 # The butterfly-ladder transforms
 # ---------------------------------------------------------------------------
 
+def _base_ladder(x, field: Field, inverse: bool):
+    return ntt_along_axis(x, field, inverse=inverse)
+
+
+def _base_stockham(x, field: Field, inverse: bool):
+    return ntt_along_axis_stockham(x, field, inverse=inverse)
+
+
+def _base_pallas(x, field: Field, inverse: bool):
+    W, m = x.shape[0], x.shape[1]
+    return vmem_ntt.stage_ntt(x.reshape(W, m, -1), field, inverse).reshape(
+        x.shape)
+
+
 def ntt_fourstep(x, field: Field, inverse: bool = False, tws=None,
                  pre_col=None):
     """x: uint32[W, n, *batch] Montgomery form: the four-step with the
@@ -185,20 +202,18 @@ def ntt_fourstep(x, field: Field, inverse: bool = False, tws=None,
     transform and generic levels."""
     if split_log(x.shape[1])[1] == 1:
         return ntt_along_axis(x, field, inverse=inverse)
-    def base(c, f):
-        return ntt_along_axis(c, f, inverse=inverse)
-    return ntt_axis_fourstep(x, field, base, BASE_MAX, tws, pre_col=pre_col)
+    return ntt_axis_fourstep(x, field, inverse, _base_ladder, BASE_MAX, tws,
+                             pre_col=pre_col)
 
 
 def ntt_fourstep_stockham(x, field: Field, inverse: bool = False, tws=None,
                           pre_col=None):
     """The four-step with the Stockham self-sorting ladder as its base
     transform: no gather or bit-reversal pass anywhere."""
-    def base(c, f):
-        return ntt_along_axis_stockham(c, f, inverse=inverse)
     if split_log(x.shape[1])[1] == 1:
-        return base(x, field)
-    return ntt_axis_fourstep(x, field, base, BASE_MAX, tws, pre_col=pre_col)
+        return _base_stockham(x, field, inverse)
+    return ntt_axis_fourstep(x, field, inverse, _base_stockham, BASE_MAX,
+                             tws, pre_col=pre_col)
 
 
 def pallas_base_max(field: Field) -> int:
@@ -221,12 +236,8 @@ def ntt_fourstep_pallas(x, field: Field, inverse: bool = False, tws=None,
     transform and generic levels."""
     if x.shape[1] <= 2:
         return ntt_along_axis(x, field, inverse=inverse)
-    def base(c, f):
-        W, m = c.shape[0], c.shape[1]
-        return vmem_ntt.stage_ntt(c.reshape(W, m, -1), f, inverse).reshape(
-            c.shape)
-    return ntt_axis_fourstep(x, field, base, pallas_base_max(field), tws,
-                             pre_col=pre_col)
+    return ntt_axis_fourstep(x, field, inverse, _base_pallas,
+                             pallas_base_max(field), tws, pre_col=pre_col)
 
 
 def check_unbatched(x) -> None:

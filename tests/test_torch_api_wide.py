@@ -16,9 +16,9 @@ import pytest
 import torch
 
 import ntt_tpu as nt
-from ntt_tpu import hostlib as jhostlib
 from ntt_tpu import oracle
 import ntt_tpu_torch as tnt
+from ntt_tpu_torch import hostlib as thostlib
 from ntt_tpu_torch import limbs as tlimbs
 
 torch.set_num_threads(1)
@@ -40,16 +40,17 @@ def _rows(x):
     return np.ascontiguousarray(x.T).view(np.uint64)
 
 
-def _golden(jfield, x, inverse=False):
-    return jhostlib.host_planes(jhostlib.ntt_np(_rows(x), jfield, inverse),
-                                jfield.n_words)
+def _golden(field, x, inverse=False):
+    """The port's hostlib golden NTT of standard-form planes."""
+    return thostlib.host_planes(thostlib.ntt_np(_rows(x), field, inverse),
+                                field.n_words)
 
 
-def _golden_coset(jfield, x, shift):
-    pw = jhostlib.powers_np(shift, x.shape[1], jfield)
-    xs = jhostlib.host_planes(
-        jhostlib.mul_mod_vec_np(_rows(x), _rows(pw), jfield), jfield.n_words)
-    return _golden(jfield, xs)
+def _golden_coset(field, x, shift):
+    pw = thostlib.powers_np(shift, x.shape[1], field)
+    xs = thostlib.host_planes(
+        thostlib.mul_mod_vec_np(_rows(x), _rows(pw), field), field.n_words)
+    return _golden(field, xs)
 
 
 @pytest.mark.parametrize("name, call", [("bls12-381-fr", "intt"),
@@ -66,7 +67,7 @@ def test_call_equals_jax_at_2e10(name, call):
 def test_coset_forms_at_2e10_equal_golden():
     x = _words(BLS, 1 << 10, 11)
     y = tnt.coset_ntt(x, BLS, shift=5, device="cpu")
-    assert np.array_equal(y.numpy(), _golden_coset(JBLS, x, 5))
+    assert np.array_equal(y.numpy(), _golden_coset(BLS, x, 5))
     back = tnt.coset_intt(y, BLS, shift=5, device="cpu")
     assert np.array_equal(back.numpy(), x)
     xm = tlimbs.to_mont(torch.from_numpy(x), BLS)
@@ -95,22 +96,22 @@ def test_matrix_folded_inverse_and_coset_at_2e17_equal_golden():
     the merged table."""
     x = _words(BLS, 1 << 17, 17)
     y = tnt.coset_ntt(x, BLS, device="cpu")
-    assert np.array_equal(y.numpy(), _golden_coset(JBLS, x, JBLS.generator))
+    assert np.array_equal(y.numpy(), _golden_coset(BLS, x, BLS.generator))
     got = tnt.intt(x, BLS, device="cpu")
-    assert np.array_equal(got.numpy(), _golden(JBLS, x, inverse=True))
+    assert np.array_equal(got.numpy(), _golden(BLS, x, inverse=True))
     back = tnt.coset_intt(y, BLS, device="cpu")
     assert np.array_equal(back.numpy(), x)
 
 
 def test_lde_bn254_equals_golden():
-    f, jf = tnt.BN254_FR, nt.BN254_FR
+    f = tnt.BN254_FR
     n = 1 << 8
     x = _words(f, n, 8)
-    coeffs = _golden(jf, x, inverse=True)
+    coeffs = _golden(f, x, inverse=True)
     padded = np.concatenate(
         [coeffs, np.zeros((f.n_words, 3 * n), dtype=np.uint32)], axis=1)
     got = tnt.lde(x, f, blowup=4, device="cpu")
-    assert np.array_equal(got.numpy(), _golden_coset(jf, padded, jf.generator))
+    assert np.array_equal(got.numpy(), _golden_coset(f, padded, f.generator))
 
 
 def test_polymul_bls_is_the_schoolbook_product():

@@ -63,7 +63,7 @@ def test_twiddle_matrix_stack_byte_equal():
     rng = np.random.default_rng(7)
     tvals = [[int.from_bytes(rng.bytes(40), "little") % TF.p
               for _ in range(32)] for _ in range(2)]
-    got = tmxu.twiddle_matrix_stack(TF, 32, tvals)
+    got = tmxu.twiddle_matrix_stack(TF, 32, False, tvals)
     assert got.shape == (2, 1184, 1184)
     assert np.array_equal(got, jmxu.twiddle_matrix_stack(JF, 32, False,
                                                          tvals))

@@ -234,7 +234,7 @@ def test_dist_pallas_local_recursion():
     f, m, cols = nt.SMALL, 1 << 10, 2
     vals = [(5 * i + 11) % f.p for i in range(m * cols)]
     x = tlimbs.to_mont(tnt.from_ints(vals, f).reshape(1, m, cols), f)
-    fn, prepare = tdist._axis_fn("pallas")
+    fn, prepare = tdist._axis_fn("pallas", f)
     tws, _ = prepare(f, m, cols, False)
     y = fn(x, f, False, {"tws": [torch.from_numpy(t) for t in tws]})
     got = tnt.to_ints(tlimbs.from_mont(y, f), f)

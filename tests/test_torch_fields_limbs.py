@@ -12,8 +12,8 @@ import pytest
 import torch
 
 import ntt_tpu.fields as jfields
-import ntt_tpu.hostlib as jhostlib
 import ntt_tpu.limbs as jlimbs
+from ntt_tpu import oracle
 import ntt_tpu_torch.fields as tfields
 from ntt_tpu_torch import hostlib as thostlib
 from ntt_tpu_torch import limbs as tlimbs
@@ -101,19 +101,22 @@ def test_mont_reduce_wide(name):
 
 
 def test_hostlib_powers_and_golden():
-    """The port's own hostlib build equals ntt_tpu.hostlib and the
-    pure-Python powers."""
+    """The port's own hostlib build equals the pure-Python powers and
+    ntt_tpu.oracle's Python-int golden NTT (forward and inverse): no port
+    test needs the JAX package's hostlib build."""
     f = tfields.BLS12_381_FR
     jf = jfields.BLS12_381_FR
     w = f.root_of_unity(1 << 10)
     got = thostlib.powers_np(w, 1000, f, mont_form=True)
-    assert np.array_equal(got, jhostlib.powers_np(w, 1000, jf,
-                                                  mont_form=True))
     assert np.array_equal(got, tcore.host_powers(f, w, 1000))
     assert np.array_equal(tcore.host_power_matrix(f, w, 4, 6),
                           got[:, np.outer(np.arange(4), np.arange(6))])
     rows = thostlib.ramp_np(64)
-    assert np.array_equal(thostlib.ntt_np(rows, f), jhostlib.ntt_np(rows, jf))
+    want = oracle.ntt_golden(oracle.ramp(64, jf), jf)
+    assert np.array_equal(thostlib.ntt_np(rows, f),
+                          thostlib.ints_to_rows(want))
+    assert np.array_equal(
+        thostlib.ntt_np(thostlib.ints_to_rows(want), f, inverse=True), rows)
 
 
 def test_import_leaves_jax_out():

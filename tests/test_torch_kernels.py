@@ -70,7 +70,7 @@ def test_fused_level_stack_plain_equals_pallas():
     rng = np.random.default_rng(3)
     tvals = [[int(v) for v in rng.integers(1, 1 << 62, size=m)]
              for _ in range(NT)]
-    As = tmxu.twiddle_matrix_stack(TF, m, tvals)
+    As = tmxu.twiddle_matrix_stack(TF, m, False, tvals)
     F = tmxu._fold_matrix(TF, m)
     got = mxu_level.fused_level_stack(
         torch.from_numpy(x), TF, torch.from_numpy(As), rep,

@@ -16,12 +16,12 @@ import pytest
 import torch
 
 import ntt_tpu.fields as jfields
-from ntt_tpu import hostlib as jhostlib
 from ntt_tpu.api import get_runner as j_get_runner
 from ntt_tpu.transforms.fourstep import TwBatch as JTwBatch
 from ntt_tpu.transforms.fourstep import TwMatStack as JTwMatStack
 import ntt_tpu_torch as tnt
 from ntt_tpu_torch import api as tapi
+from ntt_tpu_torch import hostlib as thostlib
 from ntt_tpu_torch import limbs as tlimbs
 from ntt_tpu_torch.transforms import mxu as tmxu
 
@@ -54,10 +54,10 @@ def _jax_aux_to_numpy(aux):
     return tws, {int(k): np.asarray(v) for k, v in aux["mats"].items()}
 
 
-def _golden_mont(field, jfield, x_std):
+def _golden_mont(field, x_std):
     """Host golden NTT of standard-form planes uint32[W, n], as planes."""
     rows = np.ascontiguousarray(x_std.T).view(np.uint64)
-    return jhostlib.host_planes(jhostlib.ntt_np(rows, jfield),
+    return thostlib.host_planes(thostlib.ntt_np(rows, field),
                                 field.n_words)
 
 
@@ -100,8 +100,8 @@ def test_ntt_equals_jax_at_2e17(jax_2e17):
 def test_ntt_on_jax_tables_at_2e17(jax_2e17):
     x, want, (tws, mats) = jax_2e17
     aux = tapi.aux_from_numpy(tws, mats, device="cpu")
-    got = tmxu.ntt_mxu_chunked(torch.from_numpy(x), BLS, iter(aux["tws"]),
-                               aux["mats"])
+    got = tmxu.ntt_mxu_chunked(torch.from_numpy(x), BLS, False,
+                               iter(aux["tws"]), aux["mats"])
     assert np.array_equal(got.numpy(), want)
 
 
@@ -115,7 +115,7 @@ def test_ntt_2e14_equals_golden():
     xm = tlimbs.to_mont(torch.from_numpy(x), BLS)
     got = tnt.ntt(xm, BLS, mont_io=True, device="cpu")
     assert np.array_equal(tlimbs.from_mont(got, BLS).numpy(),
-                          _golden_mont(BLS, JBLS, x))
+                          _golden_mont(BLS, x))
 
 
 def test_ntt_ramp_2e18_equals_golden():
@@ -124,7 +124,7 @@ def test_ntt_ramp_2e18_equals_golden():
                   device="cpu")
     ramp = np.zeros((BLS.n_words, n), dtype=np.uint32)
     ramp[0] = np.arange(n, dtype=np.uint32)
-    want = _golden_mont(BLS, JBLS, ramp)
+    want = _golden_mont(BLS, ramp)
     assert np.array_equal(tlimbs.from_mont(got, BLS).numpy(), want)
 
 
@@ -133,7 +133,7 @@ def test_ntt_bn254_2e17_equals_golden():
     f, n = tnt.BN254_FR, 1 << 17
     x = _words(f, n, 254)
     got = tnt.ntt(x, f, device="cpu")
-    assert np.array_equal(got.numpy(), _golden_mont(f, jfields.BN254_FR, x))
+    assert np.array_equal(got.numpy(), _golden_mont(f, x))
 
 
 def test_batched_and_small_sizes_equal_golden():
@@ -143,12 +143,12 @@ def test_batched_and_small_sizes_equal_golden():
         n = 1 << log_n
         x = _words(BLS, n, log_n)
         got = tnt.ntt(x, BLS, device="cpu")
-        assert np.array_equal(got.numpy(), _golden_mont(BLS, JBLS, x)), n
+        assert np.array_equal(got.numpy(), _golden_mont(BLS, x)), n
     xb = _words(BLS, 2 * 256, 9).reshape(BLS.n_words, 256, 2)
     got = tnt.ntt(xb, BLS, device="cpu").numpy()
     for j in range(2):
         assert np.array_equal(
-            got[:, :, j], _golden_mont(BLS, JBLS,
+            got[:, :, j], _golden_mont(BLS,
                                        np.ascontiguousarray(xb[:, :, j])))
 
 
@@ -179,7 +179,7 @@ def test_once_outside_the_slice_now_runs(alg):
     """The names that raised before the whole ladder was ported."""
     x = _words(BLS, 64, 1)
     got = tnt.ntt(x, BLS, device="cpu", algorithm=alg)
-    assert np.array_equal(got.numpy(), _golden_mont(BLS, JBLS, x))
+    assert np.array_equal(got.numpy(), _golden_mont(BLS, x))
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -10,8 +10,8 @@ path and the device table generators, against ntt_tpu on the CPU.
   ``fused_level_stack`` (Pallas interpret mode) given the same T3 tiled to
   [W, 32, B];
 - the port's transform at BLS12-381 Fr 2^17 with the residual forced
-  (``ntt``, ``intt``, ``coset_ntt``) equals ``ntt_tpu.hostlib``'s golden
-  result and the port's merged path;
+  (``ntt``, ``intt``, ``coset_ntt``) equals the golden result of the
+  port's hostlib and the port's merged path;
 - the device generators, run on the CPU with small row chunks, equal the
   host tables and the JAX package's ``power_matrix_chunked``,
   ``geometric_outer_chunked`` and ``geometric_outer``.
@@ -25,7 +25,6 @@ import pytest
 import torch
 
 import ntt_tpu as nt
-from ntt_tpu import hostlib as jhostlib
 from ntt_tpu.kernels.mxu_level import fused_level_stack as j_stack
 from ntt_tpu.transforms import core as jcore
 from ntt_tpu.transforms import mxu as jmxu
@@ -34,6 +33,7 @@ from ntt_tpu.transforms.fourstep import TwStackResid as JTwStackResid
 import ntt_tpu_torch as tnt
 from ntt_tpu_torch import api as tapi
 from ntt_tpu_torch import digits as tdigits
+from ntt_tpu_torch import hostlib as thostlib
 from ntt_tpu_torch import limbs as tlimbs
 from ntt_tpu_torch.kernels import mxu_level
 from ntt_tpu_torch.transforms import core as tcore
@@ -62,22 +62,23 @@ def _rows(planes):
     return rows.view(np.uint64)
 
 
-def _golden(jfield, x_std, inverse=False):
-    """ntt_tpu.hostlib's golden NTT of standard-form planes uint32[W, n]."""
-    out = jhostlib.ntt_np(_rows(x_std), jfield, inverse=inverse)
-    return jhostlib.host_planes(out, x_std.shape[0])
+def _golden(field, x_std, inverse=False):
+    """The port's hostlib golden NTT of standard-form planes
+    uint32[W, n]."""
+    out = thostlib.ntt_np(_rows(x_std), field, inverse=inverse)
+    return thostlib.host_planes(out, x_std.shape[0])
 
 
-def _mont(jfield, planes):
+def _mont(field, planes):
     """Standard-form planes uint32[W, n] in Montgomery form (x R mod p),
-    by ntt_tpu.hostlib."""
+    by the port's hostlib."""
     W, n = planes.shape
-    r = (1 << (32 * W)) % jfield.p
+    r = (1 << (32 * W)) % field.p
     R = np.array([(r >> (32 * i)) & 0xFFFFFFFF for i in range(W)],
                  dtype=np.uint32)
     R = np.ascontiguousarray(np.broadcast_to(R[:, None], (W, n)))
-    return jhostlib.host_planes(
-        jhostlib.mul_mod_vec_np(_rows(planes), _rows(R), jfield), W)
+    return thostlib.host_planes(
+        thostlib.mul_mod_vec_np(_rows(planes), _rows(R), field), W)
 
 
 @pytest.fixture
@@ -147,7 +148,7 @@ def test_stack_periodic_t3_equals_pallas(name, NT, rep, s0):
     rng = np.random.default_rng(3)
     tvals = [[int(v) % tf.p for v in rng.integers(1, 1 << 62, size=m)]
              for _ in range(NT)]
-    As = tmxu.twiddle_matrix_stack(tf, m, tvals)
+    As = tmxu.twiddle_matrix_stack(tf, m, False, tvals)
     F = tmxu._fold_matrix(tf, m)
     got = mxu_level.fused_level_stack(
         torch.from_numpy(x), tf, torch.from_numpy(As), rep,
@@ -179,28 +180,28 @@ def test_stack_t3_shapes():
 def test_transform_2e17_with_the_residual_equals_golden(resid, monkeypatch):
     """ntt, intt and coset_ntt at BLS12-381 Fr 2^17 with level 0 the
     stack plus its periodic residual (Montgomery I/O, converted on the
-    host by ntt_tpu.hostlib), against the golden result of
-    ntt_tpu.hostlib; the forward also against the port's merged path
+    host by the port's hostlib), against its golden result; the
+    forward also against the port's merged path
     (level 1's TwBatch table)."""
-    tf, jf = tnt.BLS12_381_FR, nt.BLS12_381_FR
+    tf = tnt.BLS12_381_FR
     x = _words(tf, (N,), 17)
-    xm = torch.from_numpy(_mont(jf, x))
+    xm = torch.from_numpy(_mont(tf, x))
     run, aux = tapi.get_runner(tf, N, device="cpu")
     assert isinstance(aux["tws"][0], TwStackResid)
     assert tuple(aux["tws"][0].Tres.shape) == (8, 32, 128)
     assert isinstance(aux["tws"][1], TwDeep)
     fwd = run(xm, aux)
-    assert np.array_equal(fwd.numpy(), _mont(jf, _golden(jf, x)))
+    assert np.array_equal(fwd.numpy(), _mont(tf, _golden(tf, x)))
     run_i, aux_i = tapi.get_runner(tf, N, inverse=True, device="cpu")
     assert np.array_equal(run_i(xm, aux_i).numpy(),
-                          _mont(jf, _golden(jf, x, inverse=True)))
+                          _mont(tf, _golden(tf, x, inverse=True)))
     g = tf.generator
     run_c, aux_c = tapi.get_runner(tf, N, coset_shift=g, device="cpu")
     assert isinstance(aux_c["tws"][0], TwStackResid)
-    scaled = jhostlib.host_planes(jhostlib.mul_mod_vec_np(
-        _rows(x), _rows(jhostlib.powers_np(g, N, jf)), jf), 8)
+    scaled = thostlib.host_planes(thostlib.mul_mod_vec_np(
+        _rows(x), _rows(thostlib.powers_np(g, N, tf)), tf), 8)
     assert np.array_equal(run_c(xm, aux_c).numpy(),
-                          _mont(jf, _golden(jf, scaled)))
+                          _mont(tf, _golden(tf, scaled)))
     monkeypatch.setattr(tmxu, "TW_MERGED_MAX", 1 << 24)
     run_m, aux_m = tapi.get_runner(tf, N, device="cpu")
     assert [type(t).__name__ for t in aux_m["tws"]] == [

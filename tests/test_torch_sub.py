@@ -310,7 +310,7 @@ def test_ntt_mxu_sub_on_jax_tables(name):
         [np.asarray(t) for t in jaux["tws"]],
         {int(k): np.asarray(v) for k, v in jaux["mats"].items()},
         device="cpu", coset_col=np.asarray(jaux["coset_col"]))
-    got = tmxu.ntt_mxu_sub(torch.from_numpy(x), tf, iter(aux["tws"]),
+    got = tmxu.ntt_mxu_sub(torch.from_numpy(x), tf, False, iter(aux["tws"]),
                            aux["mats"], pre_col=aux["coset_col"])
     assert np.array_equal(got.numpy(), want)
     # and the port's own tables are those tables

@@ -175,7 +175,7 @@ def _stack(field, m, NT, seed):
     rng = np.random.default_rng(seed)
     tvals = [[int(v) % field.p for v in rng.integers(1, 1 << 62, size=m)]
              for _ in range(NT)]
-    return torch.from_numpy(tmxu.twiddle_matrix_stack(field, m, tvals))
+    return torch.from_numpy(tmxu.twiddle_matrix_stack(field, m, False, tvals))
 
 
 @pytest.mark.parametrize("W, m, NT, rep, with_t3", [
