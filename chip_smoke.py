@@ -127,12 +127,26 @@ with, and prints no result line.
    the two 2^18 forward transforms it prints where the time goes (the
    transposes between levels timed alone, and device time by kernel from
    ``torch.profiler`` where that traces the card).
-5. Holds the tensor-core kernels to their device-time targets where the
+5. Runs the checking and timing tools (``ntt_tpu_torch.tools``) on the
+   card: the default health check through ``python3 -m`` (small-proth
+   2^9, every name and ``auto``), then in-process ``healthcheck
+   bls12-381-fr 12`` and ``--deep`` (up to BLS12-381 Fr 2^22, every output
+   word), ``sweep`` over BLS12-381 Fr 2^8-2^22 with every position checked
+   and over Goldilocks 2^18, 2^20, 2^24, ``shootout`` at BLS 2^18 and
+   Goldilocks 2^20, ``microbench`` and its ``knockout`` (K7's five stages,
+   K2's stack) at BLS 2^18, ``scaling`` on 1-8 shards of the card
+   (small-proth, and BLS12-381 Fr under ``mxu_sub``), each timed chain
+   sized to ``TOOLS_TARGET_S``; fails on an exit code other than 0, a
+   MISMATCH / FAIL / FAILED line or a record not bit-exact, and if one of
+   K1-K8 was not launched by the in-process runs (their counts set to 0
+   before them and read after). One ``tools`` line a run, with the tool's
+   output indented below it.
+6. Holds the tensor-core kernels to their device-time targets where the
    profiler traces the card: the two K3 multi-level launches of Goldilocks
    2^18 below ``torch._int_mm`` on their two matmuls, K7's ``matmul``,
    ``reduce`` and ``tw`` stages below ``_int_mm`` on the level's matmul,
    and ``tw`` within 15% of K3 single-level at [8,32,8192] rep 1.
-6. Prints a ``kernels`` JSON
+7. Prints a ``kernels`` JSON
    line (a kernel's bound is the sum of its launches' own bounds,
    ``bound_by`` the kind with the larger share and ``bound_split`` both
    shares), the card line, and last the result line
@@ -147,6 +161,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -2516,6 +2531,123 @@ def breakdown(f, n, rng, dev, algorithm="auto", xm=None) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The tools (ntt_tpu_torch.tools): the checking and timing tools on the card
+# ---------------------------------------------------------------------------
+
+#: seconds of timed calls a tool's measurement aims at in this phase (the
+#: tools' own default is 1.5 s): keeps the phase near two minutes
+TOOLS_TARGET_S = "0.25"
+
+#: (tool, arguments, environment) of each in-process run, after the
+#: default health check, which runs as ``python3 -m``
+TOOL_RUNS = (
+    ("healthcheck", ["bls12-381-fr", "12"], {}),
+    ("healthcheck", ["--deep"], {}),
+    ("sweep", ["bls12-381-fr", "auto"], {"SWEEP_VERIFY": "full"}),
+    ("sweep", ["goldilocks", "auto", "18,20,24"], {}),
+    ("shootout", ["18", "bls12-381-fr"], {}),
+    ("shootout", ["20", "goldilocks"], {}),
+    ("microbench", ["18", "bls12-381-fr"], {}),
+    ("microbench", ["knockout", "18", "bls12-381-fr"], {}),
+    ("scaling", [], {}),
+    ("scaling", ["bls12-381-fr", "16", "mxu_sub"], {}),
+)
+
+#: the tools whose JSON records each carry a ``bitexact``
+TOOLS_BITEXACT = ("sweep", "scaling")
+
+
+@contextlib.contextmanager
+def environment(values: dict):
+    """``values`` set in ``os.environ`` while the block runs."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tool_summary(what, name, rc, text) -> str:
+    """Checks a tool's run (exit code 0, no MISMATCH / FAIL / FAILED line,
+    every ``bitexact`` true) and says what it measured."""
+    lines = text.splitlines()
+    bad = [ln for ln in lines if re.search(r"\b(MISMATCH|FAIL)", ln)]
+    recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    inexact = [r for r in recs if r.get("bitexact") is not True]
+    if rc != 0 or bad or (name in TOOLS_BITEXACT and (inexact or not recs)):
+        raise AssertionError(
+            f"tools {what}: rc {rc}, {len(bad)} failed lines, "
+            f"{len(inexact)} records not bit-exact:\n" + text[-4000:])
+    if name == "healthcheck":
+        return f"{sum(' OK' in ln for ln in lines)} OK"
+    if name == "sweep":
+        return "bit-exact; ms " + ", ".join(
+            f"2^{r['log_n']} {r['ms']:.4f}" for r in recs)
+    if name == "scaling":
+        return "bit-exact; ms a step " + ", ".join(
+            f"D={r['D']} {r['ms_per_step']:.4f}" for r in recs)
+    if what.startswith("microbench knockout") or name == "shootout":
+        rows = [ln.split() for ln in lines if not ln.startswith("#")]
+        return "ms " + ", ".join(f"{r[0]} {r[1]}" for r in rows)
+    return f"{sum(ln.endswith(' ms') for ln in lines)} components timed"
+
+
+def tools_phase(card) -> None:
+    """Runs the tools the way a user would on the card: the default health
+    check through ``python3 -m``, then each run of ``TOOL_RUNS`` in-process
+    with its output captured, at ``TOOLS_TARGET_S``. Each prints a ``tools``
+    line (exit code, seconds, what it measured, the card) and its own
+    output indented. Counts the kernels' launches of the in-process runs
+    and fails if one of K1-K8 was never launched."""
+    import importlib
+    import io
+
+    from ntt_tpu_torch.kernels import _build
+
+    t_phase = time.time()
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "ntt_tpu_torch.tools.healthcheck"],
+        capture_output=True, text=True, timeout=600)
+    what = "healthcheck (python3 -m, defaults)"
+    summary = tool_summary(what, "healthcheck", out.returncode,
+                           out.stdout + out.stderr)
+    print(f"tools {what}: rc 0 in {time.time() - t0:.1f} s, {summary}; "
+          f"card: {card}")
+    for ln in out.stdout.splitlines():
+        print(f"  {ln}")
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    for name, argv, extra in TOOL_RUNS:
+        tool = importlib.import_module(f"ntt_tpu_torch.tools.{name}")
+        what = " ".join([name] + argv + [f"{k}={v}" for k, v in extra.items()])
+        buf = io.StringIO()
+        t0 = time.time()
+        with environment({"SHOOT_TARGET_S": TOOLS_TARGET_S, **extra}), \
+                contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(buf):
+            rc = tool.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        summary = tool_summary(what, name, rc, buf.getvalue())
+        print(f"tools {what}: rc 0 in {seconds:.1f} s, {summary}; "
+              f"card: {card}")
+        print("\n".join(f"  {ln}" for ln in buf.getvalue().splitlines()),
+              flush=True)
+    counts = dict(_build.launches)
+    missing = [k for k in KERNELS if counts.get(k, 0) < 1]
+    print(f"tools launches: {json.dumps(counts)}; phase "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    if missing:
+        raise AssertionError(f"tools: {missing} never launched")
+
+
+# ---------------------------------------------------------------------------
 # The big-integer layer (ntt_tpu_torch.bigint): plain PyTorch on the card;
 # no TPU kernel stands behind ntt_tpu.bigint, so it adds no kernel
 # ---------------------------------------------------------------------------
@@ -3200,6 +3332,9 @@ def main() -> int:
     breakdown(BLS12_381_FR, 1 << 18, rng, dev)
     for alg in ("mxu_fused", "pallas_fused", "pallas"):
         breakdown(BLS12_381_FR, 1 << 18, rng, dev, algorithm=alg)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    tools_phase(card)
+    print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     for name in KERNELS:
         if counts.get(name, 0) < 1:
             raise AssertionError(f"{name} was not launched on its main path")

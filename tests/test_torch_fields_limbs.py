@@ -120,11 +120,15 @@ def test_hostlib_powers_and_golden():
 
 
 def test_import_leaves_jax_out():
-    """Importing the port (and its API, kernels, transforms and the
-    multi-device path) loads neither JAX nor ntt_tpu."""
+    """Importing the port (and its API, kernels, transforms, the
+    multi-device path, the oracle and every tool) loads neither JAX nor
+    ntt_tpu."""
     code = ("import sys, ntt_tpu_torch, ntt_tpu_torch.api, "
             "ntt_tpu_torch.kernels._build, ntt_tpu_torch.transforms.mxu, "
-            "ntt_tpu_torch.parallel; "
+            "ntt_tpu_torch.parallel, ntt_tpu_torch.oracle, "
+            "ntt_tpu_torch.tools._common, ntt_tpu_torch.tools.healthcheck, "
+            "ntt_tpu_torch.tools.sweep, ntt_tpu_torch.tools.shootout, "
+            "ntt_tpu_torch.tools.microbench, ntt_tpu_torch.tools.scaling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ntt_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
