@@ -202,9 +202,10 @@ def check_sass() -> None:
     """Every digit-matmul kernel contracts on the int8 tensor cores: the
     SASS of the built ``mxu_level`` and ``mxu_sub`` libraries
     (``cuobjdump -sass``) shows tensor-core instructions (IGMMA, the
-    integer wgmma, or IMMA) and no IDP.4A in each of the three
-    instantiations (W = 1, 2, 8) of each kernel of ``TENSOR_CORE``, and
-    no IDP.4A anywhere in them."""
+    integer wgmma, or IMMA) and no IDP.4A in each instantiation of each
+    kernel of ``TENSOR_CORE`` (W = 1, 2, 8; the single-level kernels each
+    with the digit tile in one pass and in two, for m = 64), and no
+    IDP.4A anywhere in them."""
     from ntt_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
@@ -219,12 +220,13 @@ def check_sass() -> None:
     for kernel in (k.rstrip("<") for k in TENSOR_CORE.values()):
         got = [c for name, c in counts.items() if kernel + "I" in name]
         imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
+        want = 3 if kernel == "fused_subntt_multi_kernel" else 6
         print(f"sass {kernel}: {len(got)} instantiations, {imma} tensor-core "
               f"(IGMMA/HGMMA/IMMA), {dp4a} IDP.4A", flush=True)
-        if len(got) != 3 or not all(i > 0 and d == 0 for i, d in got):
+        if len(got) != want or not all(i > 0 and d == 0 for i, d in got):
             raise AssertionError(
                 f"{kernel}: expected tensor-core instructions and no IDP.4A "
-                f"in each of its three instantiations, got {got}")
+                f"in each of its {want} instantiations, got {got}")
     dp4a = sum(c[1] for c in counts.values())
     print(f"sass: {dp4a} IDP.4A in the {len(counts)} functions of both "
           "libraries", flush=True)
@@ -570,6 +572,86 @@ def check_ladder_kernels(rng, dev, results) -> None:
         torch.cuda.empty_cache()
 
 
+#: the knob setting of the 64-point single-level contraction
+BASE64 = {"mxu.BASE_LOG": 6, "mxu.BASE": 64}
+
+
+def check_base64_kernels(rng, dev, results) -> None:
+    """K1, K2, K3 single-level, K4 and the five stages of K7 at m = 64
+    (the digit tile streamed over the depth in two passes) against their
+    plain versions at the shapes NTT_MXU_BASE_LOG=6 gives them on
+    BLS12-381 Fr: the 2^18 transform's levels [8,64,4096] (K3 with the
+    top-level table at rep 1 and the deep table at rep 64; K4 with T3 and
+    the transposed store; K1 the last base; K7 the level's stages) and the
+    2^20 level 0 [8,64,16384] (K2, a 64-entry stack, rep 256); each timed
+    beside its bound, ``torch._int_mm`` on its digit operands and its
+    device time. Off the main path (the kernels line counts none of them).
+    """
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch import digits
+    from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
+
+    D = digits.n_digits(f)
+    mats = sub_mats_on(f, {64}, False, dev)
+    A, F, F2 = mats[64], mats[-64], mats[-1]
+
+    def rand(*shape):
+        return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    def mm(A, x):
+        m = x.shape[1]
+        return int_mm(A, digits.extract_digits(x, f).reshape(D * m, -1))
+
+    x, T, Td = rand(64, 4096), rand(64, 4096), rand(64, 64)
+    nb, macs, lib = x.numel() * 4, A.numel() * 4096, mm(A, x)
+    tw = mont_mul_mads(f) * 64 * 4096
+    cases = [
+        ("base_ntt_mxu", "BASE 64: base [8,64,4096]",
+         lambda: mxu_ntt.base_ntt_mxu(x, f, A, F),
+         lambda: mxu_ntt.base_ntt_mxu_plain(x, f, A, F),
+         2 * nb + A.numel(), macs, lib, 0),
+        ("fused_subntt", "BASE 64: level 0 [8,64,4096] T3 rep 1",
+         lambda: mxu_level.fused_subntt(x, f, mats, T, rep=1),
+         lambda: mxu_level.fused_subntt_plain(x, f, mats, T, rep=1),
+         3 * nb + A.numel(), macs, lib, 0, tw),
+        ("fused_subntt", "BASE 64: level 1 [8,64,4096] rep 64 table [8,64,64]",
+         lambda: mxu_level.fused_subntt(x, f, mats, Td, rep=64),
+         lambda: mxu_level.fused_subntt_plain(x, f, mats, Td, rep=64),
+         2 * nb + Td.numel() * 4 + A.numel(), macs, lib, 0, tw),
+        ("fused_level", "BASE 64: level [8,64,4096] T3, transposed store",
+         lambda: mxu_level.fused_level(x, f, A, T, True, F, F2),
+         lambda: mxu_level.fused_level_plain(x, f, A, T, True, F, F2),
+         3 * nb + A.numel(), macs, lib, 0, tw)]
+    work = {"stream": (2 * nb, 0, None, 0), "digits": (2 * nb, 0, None, 0),
+            "matmul": (2 * nb + A.numel(), macs, lib, 0),
+            "reduce": (2 * nb + A.numel(), macs, lib, 0),
+            "tw": (3 * nb + A.numel(), macs, lib, tw)}
+    for stage in mxu_level.PROBE_STAGES:
+        T3 = T if stage == "tw" else None
+        b, ops, libfn, mads = work[stage]
+        cases.append(("fused_level_probe", f"BASE 64: {stage} [8,64,4096]",
+                      lambda st=stage, T3=T3: mxu_level.fused_level_probe(
+                          x, f, A, st, T3),
+                      lambda st=stage, T3=T3:
+                      mxu_level.fused_level_probe_plain(x, f, A, st, T3),
+                      b, ops, libfn, 0, mads))
+    measure(cases, results)
+    del x, T, Td, cases, lib
+    x0 = rand(64, 16384)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    As = torch.randint(0, 128, (64, 37 * 64, 37 * 64), generator=gen,
+                       device=dev, dtype=torch.int8)   # 359 MB, on the card
+    measure([("fused_level_stack",
+              "BASE 64: 2^20 level 0 [8,64,16384] stack 64 rep 256",
+              lambda: mxu_level.fused_level_stack(x0, f, As, 256, F),
+              lambda: mxu_level.fused_level_stack_plain(x0, f, As, 256, F),
+              2 * x0.numel() * 4 + As.numel(), As[0].numel() * 16384,
+              mm(As[0], x0), 0)], results)
+    del x0, As
+    torch.cuda.empty_cache()
+
+
 def sub_mats_on(f, sizes, inverse, dev) -> dict:
     """{m: conv matrix, -m: fold matrix, -1: twiddle fold matrix} on the
     card for the sizes given (fold matrices for wide fields only)."""
@@ -664,9 +746,10 @@ def random_stack(f, NT, m, rng, dev):
 
 def check_small_shapes(f, rng, dev) -> int:
     """K1-K3 (single-level) against their plain versions at every m from 2
-    to 32, with ragged batch sizes (masked columns), reps that split a warp
-    between stack entries, both twiddle layouts and K2's periodic T3.
-    Returns the number of checks."""
+    to 64 (at 64 the digit tile streamed in two passes), with ragged batch
+    sizes (masked columns), reps that split a warp between stack entries,
+    both twiddle layouts and K2's periodic T3. Returns the number of
+    checks."""
     from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
 
     def rand(*shape):
@@ -678,7 +761,7 @@ def check_small_shapes(f, rng, dev) -> int:
             raise AssertionError(f"{f.name} {label}: kernel != plain")
 
     checks = 0
-    for m in (2, 4, 8, 16, 32):
+    for m in (2, 4, 8, 16, 32, 64):
         mats = sub_mats_on(f, {m}, False, dev)
         for B in (1, 37, 300):
             x, T = rand(m, B), rand(m, B)
@@ -757,7 +840,7 @@ def check_small_multi(f, ms, rng, dev) -> int:
 
 def check_small_level(f, rng, dev) -> int:
     """K4 and every stage of K7 against their plain versions at every m
-    from 2 to 32: ragged batch sizes, with and without T3, both store
+    from 2 to 64: ragged batch sizes, with and without T3, both store
     orders, forward and inverse matrices. Returns the number of checks."""
     from ntt_tpu_torch.kernels import mxu_level
 
@@ -766,7 +849,7 @@ def check_small_level(f, rng, dev) -> int:
 
     checks = 0
     for inverse in (False, True):
-        for m in (2, 4, 8, 16, 32):
+        for m in (2, 4, 8, 16, 32, 64):
             mats = sub_mats_on(f, {m}, inverse, dev)
             A, F, F2 = mats[m], mats.get(-m), mats.get(-1)
             for B in (1, 37, 300):
@@ -1046,15 +1129,17 @@ def counted(fn, seen=None) -> tuple:
 
 
 def path_kernels() -> dict:
-    """The kernel wrappers the 256-bit drivers call (by their names in
-    ``ntt_tpu_torch.transforms.mxu``) with their plain versions, which
-    take the same arguments."""
+    """The kernel wrappers the digit-matmul drivers call (by their names
+    in ``ntt_tpu_torch.transforms.mxu``: K1, K2, K3 and ``mxu_fused``'s
+    K4) with their plain versions, which take the same arguments."""
     from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
     return {"fused_level_stack": (mxu_level.fused_level_stack,
                                   mxu_level.fused_level_stack_plain),
             "fused_subntt": (mxu_level.fused_subntt,
                              mxu_level.fused_subntt_plain),
-            "base_ntt_mxu": (mxu_ntt.base_ntt_mxu, mxu_ntt.base_ntt_mxu_plain)}
+            "base_ntt_mxu": (mxu_ntt.base_ntt_mxu, mxu_ntt.base_ntt_mxu_plain),
+            "fused_level": (mxu_level.fused_level,
+                            mxu_level.fused_level_plain)}
 
 
 def _on(v, dev):
@@ -1068,8 +1153,8 @@ def _on(v, dev):
 
 @contextlib.contextmanager
 def recording(seen: dict):
-    """While the block runs, the first call of each distinct K1, K2 and K3
-    launch of the 256-bit drivers goes into ``seen``: keyed by the kernel,
+    """While the block runs, the first call of each distinct K1-K4
+    launch of the digit-matmul drivers goes into ``seen``: keyed by the kernel,
     the field, the operand shapes and the other arguments; kept as the
     kernel's name, the input's shape and the other arguments, their
     tensors copied to the host (so that no table stays on the card)."""
@@ -1132,12 +1217,13 @@ LIB_DIGIT_BYTES = 1 << 30
 
 
 def launch_cost(name, f, shape, args) -> tuple:
-    """(bytes, int8 MACs, 32-bit multiply-adds) of one K1-K3 launch of
-    :func:`path_kernels` with its recorded arguments: the data read and
-    written once, its matrices (a stack's every entry) and twiddle table
-    read once; the digit matmuls' MACs (the multi-level K3's two levels)
-    and a Montgomery product an element for the twiddle (the multi-level
-    K3's inner one too)."""
+    """(bytes, int8 MACs, 32-bit multiply-adds) of one K1-K4 or K7 launch
+    with its recorded arguments: the data read and written once, its
+    matrices (a stack's every entry) and twiddle table read once; the
+    digit matmuls' MACs (the multi-level K3's two levels; none for K7's
+    ``stream`` and ``digits``) and a Montgomery product an element for the
+    twiddle (the multi-level K3's inner one too)."""
+    from ntt_tpu_torch.kernels import mxu_level
     W, m, B = shape
     nbytes = 2 * W * m * B * 4
     T3 = args.get("T3")
@@ -1147,8 +1233,10 @@ def launch_cost(name, f, shape, args) -> tuple:
     if name == "fused_level_stack":
         As = args["As"]
         return nbytes + As.numel(), conv_macs(f, As[0], B), mads
+    if args.get("stage") in ("stream", "digits"):
+        return nbytes, 0, 0
     mats = args.get("mats") or {m: args["A"]}
-    if m <= 32:
+    if mxu_level.single_level(m, mats):
         A = mats[m]
         return nbytes + A.numel(), conv_macs(f, A, B), mads
     A1, A2 = mats[32], mats[m // 32]
@@ -1167,8 +1255,10 @@ def check_path_launches(seen, dev, cols: int = 1 << 21,
     beside its bound (:func:`launch_cost`) and, for a single-level launch
     whose digit operand is at most ``LIB_DIGIT_BYTES``, ``torch._int_mm``
     on it (a stack level: one entry over all columns). Off the main path:
-    not counted in the ``kernels`` line."""
+    not counted in the ``kernels`` line. K4's transposed output [W, B, m]
+    is compared at rows a .. a+L-1."""
     from ntt_tpu_torch import digits
+    from ntt_tpu_torch.kernels import mxu_level
     kernels = path_kernels()
     for name, shape, args in seen.values():
         kern, plain = kernels[name]
@@ -1181,10 +1271,12 @@ def check_path_launches(seen, dev, cols: int = 1 << 21,
         spans = sorted({0, B // 2 // L * L, B - L})
         if B & (B - 1) or any(a % L for a in spans):
             raise AssertionError(f"{name} [{W},{m},{B}]: spans not aligned")
+        rows = name == "fused_level" and args.get("transpose_out", True)
         for a in spans:
             want = plain(x[:, :, a:a + L].contiguous(),
                          **span_args(name, args, a, L))
-            if not torch.equal(y[:, :, a:a + L], want):
+            got = y[:, a:a + L] if rows else y[:, :, a:a + L]
+            if not torch.equal(got, want):
                 raise AssertionError(f"{name} {f.name} [{W},{m},{B}], "
                                      f"columns {a}..{a + L - 1}: kernel != "
                                      "plain")
@@ -1194,6 +1286,7 @@ def check_path_launches(seen, dev, cols: int = 1 << 21,
                 + ("" if "rep" not in args else f" rep {args['rep']}")
                 + ("" if T3 is None else f" T3 {list(T3.shape)}")
                 + (" inverse" if args.get("inverse") else "")
+                + (" transposed store" if rows else "")
                 + f"  word-equal on {len(spans)} spans of {L} columns")
         if not timed:
             print(line, flush=True)
@@ -1204,9 +1297,10 @@ def check_path_launches(seen, dev, cols: int = 1 << 21,
         b_ms, b_by = bound(*launch_cost(name, f, shape, args))
         D = digits.n_digits(f)
         lib = ""
-        if m <= 32 and D * m * B <= LIB_DIGIT_BYTES:
-            A = (args["As"][0] if name == "fused_level_stack" else
-                 (args.get("mats") or {m: args.get("A")})[m])
+        mats = args.get("mats") or {m: args.get("A")}
+        if (mxu_level.single_level(m, mats)
+                and D * m * B <= LIB_DIGIT_BYTES):
+            A = args["As"][0] if name == "fused_level_stack" else mats[m]
             d = digits.extract_digits(x, f).reshape(D * m, B)
             lib_ms = time_ms(int_mm(A, d), iters=3, warmup=1)
             lib = f", _int_mm {lib_ms:.4f} ms"
@@ -1930,7 +2024,40 @@ KNOB_RUNS = [
     ("NTT_TW_RESID=1", {"mxu.TW_RESID": "1"}, [("bls12-381-fr", 20, "auto")]),
     ("NTT_TW_STACK_MAX_NT=32", {"mxu.TW_STACK_MAX_NT": 32},
      [("bls12-381-fr", 22, "auto")]),
+    ("NTT_MXU_BASE_LOG=6", BASE64,
+     [("bls12-381-fr", 18, "auto"), ("bls12-381-fr", 20, "auto"),
+      ("bls12-381-fr", 24, "auto"), ("bls12-381-fr", 18, "mxu_fused"),
+      ("bls12-381-fr", 18, "mxu_pallas"), ("bn254-fr", 20, "mxu_sub"),
+      ("goldilocks", 20, "mxu_chunked"), ("small-proth", 18, "mxu_chunked")]),
 ]
+
+#: launches asserted under a knob: (label, field, log2 n, algorithm) ->
+#: counts. NTT_MXU_BASE_LOG=6 (every launch but the last base m = 4 of
+#: 2^20 at m = 64): BLS12-381 Fr 2^18 has no fold (two levels with
+#: tables, K3, and the base, K1); 2^20 and 2^24 fold (a 64-entry stack,
+#: the merged table, a stack of 4 or 64 entries, the base); BN254 Fr 2^20
+#: under mxu_sub the same levels with the base on K3
+KNOB_COUNTS = {
+    ("NTT_MXU_BASE_LOG=6", "bls12-381-fr", 18, "auto"):
+        {"fused_subntt": 2, "base_ntt_mxu": 1},
+    ("NTT_MXU_BASE_LOG=6", "bls12-381-fr", 20, "auto"):
+        {"fused_level_stack": 2, "fused_subntt": 1, "base_ntt_mxu": 1},
+    ("NTT_MXU_BASE_LOG=6", "bls12-381-fr", 24, "auto"):
+        {"fused_level_stack": 2, "fused_subntt": 1, "base_ntt_mxu": 1},
+    ("NTT_MXU_BASE_LOG=6", "bls12-381-fr", 18, "mxu_fused"):
+        {"fused_level": 3},
+    ("NTT_MXU_BASE_LOG=6", "bls12-381-fr", 18, "mxu_pallas"):
+        {"base_ntt_mxu": 3},
+    ("NTT_MXU_BASE_LOG=6", "bn254-fr", 20, "mxu_sub"):
+        {"fused_level_stack": 2, "fused_subntt": 2},
+    ("NTT_MXU_BASE_LOG=6", "goldilocks", 20, "mxu_chunked"):
+        {"fused_subntt": 3, "base_ntt_mxu": 1},
+    ("NTT_MXU_BASE_LOG=6", "small-proth", 18, "mxu_chunked"):
+        {"fused_subntt": 2, "base_ntt_mxu": 1},
+}
+#: the knob run whose golden result starts on a host thread before the
+#: narrow paths (about half a minute on one thread)
+KNOB_EARLY_GOLDEN = ("bls12-381-fr", 24)
 
 
 @contextlib.contextmanager
@@ -1962,20 +2089,22 @@ def knobs_set(settings: dict):
                 os.environ[name] = v
 
 
-def knob_paths(rng, dev, path_ms, card) -> None:
+def knob_paths(rng, dev, path_ms, card, early=None) -> None:
     """Every knob setting of ``KNOB_RUNS`` on the card: each run it changes
     at its full width (random input, Montgomery I/O), every output word
-    against the hostlib golden result, its launches counted and each
-    distinct K1-K3 launch recorded and then held against its plain version
-    and timed (:func:`check_path_launches`); each run timed (median of 10,
-    5 at 2^22; tables resident) right after the same run at the default
-    knobs, on one line with the card. ``api.ntt``'s runner cache must
-    build a fresh runner under the knob (``config.config_key()`` changes)
-    and the key must come back after it; the runner built under the knob,
-    run again after, must give the golden words again (a runner keeps the
-    plan it was built under). Then the by-design rejection of
-    NTT_MXU_BASE_LOG=6 (K1-K4 take m <= 32) and the NTT_DEBUG tripwire on
-    one corrupted word."""
+    against the hostlib golden result, its launches counted (asserted
+    where ``KNOB_COUNTS`` has them) and each distinct K1-K4 launch
+    recorded and then held against its plain version and timed
+    (:func:`check_path_launches`); each run timed (median of 10, 5 at
+    2^22 and above; tables resident) right after the same run at the
+    default knobs, on one line with the card. ``api.ntt``'s runner cache
+    must build a fresh runner under the knob (``config.config_key()``
+    changes) and the key must come back after it; the runner built under
+    the knob, run again after, must give the golden words again (a runner
+    keeps the plan it was built under). ``early``: {(field, log2 n):
+    (input, golden future)} started before this phase. Then the by-design
+    rejection of NTT_MXU_BASE_LOG=7 (the single-level kernels take
+    m <= 64) and the NTT_DEBUG tripwire on one corrupted word."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ntt_tpu_torch import get_field, limbs
@@ -1983,7 +2112,7 @@ def knob_paths(rng, dev, path_ms, card) -> None:
     from ntt_tpu_torch.config import config_key
 
     runs = sorted({r for _, _, rs in KNOB_RUNS for r in rs})
-    inputs = {}
+    inputs = dict(early or {})
     with ThreadPoolExecutor(max_workers=4) as pool:
         for name, log_n, _ in runs:
             if (name, log_n) not in inputs:
@@ -2020,6 +2149,9 @@ def knob_paths(rng, dev, path_ms, card) -> None:
                 if len(api._runner_cache) != cached + 1:
                     raise AssertionError(f"{label} {tag}: no fresh runner")
                 same_words(f"{label} {tag}", limbs.from_mont(y, f), want)
+                want_c = KNOB_COUNTS.get((label, name, log_n, alg))
+                if want_c is not None:
+                    expect_counts(f"{label} {tag}", c, want_c)
                 r, a = list(api._runner_cache.values())[-1]
                 ms = path_ms[f"knob {label} {tag}"] = time_ms(
                     lambda: r(xm, a), iters=iters(log_n, alg))
@@ -2037,14 +2169,15 @@ def knob_paths(rng, dev, path_ms, card) -> None:
     check_path_launches(seen, dev, timed=True)
 
     f = get_field("bls12-381-fr")
-    with knobs_set({"mxu.BASE_LOG": 6, "mxu.BASE": 64}):
+    with knobs_set({"mxu.BASE_LOG": 7, "mxu.BASE": 128}):
         try:
             api.get_runner(f, 1 << 18, device=dev)
         except ValueError as e:
-            print(f"knob NTT_MXU_BASE_LOG=6  bls12-381-fr 2^18 auto  "
+            print(f"knob NTT_MXU_BASE_LOG=7  bls12-381-fr 2^18 auto  "
                   f"rejected as designed: {e}", flush=True)
         else:
-            raise AssertionError("NTT_MXU_BASE_LOG=6 ran a kernel at m = 64")
+            raise AssertionError("NTT_MXU_BASE_LOG=7 ran a kernel at "
+                                 "m = 128")
     xs = inputs[min(k for k in inputs if k[0] == f.name)][0]
     bad = xs.copy()
     bad[f.n_words - 1, 1234] = 0xFFFFFFFF            # one element >= p
@@ -2214,7 +2347,7 @@ def dist_counts(f, n, algorithm, D, exchange) -> dict:
             if s == 1:
                 continue
             name = ("stage_ntt" if algorithm == "pallas"
-                    else "fused_subntt_multi" if s > mxu_level.BASE
+                    else "fused_subntt_multi" if s > mxu_level.SUB_PEEL
                     else "fused_subntt")
             counts[name] = counts.get(name, 0) + D
     return counts
@@ -2539,7 +2672,10 @@ def breakdown(f, n, rng, dev, algorithm="auto", xm=None) -> None:
 TOOLS_TARGET_S = "0.25"
 
 #: (tool, arguments, environment) of each in-process run, after the
-#: default health check, which runs as ``python3 -m``
+#: default health check, which runs as ``python3 -m``; keys "mxu.NAME" of
+#: the environment are knob constants (:func:`knobs_set`): under
+#: NTT_MXU_BASE_LOG=6 the knockout at m = 64 and the four single-level
+#: algorithms on every field, forward and inverse, at 2^12 (64 x 64)
 TOOL_RUNS = (
     ("healthcheck", ["bls12-381-fr", "12"], {}),
     ("healthcheck", ["--deep"], {}),
@@ -2549,6 +2685,10 @@ TOOL_RUNS = (
     ("shootout", ["20", "goldilocks"], {}),
     ("microbench", ["18", "bls12-381-fr"], {}),
     ("microbench", ["knockout", "18", "bls12-381-fr"], {}),
+    ("microbench", ["knockout", "18", "bls12-381-fr", "64"], BASE64),
+    *(("healthcheck", [name, "12", "mxu_chunked,mxu_pallas,mxu_fused,mxu_sub"],
+       BASE64) for name in ("bls12-381-fr", "bn254-fr", "goldilocks",
+                            "small-proth")),
     ("scaling", [], {}),
     ("scaling", ["bls12-381-fr", "16", "mxu_sub"], {}),
 )
@@ -2628,8 +2768,10 @@ def tools_phase(card) -> None:
         what = " ".join([name] + argv + [f"{k}={v}" for k, v in extra.items()])
         buf = io.StringIO()
         t0 = time.time()
-        with environment({"SHOOT_TARGET_S": TOOLS_TARGET_S, **extra}), \
-                contextlib.redirect_stdout(buf), \
+        env = {k: v for k, v in extra.items() if not k.startswith("mxu.")}
+        knobs = {k: v for k, v in extra.items() if k.startswith("mxu.")}
+        with environment({"SHOOT_TARGET_S": TOOLS_TARGET_S, **env}), \
+                knobs_set(knobs), contextlib.redirect_stdout(buf), \
                 contextlib.redirect_stderr(buf):
             rc = tool.main(argv)
         torch.cuda.synchronize()
@@ -3229,7 +3371,8 @@ def main() -> int:
     quick = "--quick" in sys.argv[1:]
     cross_only = "--cross-cards" in sys.argv[1:]
     t_start = time.time()
-    from ntt_tpu_torch import (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL)
+    from ntt_tpu_torch import (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL,
+                               get_field)
     from ntt_tpu_torch.api import get_runner
     from ntt_tpu_torch.kernels import _build
 
@@ -3297,6 +3440,7 @@ def main() -> int:
     check_table_generators(dev)
     check_multi_level(rng, dev, results)
     check_ladder_kernels(rng, dev, results)
+    check_base64_kernels(rng, dev, results)
     check_exchange(rng, dev, results)
     probe_line(results)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
@@ -3316,12 +3460,20 @@ def main() -> int:
     giant_paths(dev, path_ms, huge_x, huge_want, seen)
     pool.shutdown()
     del huge_x, huge_want
+    # the knob phase's longest golden result, on a host thread under the
+    # narrow paths (not beside the 2^27 one, which the giant paths wait for)
+    pool = ThreadPoolExecutor(max_workers=1)
+    kf = get_field(KNOB_EARLY_GOLDEN[0])
+    kx = random_words(kf, (1 << KNOB_EARLY_GOLDEN[1],), rng)
+    knob_early = {KNOB_EARLY_GOLDEN: (kx, pool.submit(golden_ntt, kf, kx))}
     check_path_launches(seen, dev, timed=True)
     del seen
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(narrow_paths(rng, dev, path_ms))
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
-    knob_paths(rng, dev, path_ms, card)
+    knob_paths(rng, dev, path_ms, card, knob_early)
+    pool.shutdown()
+    del knob_early
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     counts.update(ladder_paths(rng, dev, path_ms))
     counts.update(probe_path(rng, dev))

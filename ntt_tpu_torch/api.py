@@ -396,16 +396,18 @@ def _check_knobs(field: Field, n: int, algorithm: str) -> None:
     - NTT_FUSE_TW=0 with the matrix fold on: the folded tables ride the
       fused level kernels (the JAX package fails at trace time here; set
       NTT_TW_MATFOLD=0 too);
-    - an NTT_MXU_BASE_LOG above 5 where a single-level kernel (K1-K4)
-      would take m = BASE > 32 points: they contract one conv matrix of at
-      most 32 points (``kernels/mxu_level.tc_plan``)."""
+    - an NTT_MXU_BASE_LOG above 6 where a single-level kernel (K1-K4)
+      would take m = BASE > 64 points: they contract one conv matrix of at
+      most 64 points (``kernels/mxu_level.LEVEL_MAX_M``; at 128 points a
+      256-bit conv matrix is 22 MB, and the JAX package's kernels do not
+      take it either)."""
     if (algorithm == "mxu_chunked" and not _mxu.FUSE_TW
             and _matfold_on(field, n, _mxu.BASE)):
         raise ValueError(
             f"NTT_FUSE_TW=0 with NTT_TW_MATFOLD=1: the folded tables of "
             f"{field.name} 2^{n.bit_length() - 1} need the fused level "
             "kernels; set NTT_TW_MATFOLD=0 as well")
-    single = mxu_level.BASE
+    single = mxu_level.LEVEL_MAX_M
     if _mxu.BASE <= single or n <= single:
         return
     if (algorithm in ("mxu_pallas", "mxu_fused", "mxu_chunked")
@@ -413,8 +415,9 @@ def _check_knobs(field: Field, n: int, algorithm: str) -> None:
                 field, n, _mxu.effective_subbase(field))):
         raise ValueError(
             f"NTT_MXU_BASE_LOG={_mxu.BASE_LOG}: {algorithm} would run a "
-            f"single-level kernel at m = {_mxu.BASE}; they take m <= "
-            f"{single}")
+            f"single-level kernel at m = {_mxu.BASE}; the single-level "
+            f"kernels take m <= {single} (NTT_MXU_BASE_LOG <= "
+            f"{single.bit_length() - 1})")
 
 
 _runner_cache: dict = {}

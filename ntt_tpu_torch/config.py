@@ -13,10 +13,10 @@ words.
 
 - ``NTT_MXU_BASE_LOG=5``   log2 of the peel and base transform of the
                            single-level drivers (``transforms/mxu.py``:
-                           m of K1, K2, K3 single, K4). Above 5 the
-                           drivers that would run those kernels at m > 32
-                           raise ValueError: the kernels contract one conv
-                           matrix of at most 32 points
+                           m of K1, K2, K3 single, K4). 6 runs them at
+                           m = 64; above 6 the drivers that would run
+                           them at m > 64 raise ValueError: the kernels
+                           contract one conv matrix of at most 64 points
 - ``NTT_MXU_SUBBASE_LOG=9`` log2 of the ``mxu_sub`` peel on the narrow
                            fields (m of the multi-level K3)
 - ``NTT_MXU_SUB256_LOG=0`` log2 of the ``mxu_sub`` peel on the 256-bit

@@ -3,10 +3,11 @@
 //   mxu_level.cu  mxu_base_ntt           K1, replaces ntt_tpu/kernels/mxu_ntt.py::_kernel
 //                 mxu_fused_level_stack  K2, replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
 //                 mxu_fused_subntt       K3, replaces ntt_tpu/kernels/mxu_level.py::_kernel_sub
-//                                            in its single-level form, m <= 32
+//                                            in its single-level form, m <= 64
 //                 mxu_fused_level        K4, replaces ntt_tpu/kernels/mxu_level.py::_kernel_level
 //                 mxu_fused_level_probe  K7, replaces ntt_tpu/kernels/mxu_level.py::_kernel_probe
 //   mxu_sub.cu    mxu_fused_subntt_multi K3 in its multi-level form, m = 64 .. 512
+//                                            (a peel of 32 points, PEEL)
 //
 // (vmem_ntt.cu, the butterfly-stage kernels K5 and K6, takes only the field
 // arithmetic from here: FieldConst, the carry-chain primitives, cond_sub_p,
@@ -15,7 +16,7 @@
 // Every kernel is a template over W, the 32-bit words per element: 8 for the
 // 256-bit fields, 2 for Goldilocks, 1 for the small Proth prime.
 //
-// All compute levels of the peel-32 four-step on data x = uint32[W, m, B]
+// All compute levels of the peel-32 (or peel-64) four-step on data x = uint32[W, m, B]
 // (limb-major word planes of canonical Montgomery-form elements): an m-point
 // modular linear map along axis 1, as ONE digit matmul against a host-built conv
 // matrix A[(e*m + k), (j*m + i)] (int8; D = ceil(32 W / 7) seven-bit digits per
@@ -23,7 +24,9 @@
 // matrices are pre-folded mod p, and the full banded profile E = 2D - 1 for the
 // narrow fields), followed by a Montgomery reduction and, for K2/K3/K4, a
 // twiddle product. Every digit and matrix entry is in [0, 127] and every plane
-// sum is below 2^25, so int8 products with int32 sums compute the matmul exactly.
+// sum is at most m * D * 127^2: below 2^25 up to m = 32, below 2^26 at m = 64
+// (64 * 37 * 127^2 = 38,193,472 for W = 8), so int8 products with int32 sums
+// compute the matmul exactly.
 //
 // One contraction computes Z[e*m + k, b] = sum_c A[e*m + k, c] * d[c, b] for
 // every kernel: tc::contract, on the int8 tensor cores.
@@ -32,13 +35,23 @@
 //      its GEMM rows are {e*m + k : e < E, k in the chunk}, E*kt of them
 //      (about 300), zero-padded to 320, and the contraction depth D*m is
 //      zero-padded to a multiple of 32 (k_pad). The block builds the digit
-//      tile of its columns once in shared memory (stage_tile), K-contiguous
-//      per column with the 32-byte swizzle, from whatever operand its kernel
+//      tile of its columns in shared memory (stage_tile), K-contiguous per
+//      column with the 32-byte swizzle, from whatever operand its kernel
 //      names: x itself for K1-K4 and K7, the (i2, b) columns of x and then
-//      level A's shared result tile for the multi-level K3;
+//      level A's shared result tile for the multi-level K3. Up to m = 32 the
+//      tile holds the whole depth and is built once. At m = 64 it is streamed
+//      over the depth in passes of 32 rows (passes(m) = m / 32): the depth
+//      c = j*m + i of digit j of row i splits into 32-deep steps (j, h) that
+//      each hold rows 32h .. 32h+31 of one digit, so pass h stages the digits
+//      of rows 32h .. 32h+31 alone (the m = 32 tile, D sub-tiles) and runs the
+//      steps (0, h) .. (D-1, h); the int32 sums stay in the warpgroups'
+//      registers from one pass to the next. The tile is then the m = 32 one
+//      (151,552 bytes at W = 8 where the whole would be 303,104), and each
+//      block keeps its 128 columns, so one conv-matrix byte still serves 128;
 //   2. TMA brings the chunk's conv-matrix rows 32 contraction bytes a step
-//      through a six-stage ring (the box gathers the rows; where D*m % 16 != 0,
-//      at m <= 8, cp.async loads the whole chunk instead);
+//      through a six-stage ring, in the order the passes run (step (j, h) at
+//      contraction byte (j * passes + h) * 32; the box gathers the rows; where
+//      D*m % 16 != 0, at m <= 8, cp.async loads the whole chunk instead);
 //   3. per step, four warpgroups run one wgmma.m64n160k32.s32.s8.s8 each: the
 //      digits are the M side (64 columns), the conv-matrix rows the N side
 //      (160 GEMM rows), so one conv-matrix byte serves 128 columns. A K2 block
@@ -59,12 +72,24 @@
 //   4. reduce V = sum_e Z[e] * 2^(7e) to canonical words. The matrices are
 //      prescaled by R * 2^16 (R = 2^(32 W)), so the result is
 //      V * 2^-(32 W + 16) mod p. The kernel takes it as W + 1 32-bit Montgomery
-//      steps on V * 2^16 (2^16 * 2^-(32 (W + 1))). The window V * 2^16 <
-//      2^(32 (W + 1)) * p holds for every field: V < 2^293 for W = 8 (folded
-//      rows, sums below 2^25), and V < 32 p^2 for the banded matrices, where
-//      p * 2^21 < 2^(32 (W + 1)). The JAX package reaches the same canonical
-//      value through its fold matmul and a 16-bit tail (W = 8) or a 16-bit
-//      wide reduction (narrow fields);
+//      steps on V * 2^16 (2^16 * 2^-(32 (W + 1))), which end below 2p, one
+//      conditional subtraction from canonical, while the window
+//      V * 2^16 < 2^(32 (W + 1)) * p holds. It holds for every field up to
+//      m = 64:
+//        W = 8 (folded rows, E = 37 planes, sums below 2^26 at m = 64):
+//          V < 2^26 * 2^(7 * 36) * 128/127 < 2^279, so V * 2^16 < 2^295,
+//          far below 2^288 * p (p > 2^253); the lanes hold it (a plane
+//          shifted by up to 31 bits is below 2^57, and the NT = 18 words of
+//          the window hold 2^576);
+//        the banded matrices (W = 1, 2): V is the exact sum of m products of
+//          a matrix entry and an element, both below p, so V < m p^2 and,
+//          at m = 64, V * 2^16 < 2^22 p^2, below 2^(32 (W + 1)) * p where
+//          p * 2^22 < 2^(32 (W + 1)): p < 2^42 for W = 1 (the small Proth
+//          prime is below 2^32), p < 2^74 for W = 2 (Goldilocks is below
+//          2^64).
+//      The JAX package reaches the same canonical value through its fold
+//      matmul and a 16-bit tail (W = 8) or a 16-bit wide reduction (narrow
+//      fields), at m = 64 as at 32;
 //   5. optionally multiply by a Montgomery twiddle (32-bit CIOS, R = 2^(32 W));
 //   6. store the words at [w, k, b], coalesced over b (K4: or at [w, b, k]).
 #pragma once
@@ -77,7 +102,7 @@
 
 namespace mxu {
 
-constexpr int MAX_M = 32;  // the longest transform one conv matrix computes
+constexpr int MAX_LEVEL_M = 64;  // the longest transform one conv matrix computes (K1-K4, K7)
 constexpr int MAX_W = 8;
 
 // Digit geometry of a W-word field.
@@ -118,16 +143,21 @@ constexpr int MAX_SMEM = 232448;  // dynamic shared bytes a block may use
 // Rows a stage holds: the E*kt GEMM rows, rounded up to the 8-row swizzle atom.
 __host__ __device__ inline int stage_rows(int E, int kt) { return (E * kt + 7) & ~7; }
 
+// The digit tile of an m-row operand is built in passes(m) passes of m /
+// passes(m) rows each: the whole operand up to m = BK, BK rows a pass above.
+__host__ __device__ inline int passes(int m) { return m > BK ? m / BK : 1; }
+
 // Shared bytes of one contraction. The conv-matrix rows: STAGES ring stages
 // when TMA feeds them (D*m % 16 == 0), else the whole chunk, k_pad / BK stages.
-// Then the digit tile (k_pad / BK sub-tiles of N x BK bytes), at least as large
-// as the rows the last stage's wgmma reads past its end (ROWS are read, the
-// unused ones multiply into accumulators nobody stores). The Z tile [E*kt, ZS]
-// aliases both after the main loop.
+// Then the digit tile of one pass (k_pad / BK / passes(m) sub-tiles of N x BK
+// bytes), at least as large as the rows the last stage's wgmma reads past its
+// end (ROWS are read, the unused ones multiply into accumulators nobody
+// stores). The Z tile [E*kt, ZS] aliases both after the main loop.
 __host__ __device__ inline int contract_bytes(int D, int E, int m, int kt, int k_pad) {
   const int rows = stage_rows(E, kt);
   const int stages = (D * m) % 16 == 0 ? STAGES : k_pad / BK;
-  const int dig = N * k_pad > (ROWS - rows) * BK ? N * k_pad : (ROWS - rows) * BK;
+  const int tile = N * (k_pad / passes(m));
+  const int dig = tile > (ROWS - rows) * BK ? tile : (ROWS - rows) * BK;
   const int main_loop = stages * rows * BK + dig;
   const int z = E * kt * ZS * 4;
   return main_loop > z ? main_loop : z;
@@ -338,16 +368,18 @@ __device__ __forceinline__ void stage_tile(int m, int k_pad, Load load, uint8_t*
   fence_async_shared();
 }
 
-// The digit tile of a level's columns b0 .. b0+N-1 of x, zero for the columns
-// outside [lo, hi).
-template <int W>
+// The digit tile of pass h of P (P = passes(L.m)) of a level's columns
+// b0 .. b0+N-1 of x (rows h * m / P onwards), zero for the columns outside
+// [lo, hi).
+template <int W, int P>
 __device__ __forceinline__ void stage_digits(const Level& L, long long b0, long long lo,
-                                             long long hi, uint8_t* dig) {
-  stage_tile<W>(L.m, L.k_pad, [&](int i, int bl, uint32_t (&w)[W]) {
+                                             long long hi, int h, uint8_t* dig) {
+  const int rows = L.m / P, i0 = h * rows;
+  stage_tile<W>(rows, L.k_pad / P, [&](int i, int bl, uint32_t (&w)[W]) {
     const long long b = b0 + bl;
     const bool in = b >= lo && b < hi;
 #pragma unroll
-    for (int q = 0; q < W; ++q) w[q] = in ? L.x[((long long)q * L.m + i) * L.B + b] : 0u;
+    for (int q = 0; q < W; ++q) w[q] = in ? L.x[((long long)q * L.m + i0 + i) * L.B + b] : 0u;
   }, dig);
 }
 
@@ -394,18 +426,23 @@ __device__ __forceinline__ void load_chunk(const int8_t* A, int m, int kt, int k
 // against GEMM rows (g >> 1)*NR .. +NR-1 of the stage (the N side). Every
 // conv-matrix byte brought in serves N = 128 columns. The stages come through a ring
 // fed by TMA (the `full` barriers) or, without TMA, hold the whole chunk.
-// stage_cols(lo, hi, dig) writes the digit tile of the columns in [lo, hi)
-// (all of them for one matrix). A K2 block whose columns span several stack entries
-// runs the contraction once per entry, each time with a digit tile that holds
-// only that entry's columns. Ends with a barrier: Z is readable by every
-// thread, and the barriers are invalidated, so that a block may contract again
-// once every thread is done with Z.
-template <int W, class Stage>
+// P is passes(L.m), a template argument: the kernels that take m = 64 are
+// instantiated for it apart, so that the one-pass contraction (every m up
+// to 32, and the multi-level K3) compiles as it did before the passes.
+// stage_cols(lo, hi, h, dig) writes the digit tile of pass h (each
+// k_pad / BK / P steps deep) of the columns in [lo, hi) (all of them for one
+// matrix); the steps of pass h read contraction bytes (j * P + h) * BK. A K2
+// block whose columns span several stack entries runs the contraction once
+// per entry, each time with a digit tile that holds only that entry's
+// columns. The sums accumulate over the entries and the passes. Ends with a
+// barrier: Z is readable by every thread, and the barriers are invalidated,
+// so that a block may contract again once every thread is done with Z.
+template <int W, int P, class Stage>
 __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map, long long b0,
                                          int k0, uint8_t* smem, uint64_t* full,
                                          Stage stage_cols) {
   constexpr int E = Geo<W>::E;
-  const int kt = L.kt, R = E * kt, nk = L.k_pad / BK;
+  const int kt = L.kt, R = E * kt, nk = L.k_pad / BK / P;  // nk: steps a pass
   const int stage_bytes = stage_rows(E, kt) * BK;
   uint8_t* rows = smem;
   uint8_t* dig = smem + (L.tma ? STAGES : nk) * stage_bytes;
@@ -419,10 +456,11 @@ __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map,
     s_lo = b0 / L.a_rep;
     n_entries = (int)(last / L.a_rep - s_lo) + 1;
   }
-  const int steps = n_entries * nk;
-  auto issue = [&](int t) {  // TMA: step t into ring stage t % STAGES
-    tma_load(rows + (t % STAGES) * stage_bytes, map, &full[t % STAGES], R * BK, (t % nk) * BK,
-             k0, (int)(s_lo + t / nk));
+  const int steps = n_entries * P * nk;
+  auto issue = [&](int t) {  // TMA: step t (entry, pass h, step j) into ring stage t % STAGES
+    const int j = t % nk, h = (t / nk) % P;
+    tma_load(rows + (t % STAGES) * stage_bytes, map, &full[t % STAGES], R * BK, (j * P + h) * BK,
+             k0, (int)(s_lo + t / (nk * P)));
   };
   if (L.tma && threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) mbar_init(&full[i], 1);
@@ -432,7 +470,8 @@ __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map,
 
   int acc[NR / 2];  // the first step overwrites it
 
-  for (int e = 0; e < n_entries; ++e) {
+  for (int ep = 0; ep < n_entries * P; ++ep) {
+    const int e = ep / P, h = ep % P;
     long long lo = 0, hi = L.B;
     if (L.a_stride) {
       lo = (s_lo + e) * L.a_rep;
@@ -440,11 +479,12 @@ __device__ __forceinline__ void contract(const Level& L, const CUtensorMap* map,
     }
     wgmma_wait<0>();
     __syncthreads();  // the digit tile and the whole chunk are free
-    stage_cols(lo, hi, dig);
+    stage_cols(lo, hi, h, dig);
+    // (without TMA, m <= 8: one pass)
     if (!L.tma) load_chunk<W>(L.A + (s_lo + e) * L.a_stride, L.m, kt, k0, stage_bytes, rows);
     __syncthreads();
     for (int kb = 0; kb < nk; ++kb) {
-      const int t = e * nk + kb;
+      const int t = ep * nk + kb;
       if (L.tma) mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
       const uint8_t* stage = rows + (L.tma ? t % STAGES : kb) * stage_bytes;
       wgmma_fence();
@@ -586,7 +626,8 @@ __device__ __forceinline__ void cond_sub_p(const uint32_t (&r)[W], uint32_t top,
 }
 
 // y = V * 2^-(32 W + 16) mod p for V = sum_e z[e] * 2^(7e), each
-// 0 <= z[e] < 2^25 and V * 2^16 < 2^(32 (W + 1)) * p.
+// 0 <= z[e] < 2^26 (m <= 64) and V * 2^16 < 2^(32 (W + 1)) * p (the windows
+// at the top of this file).
 template <int W>
 __device__ __forceinline__ void reduce(const int (&z)[Geo<W>::E], const FieldConst& fc,
                                        uint32_t (&y)[W]) {

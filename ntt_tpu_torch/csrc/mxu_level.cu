@@ -1,5 +1,5 @@
 // K1, K2, K3 (single-level), K4 and K7: one m-point digit-matmul level on
-// uint32[W, m, B] (W = 8, 2 or 1 words per element; m <= 32).
+// uint32[W, m, B] (W = 8, 2 or 1 words per element; m <= 64, MAX_LEVEL_M).
 //
 // K1 mxu_base_ntt replaces ntt_tpu/kernels/mxu_ntt.py::_kernel (entry
 // base_ntt_mxu_pallas): the base transform, one conv matrix and the
@@ -13,7 +13,7 @@
 // power of two dividing B): level 0 above 2^24, whose residual the JAX package
 // tiles to each chunk's width, reads its compact [W, 32, s0] table here.
 //
-// K3 mxu_fused_subntt replaces the single-level form (m <= 32) of
+// K3 mxu_fused_subntt replaces the single-level form (m <= 64) of
 // ntt_tpu/kernels/mxu_level.py::_kernel_sub (entry fused_subntt): one conv matrix,
 // then the decomposition twiddle by a Montgomery product, read from T3[W, m, B]
 // (rep == 1) or from the i2-resolution table T3[W, B / rep, m] (rep > 1; a warp
@@ -25,27 +25,33 @@
 // four-step transpose rides the level's own pass over the data.
 //
 // K7 mxu_fused_level_probe replaces ntt_tpu/kernels/mxu_level.py::_kernel_probe
-// (entry fused_level_probe): K3's level at rep = 1 (K4's without the transposed
-// store) cut off after one of five stages, to attribute its time. Outputs
+// (entry fused_level_probe): K4's level without the transposed store (the
+// fused flat-peel level; K3's at rep = 1 computes the same) cut off after one
+// of five stages, to attribute its time. Outputs
 // uint32[W, m, B]: "stream" x itself; "digits" the sum of an element's D digits,
 // on every word plane, read back from the staged digit tile; "matmul" the planes
 // 0 .. W-1 of the E accumulator planes, cast to uint32, from the Z tile;
 // "reduce" the reduced y; "tw" y * T3, which is the whole level.
 //
 // All five are one block body (tc_level) on the int8 tensor cores
-// (mxu_core.cuh, tc::contract), each under a kernel name of its own: a block
+// (mxu_core.cuh, tc::contract), each under a kernel name of its own,
+// instantiated for W and for the passes of the digit tile (two at m = 64, one
+// below, so that the kernels up to m = 32 compile as they did before): a block
 // owns a chunk of kt output rows and 128 batch columns; TMA streams the chunk's
 // conv-matrix rows (gathered by a 4-D box over [NT][E][m][D*m]) through a
-// six-stage ring, the digit tile is built once in shared memory, and four
-// warpgroups run wgmma m64n160k32 s8 on it (two column halves x two row
-// halves); the sums go through a shared Z tile to the epilogue: reduce<W>,
+// six-stage ring, the digit tile is built in shared memory (once up to
+// m = 32; at m = 64 in two passes of 32 rows, the sums carried in registers
+// from one to the next: tc::contract), and four warpgroups run wgmma
+// m64n160k32 s8 on it (two column halves x two row halves); the sums go
+// through a shared Z tile to the epilogue: reduce<W>,
 // then T3 by mont_mul, then the store (for K4's transposed store through a
 // [w][column][row | 1] tile, so that the writes run along m). The epilogue
 // takes the probe's stage as an argument; the other kernels pass TW, which the
 // compiler folds away. Blocks are numbered column tile by column tile, the row
 // chunks of one tile together, so the blocks of one stack entry run together
-// and read its matrix from L2. K3's multi-level form (m > 32) is mxu_sub.cu,
-// on the same contraction.
+// and read its matrix from L2. K3's multi-level form (m = 64 .. 512, peel 32) is
+// mxu_sub.cu, on the same contraction; which form a launch of m = 64 takes is
+// the caller's plan (the single-level one under NTT_MXU_BASE_LOG=6).
 //
 // Bounds on an H100 at the 256-bit main path's shapes (W = 8, n = 2^18, m = 32,
 // B = 8192, 11.5 G int8 MACs = 11.6 us at the 1,979 TOPS int8 tensor peak):
@@ -125,14 +131,16 @@ __device__ __forceinline__ void tc_epilogue(const mxu::tc::Level& L, long long b
 }
 
 // K7's first two stages for rows k0 .. k0+kt-1 of the block's columns: x
-// itself, or the digit sums read back from the staged digit tile at `smem`.
-template <int W>
+// itself, or the digit sums read back from the staged digit tile at `smem`
+// (the pass that holds the chunk's rows: a chunk lies within one pass).
+template <int W, int P>
 __device__ __forceinline__ void probe_early(const mxu::tc::Level& L, long long b0, int k0,
                                             uint8_t* smem, int stage) {
   using namespace mxu;
   constexpr int N = tc::N;
+  const int rows = L.m / P, h = k0 / rows;
   if (stage == DIGITS) {
-    tc::stage_digits<W>(L, b0, 0, L.B, smem);
+    tc::stage_digits<W, P>(L, b0, 0, L.B, h, smem);
     __syncthreads();
   }
   for (int idx = threadIdx.x; idx < L.kt * N; idx += tc::THREADS) {
@@ -148,15 +156,16 @@ __device__ __forceinline__ void probe_early(const mxu::tc::Level& L, long long b
     } else {
       uint32_t acc = 0u;
 #pragma unroll
-      for (int j = 0; j < Geo<W>::D; ++j) acc += smem[tc::dig_at(bl, j * L.m + i)];
+      for (int j = 0; j < Geo<W>::D; ++j) acc += smem[tc::dig_at(bl, j * rows + i - h * rows)];
 #pragma unroll
       for (int q = 0; q < W; ++q) L.out[((long long)q * L.m + i) * L.B + b] = acc;
     }
   }
 }
 
-// One tensor-core block: column tile blockIdx.x / (m / kt), row chunk blockIdx.x % (m / kt).
-template <int W>
+// One tensor-core block: column tile blockIdx.x / (m / kt), row chunk blockIdx.x % (m / kt);
+// the digit tile in P passes (tc::contract).
+template <int W, int P>
 __device__ __forceinline__ void tc_level(const CUtensorMap* map, const mxu::tc::Level& L,
                                          int stage) {
   extern __shared__ uint8_t tc_smem_raw[];
@@ -167,71 +176,75 @@ __device__ __forceinline__ void tc_level(const CUtensorMap* map, const mxu::tc::
   const long long b0 = (long long)(blockIdx.x / chunks) * mxu::tc::N;
   const int k0 = (blockIdx.x % chunks) * L.kt;
   if (stage < MATMUL) {
-    probe_early<W>(L, b0, k0, smem, stage);
+    probe_early<W, P>(L, b0, k0, smem, stage);
     return;
   }
-  mxu::tc::contract<W>(L, map, b0, k0, smem, full, [&](long long lo, long long hi, uint8_t* dig) {
-    mxu::tc::stage_digits<W>(L, b0, lo, hi, dig);
-  });
+  mxu::tc::contract<W, P>(L, map, b0, k0, smem, full,
+                          [&](long long lo, long long hi, int h, uint8_t* dig) {
+                            mxu::tc::stage_digits<W, P>(L, b0, lo, hi, h, dig);
+                          });
   tc_epilogue<W>(L, b0, k0, smem, stage);
 }
 
-template <int W>
+template <int W, int P>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     fused_level_stack_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L, TW);
+  tc_level<W, P>(&map, L, TW);
 }
 
-template <int W>
+template <int W, int P>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     fused_level_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L, TW);
+  tc_level<W, P>(&map, L, TW);
 }
 
-template <int W>
+template <int W, int P>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     fused_subntt_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L, TW);
+  tc_level<W, P>(&map, L, TW);
 }
 
-template <int W>
+template <int W, int P>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     base_ntt_mxu_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L, TW);
+  tc_level<W, P>(&map, L, TW);
 }
 
-template <int W>
+template <int W, int P>
 __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
     fused_level_probe_kernel(const __grid_constant__ CUtensorMap map, mxu::tc::Level L) {
-  tc_level<W>(&map, L, L.stage);
+  tc_level<W, P>(&map, L, L.stage);
 }
 
-// The tensor-core kernels, one name each.
+// The tensor-core kernels, one name each, instantiated for W and for the
+// passes of the digit tile (P = 2 only at m = 64).
 enum TcKind { TC_BASE, TC_STACK, TC_SUBNTT, TC_LEVEL, TC_PROBE };
 using TcKernel = void (*)(const CUtensorMap, mxu::tc::Level);
 
-template <int W>
+template <int W, int P>
 static TcKernel tc_kernel(TcKind kind) {
   switch (kind) {
-    case TC_BASE: return base_ntt_mxu_kernel<W>;
-    case TC_STACK: return fused_level_stack_kernel<W>;
-    case TC_SUBNTT: return fused_subntt_kernel<W>;
-    case TC_PROBE: return fused_level_probe_kernel<W>;
-    default: return fused_level_kernel<W>;
+    case TC_BASE: return base_ntt_mxu_kernel<W, P>;
+    case TC_STACK: return fused_level_stack_kernel<W, P>;
+    case TC_SUBNTT: return fused_subntt_kernel<W, P>;
+    case TC_PROBE: return fused_level_probe_kernel<W, P>;
+    default: return fused_level_kernel<W, P>;
   }
 }
 
 // K1 / K2 / K3 / K4 / K7: checks the launch plan (kt, k_pad, m_pad, blocks, smem)
 // against the operands and launches it; cudaErrorInvalidValue for a plan the
-// kernel cannot take.
+// kernel cannot take. Above m = 32 the depth is streamed in passes of 32 rows
+// (tc::contract): it must be unpadded, and a row chunk must lie in one pass.
 template <int W>
 static int launch_tc(TcKind kind, mxu::tc::Level& L, long long NT, long long blocks, int smem,
                      void* stream) {
   using namespace mxu;
   constexpr int D = Geo<W>::D, E = Geo<W>::E;
   const int m = L.m, kt = L.kt, K = D * m;
-  const bool ok = m >= 2 && m <= MAX_M && !(m & (m - 1)) && L.B >= 1 && kt >= 1 && kt <= m &&
-                  !(kt & (kt - 1)) && L.k_pad >= K && L.k_pad % tc::BK == 0 &&
+  const bool ok = m >= 2 && m <= MAX_LEVEL_M && !(m & (m - 1)) && L.B >= 1 && kt >= 1 &&
+                  kt <= m && !(kt & (kt - 1)) && L.k_pad >= K && L.k_pad % tc::BK == 0 &&
+                  (m <= tc::BK || (L.k_pad == K && tc::BK % kt == 0)) &&
                   L.m_pad == tc::ROWS && E * kt <= tc::ROWS &&
                   blocks == (L.B + tc::N - 1) / tc::N * (m / kt) && blocks <= 0x7fffffffLL &&
                   smem >= tc::smem_bytes(W, D, E, m, kt, L.k_pad) && smem <= tc::MAX_SMEM &&
@@ -244,7 +257,7 @@ static int launch_tc(TcKind kind, mxu::tc::Level& L, long long NT, long long blo
   CUtensorMap map{};
   L.tma = K % 16 == 0;
   if (L.tma && !tc::stack_map(&map, L.A, E, m, K, NT, kt)) return (int)cudaErrorInvalidValue;
-  const TcKernel kernel = tc_kernel<W>(kind);
+  const TcKernel kernel = tc::passes(m) == 2 ? tc_kernel<W, 2>(kind) : tc_kernel<W, 1>(kind);
   cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
   kernel<<<(unsigned)blocks, tc::THREADS, smem, (cudaStream_t)stream>>>(map, L);

@@ -54,6 +54,10 @@
 
 namespace mxu {
 
+// Level A's transform length, the peel of the recursion: 32 whatever the
+// single-level kernels' largest m (MAX_LEVEL_M) and NTT_MXU_BASE_LOG are
+constexpr int PEEL = 32;
+
 struct SubLevel {
   tc::Level a;          // level A: A1 (m = 32), kt rows k1 a block, padded depth, TMA
   tc::Level b;          // level B: A2 (m = m2), kt2 rows k2 a row pass, padded depth, TMA
@@ -82,7 +86,7 @@ __device__ __forceinline__ void epilogue_a(const SubLevel& S, int k0, const uint
     const int kk = idx / N, v = idx % N, i2 = v >> S.lbt, bl = v & (bt - 1);
     uint32_t t[W];  // the twiddle's load runs under the reduction
 #pragma unroll
-    for (int q = 0; q < W; ++q) t[q] = __ldg(S.Tin + (q * MAX_M + k0 + kk) * S.m2 + i2);
+    for (int q = 0; q < W; ++q) t[q] = __ldg(S.Tin + (q * PEEL + k0 + kk) * S.m2 + i2);
     int z[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) z[e] = Z[(e * kt + kk) * tc::ZS + v];
@@ -106,7 +110,7 @@ __device__ __forceinline__ void epilogue_b(const SubLevel& S, long long b0, int 
     const int kk2 = idx / N, col = idx % N, u = u0 + col;
     const long long b = b0 + (u & (bt - 1));
     if (u >= V || b >= S.B) continue;
-    const int row = (k2_0 + kk2) * MAX_M + k0 + (u >> S.lbt);
+    const int row = (k2_0 + kk2) * PEEL + k0 + (u >> S.lbt);
     uint32_t t[W];  // the twiddle's load runs under the reduction
     if (S.T3 != nullptr) load_twiddle<W>(S.T3, S.t_rep, S.B, S.m, S.B, row, b, t);
     int z[E];
@@ -135,13 +139,13 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       ((uintptr_t)sub_smem_raw + tc::ALIGN - 1) & ~(uintptr_t)(tc::ALIGN - 1));
   uint32_t* Y = reinterpret_cast<uint32_t*>(smem + S.y_off);
-  const int kt = S.a.kt, chunks = MAX_M / kt, bt = 1 << S.lbt;
+  const int kt = S.a.kt, chunks = PEEL / kt, bt = 1 << S.lbt;
   const long long b0 = (long long)(blockIdx.x / chunks) * bt;
   const int k0 = (blockIdx.x % chunks) * kt;
 
   // level A: x[w, i1 * m2 + i2, b] is element (i1, v = i2 * bt + bl) of a 32-row operand
-  tc::contract<W>(S.a, &map_a, 0, k0, smem, full, [&](long long, long long, uint8_t* dig) {
-    tc::stage_tile<W>(MAX_M, S.a.k_pad, [&](int i1, int v, uint32_t (&w)[W]) {
+  tc::contract<W, 1>(S.a, &map_a, 0, k0, smem, full, [&](long long, long long, int, uint8_t* dig) {
+    tc::stage_tile<W>(PEEL, S.a.k_pad, [&](int i1, int v, uint32_t (&w)[W]) {
       const long long b = b0 + (v & (bt - 1));
       const long long row = (long long)i1 * S.m2 + (v >> S.lbt);
 #pragma unroll
@@ -156,13 +160,14 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     for (int k2 = 0; k2 < S.m2; k2 += S.b.kt) {
       tc::fence_async_shared();
       __syncthreads();  // Y is written and Z read: the ring may refill
-      tc::contract<W>(S.b, &map_b, 0, k2, smem, full, [&](long long, long long, uint8_t* dig) {
+      auto stage_y = [&](long long, long long, int, uint8_t* dig) {
         tc::stage_tile<W>(S.m2, S.b.k_pad, [&](int i2, int col, uint32_t (&w)[W]) {
           const int u = u0 + col;
 #pragma unroll
           for (int q = 0; q < W; ++q) w[q] = u < V ? Y[(q * S.m2 + i2) * S.ys + u] : 0u;
         }, dig);
-      });
+      };
+      tc::contract<W, 1>(S.b, &map_b, 0, k2, smem, full, stage_y);
       epilogue_b<W>(S, b0, k0, u0, k2, smem);
     }
   }
@@ -176,21 +181,21 @@ template <int W>
 static int launch_sub(SubLevel& S, long long blocks, int smem, void* stream) {
   constexpr int D = Geo<W>::D, E = Geo<W>::E;
   const int m2 = S.m2, kt = S.a.kt, kt2 = S.b.kt, bt = tc::N / m2;
-  S.a.tma = (D * MAX_M) % 16 == 0;
+  S.a.tma = (D * PEEL) % 16 == 0;
   S.b.tma = (D * m2) % 16 == 0;
-  const int ca = tc::contract_bytes(D, E, MAX_M, kt, S.a.k_pad);
+  const int ca = tc::contract_bytes(D, E, PEEL, kt, S.a.k_pad);
   const int cb = tc::contract_bytes(D, E, m2, kt2, S.b.k_pad);
-  const bool ok = kt >= 1 && kt <= MAX_M && !(kt & (kt - 1)) && E * kt <= tc::ROWS &&
+  const bool ok = kt >= 1 && kt <= PEEL && !(kt & (kt - 1)) && E * kt <= tc::ROWS &&
                   kt2 >= 1 && kt2 <= m2 && !(kt2 & (kt2 - 1)) && E * kt2 <= tc::ROWS &&
-                  S.a.k_pad >= D * MAX_M && S.a.k_pad % tc::BK == 0 && S.b.k_pad >= D * m2 &&
+                  S.a.k_pad >= D * PEEL && S.a.k_pad % tc::BK == 0 && S.b.k_pad >= D * m2 &&
                   S.b.k_pad % tc::BK == 0 && S.a.m_pad == tc::ROWS && S.b.m_pad == tc::ROWS &&
-                  blocks == (S.B + bt - 1) / bt * (MAX_M / kt) && blocks <= 0x7fffffffLL &&
+                  blocks == (S.B + bt - 1) / bt * (PEEL / kt) && blocks <= 0x7fffffffLL &&
                   smem >= tc::ALIGN + S.y_off + W * m2 * S.ys * 4 && smem <= tc::MAX_SMEM &&
                   S.ys >= kt * bt && S.y_off >= ca && S.y_off >= cb && S.y_off % 16 == 0 &&
                   S.t_rep >= 1 && S.B % S.t_rep == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a{}, map_b{};
-  if (!tc::stack_map(&map_a, S.a.A, E, MAX_M, D * MAX_M, 1, kt)) return (int)cudaErrorInvalidValue;
+  if (!tc::stack_map(&map_a, S.a.A, E, PEEL, D * PEEL, 1, kt)) return (int)cudaErrorInvalidValue;
   if (S.b.tma && !tc::stack_map(&map_b, S.b.A, E, m2, D * m2, 1, kt2))
     return (int)cudaErrorInvalidValue;
   cudaError_t rc = cudaFuncSetAttribute(fused_subntt_multi_kernel<W>,
@@ -212,13 +217,13 @@ extern "C" int mxu_fused_subntt_multi(const void* x, const void* A1, const void*
   if (m < 64 || m > 512 || (m & (m - 1)) || B < 1) return (int)cudaErrorInvalidValue;
   mxu::SubLevel S{};
   S.m = m;
-  S.m2 = m / mxu::MAX_M;
+  S.m2 = m / mxu::PEEL;
   S.lbt = __builtin_ctz(mxu::tc::N / S.m2);
   S.ys = ys;
   S.y_off = y_off;
   S.B = B;
   S.a.A = static_cast<const int8_t*>(A1);
-  S.a.m = mxu::MAX_M;
+  S.a.m = mxu::PEEL;
   S.a.B = B;
   S.a.kt = kt;
   S.a.k_pad = ka_pad;

@@ -126,7 +126,7 @@ def field_args(field: Field) -> tuple:
             ctypes.c_uint32(field.np0_32), ctypes.c_int(field.n_words))
 
 
-def check_level(x, field: Field, max_m: int = 32) -> None:
+def check_level(x, field: Field, max_m: int) -> None:
     """Checks the data operand of a kernel: uint32[W, m, B] on a CUDA
     device, contiguous, m a power of two in [2, max_m], W one of the
     widths the kernels are built for, the matrices folded exactly for

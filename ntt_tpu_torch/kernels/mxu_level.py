@@ -9,17 +9,19 @@ share with K1 (``kernels/mxu_ntt.py``).
   power of two dividing B).
 - ``fused_subntt`` (K3): an m-point sub-NTT, then the decomposition
   twiddle by a Montgomery product from T3 [W, m, B] (rep == 1) or from the
-  i2-resolution table T3 [W, B // rep, m] (rep > 1). Single-level for
-  m <= 32 (one conv matrix); multi-level for m = 64 .. 512: the peel-32
-  recursion with its two inner matmul levels and the inner twiddle
-  ω_m^{k1·i2} between them, all in one kernel.
+  i2-resolution table T3 [W, B // rep, m] (rep > 1). Single-level (one
+  conv matrix) up to 32 points, and at 64 where the caller's plan has the
+  64-point matrix (``NTT_MXU_BASE_LOG=6``; :func:`single_level`);
+  multi-level for m = 64 .. 512 otherwise: the peel-32 recursion with its
+  two inner matmul levels and the inner twiddle ω_m^{k1·i2} between them,
+  all in one kernel.
 
 - ``fused_level`` (K4): one conv matrix, an optional full-resolution
   twiddle T3 [W, m, B], and the store transposed to [W, B, m] on request:
   the level of the flat-peel transform ``mxu_fused``.
-- ``fused_level_probe`` (K7): K3's level at rep 1 cut off after
-  ``stream``, ``digits``, ``matmul``, ``reduce`` or ``tw``, to attribute
-  its time to its stages.
+- ``fused_level_probe`` (K7): K4's level (without the transposed store)
+  cut off after ``stream``, ``digits``, ``matmul``, ``reduce`` or ``tw``,
+  to attribute its time to its stages.
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/mxu_level.cu``, ``csrc/mxu_sub.cu``); on a CPU tensor it runs its
@@ -43,8 +45,14 @@ from ..fields import Field
 from ..transforms.core import host_power_matrix
 from . import _build
 
-#: the peel of the multi-level sub-NTT and its largest transform length
-BASE = 32
+#: the longest transform the single-level kernels (K1, K2, K3 single, K4,
+#: K7) compute as one conv matrix: above 32 points they stream the digit
+#: tile over the contraction depth in passes of 32 rows
+#: (``csrc/mxu_core.cuh``, ``tc::contract``)
+LEVEL_MAX_M = 64
+#: the peel of the multi-level sub-NTT (its level A) and its largest
+#: transform length; the peel stays 32 under every NTT_MXU_BASE_LOG
+SUB_PEEL = 32
 MAX_SUB = 512
 
 
@@ -109,6 +117,13 @@ TC_MAX_SMEM = 232448
 TC_KT = {8: 8, 2: 16, 1: 32}
 
 
+def tc_passes(m: int) -> int:
+    """Passes of the digit tile over the contraction depth
+    (``tc::passes``): one up to m = TC_BK rows, m / TC_BK above, each
+    holding TC_BK rows of the operand."""
+    return max(1, m // TC_BK)
+
+
 class TcPlan(NamedTuple):
     """Launch plan of one tensor-core level: kt output rows a chunk, the
     contraction depth and GEMM rows padded for the MMA, ``chunks`` row
@@ -126,20 +141,23 @@ class TcPlan(NamedTuple):
 def _contract_bytes(D: int, E: int, m: int, kt: int, k_pad: int) -> int:
     """Shared bytes of one contraction (``tc::contract_bytes``): the
     conv-matrix stages (a TMA ring where D*m % 16 == 0, else the whole
-    chunk), the digit tile, or the Z tile that aliases both."""
+    chunk), the digit tile of one pass (:func:`tc_passes`), or the Z tile
+    that aliases both."""
     rows = -(-E * kt // 8) * 8
     stages = TC_STAGES if D * m % 16 == 0 else k_pad // TC_BK
     main_loop = (stages * rows * TC_BK
-                 + max(TC_COLS * k_pad, (TC_ROWS_PAD - rows) * TC_BK))
+                 + max(TC_COLS * (k_pad // tc_passes(m)),
+                       (TC_ROWS_PAD - rows) * TC_BK))
     return max(main_loop, E * kt * TC_Z_STRIDE * 4)
 
 
 @functools.cache
 def tc_plan(field: Field, m: int, B: int) -> TcPlan:
     """The plan of a K1 / K2 / K3 (single-level) / K4 / K7 launch on
-    uint32[W, m, B] of ``field``."""
+    uint32[W, m, B] of ``field``, m up to LEVEL_MAX_M."""
     W = field.n_words
-    if W not in TC_KT or m & (m - 1) or not 2 <= m <= 32 or B < 1:
+    if (W not in TC_KT or m & (m - 1) or not 2 <= m <= LEVEL_MAX_M
+            or B < 1):
         raise ValueError(f"no tensor-core plan for W = {W}, m = {m}, "
                          f"B = {B}")
     D, E = digits.n_digits(field), digits.out_planes(field)
@@ -170,7 +188,8 @@ SUB_KT = {8: 4, 2: 16, 1: 32}
 
 
 class SubPlan(NamedTuple):
-    """Launch plan of the multi-level K3 on uint32[W, m, B], m2 = m / 32:
+    """Launch plan of the multi-level K3 on uint32[W, m, B], m2 = m / 32
+    (SUB_PEEL):
     a block owns ``kt`` rows k1 and ``bt`` = 128 / m2 batch columns (level
     A: one contraction over the 128 virtual columns (i2, b)); level B runs
     one contraction for each 128 of the kt * bt virtual columns (k1, b) and
@@ -198,22 +217,22 @@ def sub_plan(field: Field, m: int, B: int) -> SubPlan:
     """The plan of a multi-level K3 launch on uint32[W, m, B] of ``field``
     (``mxu_sub.cu``, ``launch_sub``)."""
     W = field.n_words
-    if W not in SUB_KT or m & (m - 1) or not 2 * BASE <= m <= MAX_SUB \
+    if W not in SUB_KT or m & (m - 1) or not 2 * SUB_PEEL <= m <= MAX_SUB \
             or B < 1:
         raise ValueError(f"no multi-level plan for W = {W}, m = {m}, "
                          f"B = {B}")
     D, E = digits.n_digits(field), digits.out_planes(field)
-    m2 = m // BASE
+    m2 = m // SUB_PEEL
     kt, kt2, bt = SUB_KT[W], min(m2, TC_KT[W]), TC_COLS // m2
-    ka_pad = -(-D * BASE // TC_BK) * TC_BK
+    ka_pad = -(-D * SUB_PEEL // TC_BK) * TC_BK
     kb_pad = -(-D * m2 // TC_BK) * TC_BK
     # Y's rows i2 are kt * bt words apart, bt more where a warp's 32 level-A
     # results span several i2 (bt < 32), so that their stores fall in
     # distinct banks; Y follows the larger of the two contractions' bytes
     ys = kt * bt + (bt if bt < 32 else 0)
-    y_off = max(_contract_bytes(D, E, BASE, kt, ka_pad),
+    y_off = max(_contract_bytes(D, E, SUB_PEEL, kt, ka_pad),
                 _contract_bytes(D, E, m2, kt2, kb_pad))
-    chunks, col_tiles = BASE // kt, -(-B // bt)
+    chunks, col_tiles = SUB_PEEL // kt, -(-B // bt)
     plan = SubPlan(kt, kt2, bt, ka_pad, kb_pad, TC_ROWS_PAD, chunks,
                    col_tiles, chunks * col_tiles, ys, y_off,
                    TC_ALIGN + y_off + W * m2 * ys * 4)
@@ -302,7 +321,7 @@ def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
     period = B if T3 is None else t3_period(T3, W, m, B)
     if x3.device.type == "cpu":
         return fused_level_stack_plain(x3, field, As, rep, F, T3)
-    _build.check_level(x3, field)
+    _build.check_level(x3, field, LEVEL_MAX_M)
     D, E = digits.n_digits(field), digits.out_planes(field)
     _build.check_operand(As, "As", torch.int8, (NT, E * m, D * m), x3.device)
     if T3 is not None:
@@ -347,23 +366,32 @@ def inner_twiddle(field: Field, m: int, inverse: bool, device):
         if inverse:
             root = field.inv_root_of_unity(m)
         got = _inner_cache[key] = torch.from_numpy(
-            host_power_matrix(field, root, BASE, m // BASE)).to(device)
+            host_power_matrix(field, root, SUB_PEEL, m // SUB_PEEL)).to(device)
     return got
 
 
+def single_level(m: int, mats) -> bool:
+    """Whether K3 runs an m-point sub-NTT as one conv matrix: always up
+    to SUB_PEEL points, at 64 where ``mats`` holds the 64-point matrix (a
+    plan built under NTT_MXU_BASE_LOG=6), never above. Else the peel-32
+    recursion of the multi-level kernel."""
+    return m <= SUB_PEEL or (m <= LEVEL_MAX_M and m in mats)
+
+
 def _subntt_plain(x3, field: Field, mats, inverse: bool):
-    """The m-point sub-NTT alone: one matrix for m <= 32, else the peel-32
-    recursion (32-point transforms over i1, the inner twiddle, transpose,
-    (m/32)-point transforms over i2; output row k2*32 + k1)."""
+    """The m-point sub-NTT alone: one matrix where :func:`single_level`,
+    else the peel-32 recursion (32-point transforms over i1, the inner
+    twiddle, transpose, (m/32)-point transforms over i2; output row
+    k2*32 + k1)."""
     W, m, B = x3.shape
-    if m <= BASE:
+    if single_level(m, mats):
         return digits.apply_matrix(mats[m], x3, field, m,
                                    _zmax_bits(field, m),
                                    fold_mat=mats.get(-m))
-    m2 = m // BASE
-    y = digits.apply_matrix(mats[BASE], x3.reshape(W, BASE, m2, B), field,
-                            BASE, _zmax_bits(field, BASE),
-                            fold_mat=mats.get(-BASE))
+    P = SUB_PEEL
+    m2 = m // P
+    y = digits.apply_matrix(mats[P], x3.reshape(W, P, m2, B), field,
+                            P, _zmax_bits(field, P), fold_mat=mats.get(-P))
     Tin = inner_twiddle(field, m, inverse, x3.device)
     y = limbs.mont_mul(y, Tin[:, :, :, None], field)
     y = digits.apply_matrix(mats[m2], y.transpose(1, 2).contiguous(), field,
@@ -390,7 +418,9 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
     for rep == 1, the i2-resolution table [W, B // rep, m] for rep > 1.
     ``mats``: {size: conv matrix, -size: fold matrix, -1: twiddle fold
     matrix} built for the direction ``inverse``; the kernels read only the
-    conv matrices (of m itself for m <= 32, of 32 and m // 32 above)."""
+    conv matrices: of m itself where :func:`single_level` (m <= 32, or 64
+    with its matrix in ``mats``), else of 32 and m // 32 (the multi-level
+    kernel)."""
     W, m, B = x3.shape
     if m == 1:
         return x3
@@ -401,12 +431,12 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
                              f"got {tuple(T3.shape)}")
     if x3.device.type == "cpu":
         return fused_subntt_plain(x3, field, mats, T3, rep, inverse)
-    _build.check_level(x3, field, max_m=MAX_SUB)
+    _build.check_level(x3, field, MAX_SUB)
     D, E = digits.n_digits(field), digits.out_planes(field)
     if T3 is not None:
         _build.check_operand(T3, "T3", torch.uint32, T3.shape, x3.device)
     out = torch.empty_like(x3)
-    if m <= BASE:
+    if single_level(m, mats):
         A = mats[m]
         _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
         rc = _lib().mxu_fused_subntt(
@@ -416,10 +446,10 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
         _build.check(rc, "fused_subntt")
         _build.launches["fused_subntt"] += 1
         return out
-    m2 = m // BASE
-    A1, A2 = mats[BASE], mats[m2]
-    _build.check_operand(A1, "A[32]", torch.int8, (E * BASE, D * BASE),
-                         x3.device)
+    m2 = m // SUB_PEEL
+    A1, A2 = mats[SUB_PEEL], mats[m2]
+    _build.check_operand(A1, "A[32]", torch.int8,
+                         (E * SUB_PEEL, D * SUB_PEEL), x3.device)
     _build.check_operand(A2, f"A[{m2}]", torch.int8, (E * m2, D * m2),
                          x3.device)
     Tin = inner_twiddle(field, m, inverse, x3.device)
@@ -449,7 +479,7 @@ def fused_level_plain(x3, field: Field, A, T3=None,
 
 def _check_level_operands(x3, field: Field, A, T3) -> None:
     W, m, B = x3.shape
-    _build.check_level(x3, field)
+    _build.check_level(x3, field, LEVEL_MAX_M)
     D, E = digits.n_digits(field), digits.out_planes(field)
     _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
     if T3 is not None:
@@ -458,7 +488,7 @@ def _check_level_operands(x3, field: Field, A, T3) -> None:
 
 def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
                 F=None, F2=None):
-    """One four-step level on uint32[W, m, B] (m a power of two up to 32):
+    """One four-step level on uint32[W, m, B] (m a power of two up to 64):
     the m-point transform as one digit matmul against the conv matrix
     ``A``, the optional full-resolution twiddle ``T3`` [W, m, B], stored as
     [W, B, m] when ``transpose_out`` (else [W, m, B]). ``F``, ``F2``: the
@@ -479,7 +509,7 @@ def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# K7: K3's level at rep 1 cut off after a stage
+# K7: K4's level cut off after a stage
 # ---------------------------------------------------------------------------
 
 #: the stages of the fused-level probe, in pipeline order
@@ -506,7 +536,7 @@ def fused_level_probe_plain(x3, field: Field, A, stage: str, T3=None):
 
 
 def fused_level_probe(x3, field: Field, A, stage: str, T3=None):
-    """The fused level (K3 at rep 1, K4 without the transposed store) cut
+    """The fused level (K4 without the transposed store; K3 at rep 1) cut
     off after ``stage``, for attributing its time: uint32[W, m, B] holding
     x itself (``stream``), the sum of each element's digits on every word
     plane (``digits``), the first W accumulator planes cast to uint32

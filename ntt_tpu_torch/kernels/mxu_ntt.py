@@ -1,6 +1,6 @@
 """Kernel K1: fused digit-matmul base NTT (port of ``ntt_tpu.kernels.mxu_ntt``).
 
-``base_ntt_mxu`` runs an m-point NTT (m <= 32) along axis 1 of
+``base_ntt_mxu`` runs an m-point NTT (m <= 64) along axis 1 of
 uint32[W, m, B], Montgomery form in and out: digit extraction, one int8
 matmul against the DFT conv matrix A, Montgomery reduction. On a CUDA tensor
 it launches the hand-written kernel ``base_ntt_mxu_kernel`` (in the level
@@ -27,7 +27,7 @@ def base_ntt_mxu_plain(x, field: Field, A, F=None):
 
 
 def base_ntt_mxu(x, field: Field, A, F=None):
-    """m-point NTT along axis 1 of uint32[W, m, B] (m <= 32): ``A`` is the
+    """m-point NTT along axis 1 of uint32[W, m, B] (m <= 64): ``A`` is the
     int8[D*m, D*m] conv matrix; ``F`` the fold matrix, which only the plain
     version reads (the kernel reduces with word-level Montgomery steps)."""
     W, m, B = x.shape
@@ -35,7 +35,7 @@ def base_ntt_mxu(x, field: Field, A, F=None):
         return x
     if x.device.type == "cpu":
         return base_ntt_mxu_plain(x, field, A, F)
-    _build.check_level(x, field)
+    _build.check_level(x, field, mxu_level.LEVEL_MAX_M)
     D, E = digits.n_digits(field), digits.out_planes(field)
     _build.check_operand(A, "A", torch.int8, (E * m, D * m), x.device)
     out = torch.empty_like(x)

@@ -189,7 +189,7 @@ def stage_ntt(x, field: Field, inverse: bool = False):
         return x
     if x.device.type == "cpu":
         return stage_ntt_plain(x, field, inverse)
-    _build.check_level(x, field, max_m=MAX_M)
+    _build.check_level(x, field, MAX_M)
     tw = twiddle_master_on(field, m, inverse, x.device)
     out = torch.empty_like(x)
     rc = _lib().vmem_stage_ntt(
@@ -229,7 +229,7 @@ def fused_stage_level(x, field: Field, inverse: bool = False, T3=None,
         return x.transpose(1, 2).contiguous() if transpose_out else x
     if x.device.type == "cpu":
         return fused_stage_level_plain(x, field, inverse, T3, transpose_out)
-    _build.check_level(x, field, max_m=MAX_M)
+    _build.check_level(x, field, MAX_M)
     if T3 is not None:
         _build.check_operand(T3, "T3", torch.uint32, (W, m, B), x.device)
     tw = twiddle_master_on(field, m, inverse, x.device)

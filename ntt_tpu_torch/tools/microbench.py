@@ -13,7 +13,7 @@ The components, on the ramp in Montgomery form: ``limbs.mont_mul`` and
 ``add_mod`` over the whole vector; ``digits.extract_digits``; the plain
 digit-matmul level ``mxu._base_ntt`` at m = 64; ``core.dit_stage`` at
 s = 32; the relayout; kernel K1 (``base_ntt_mxu``) at m = ``mxu.BASE``; the
-twiddle ``mont_mul`` over [W, 32, n/32]; the swapaxes round trip; the full
+twiddle ``mont_mul`` over [W, BASE, n/BASE]; the swapaxes round trip; the full
 ``mxu_chunked``, ``fourstep`` and ``mxu_pallas`` transforms; then the rate
 rows, measurement calibrations and not ports of a kernel: ``torch._int_mm``
 int8 and bf16 ``torch.matmul`` at 2048^3, and an int32 multiply-add chain
@@ -24,7 +24,7 @@ int8 and bf16 ``torch.matmul`` at 2048^3, and an int32 multiply-add chain
 tw; T3 from ``core.host_power_matrix``), each stage's time and its increase
 over the stage before; then kernel K2 (``fused_level_stack``) with the
 m-entry twiddle stack at rep = n/m^2, where K2 takes that shape
-(m <= 32, m dividing n/m).
+(m <= 64, m dividing n/m).
 """
 
 from __future__ import annotations
@@ -83,9 +83,9 @@ def knockout(args, dev) -> int:
     # the twiddle-fold level at the same geometry: level 0's stack (m
     # entries, rep = B/m); against 'reduce' the cost of streaming the
     # stack, against 'tw' what the fold saves a level
-    if B % m or m > mxu_level.BASE:
-        print(f"# stack: K2 takes m <= {mxu_level.BASE} dividing B; not "
-              f"m = {m}, B = {B}", flush=True)
+    if B % m or m > mxu_level.LEVEL_MAX_M:
+        print(f"# stack: K2 takes m <= {mxu_level.LEVEL_MAX_M} dividing B; "
+              f"not m = {m}, B = {B}", flush=True)
         return 0
     s0 = B // m
     tvals = [[pow(w, k * a * s0, field.p) for k in range(m)]

@@ -2,12 +2,13 @@
 ``mxu``, ``mxu_pallas`` and ``mxu_fused`` — the port of
 ``ntt_tpu.transforms.mxu``, forward, inverse and coset.
 
-The four-step recursion peels BASE = 32 columns per level. A level's
-32-point column transforms are ONE int8 digit matmul against a conv matrix
-(:mod:`ntt_tpu_torch.digits`), with the decomposition twiddle either folded
-into a stack of conv matrices (:class:`~.fourstep.TwMatStack`) or applied by
-a Montgomery product inside the same kernel. The last base transform
-(m <= 32) is one more matmul. ``mxu_sub`` peels SUBBASE = 512 columns per
+The four-step recursion peels BASE = 32 columns per level (64 under
+NTT_MXU_BASE_LOG=6). A level's BASE-point column transforms are ONE int8
+digit matmul against a conv matrix (:mod:`ntt_tpu_torch.digits`), with the
+decomposition twiddle either folded into a stack of conv matrices
+(:class:`~.fourstep.TwMatStack`) or applied by a Montgomery product inside
+the same kernel. The last base transform (m <= BASE) is one more matmul.
+``mxu_sub`` peels SUBBASE = 512 columns per
 level instead, and a whole 512-point sub-NTT (two inner matmul levels) is
 one kernel. ``mxu`` and ``mxu_pallas`` run the plain recursion (base
 transform, separate twiddle product, transpose) with the digit matmul as a
@@ -300,11 +301,21 @@ SUB256_LOG = int(os.environ.get("NTT_MXU_SUB256_LOG", "0"))
 _subbase_cache: dict = {}
 
 
+def single_level_max() -> int:
+    """The longest sub-NTT the kernels run as one conv matrix under the
+    current BASE: BASE itself, at most ``mxu_level.LEVEL_MAX_M`` (64), and
+    never below ``mxu_level.SUB_PEEL`` (32), since the multi-level kernel
+    starts at twice its peel. Longer ones run the multi-level kernel, which
+    peels SUB_PEEL points whatever BASE is."""
+    return max(mxu_level.SUB_PEEL, min(BASE, mxu_level.LEVEL_MAX_M))
+
+
 def _card_fits(field: Field, s: int) -> bool:
     """Whether the port's kernels take an s-point sub-NTT in one launch:
-    one conv matrix up to 32 points, the multi-level kernel up to
-    ``mxu_level.MAX_SUB`` points when its plan fits a block."""
-    if s <= mxu_level.BASE:
+    one conv matrix up to :func:`single_level_max` points, the multi-level
+    kernel up to ``mxu_level.MAX_SUB`` points when its plan fits a
+    block."""
+    if s <= single_level_max():
         return True
     if s > mxu_level.MAX_SUB:
         return False
@@ -358,12 +369,15 @@ def _outer_sizes(n: int, sub: int) -> set:
 
 def kernel_sizes(sizes) -> set:
     """The conv-matrix sizes the kernels read for sub-NTTs of the lengths
-    ``sizes``: m itself up to 32 points (one matrix), else the multi-level
-    kernel's 32 and m / 32 (its inner peel is 32 whatever BASE is)."""
+    ``sizes``: m itself up to :func:`single_level_max` points (one matrix:
+    32, or 64 under NTT_MXU_BASE_LOG=6), else the multi-level kernel's 32
+    and m / 32 (its inner peel is 32 whatever BASE is). ``fused_subntt``
+    takes the single-level kernel exactly where the m-point matrix is
+    there (``mxu_level.single_level``)."""
+    one, peel = single_level_max(), mxu_level.SUB_PEEL
     out = set()
     for s in sizes:
-        out |= {s} if s <= mxu_level.BASE else {mxu_level.BASE,
-                                                 s // mxu_level.BASE}
+        out |= {s} if s <= one else {peel, s // peel}
     return out
 
 
@@ -436,8 +450,9 @@ def ntt_mxu_sub(x, field: Field, inverse: bool = False, tws=None,
     out, no 1/n scale) by the four-step with ``base_max``-point
     single-kernel sub-NTTs (the plan's peel; None: :func:`effective_subbase`):
     every level and the last base is one launch of :func:`fused_subntt`
-    (its multi-level kernel for m > 32), so n = 2^18 is two passes over
-    the data. ``mats``: the :func:`sub_mats` dict as device tensors."""
+    (its multi-level kernel above :func:`single_level_max` points), so
+    n = 2^18 is two passes over the data. ``mats``: the :func:`sub_mats`
+    dict as device tensors."""
     def base(c3, md):
         return fused_subntt(c3, field, md, None, inverse=inverse)
     return _drive(x, field, inverse, tws, mats, pre_col, first_mats,

@@ -33,7 +33,7 @@ import torch
 
 #: phase -> {source: the statements compiled out with it}
 PHASES = {
-    "stage": {"mxu_core.cuh": ["stage_cols(lo, hi, dig);"]},
+    "stage": {"mxu_core.cuh": ["stage_cols(lo, hi, h, dig);"]},
     "aload": {"mxu_core.cuh": [
         "for (int t = 0; t < STAGES && t < steps; ++t) issue(t);",
         "if (threadIdx.x == 0 && t >= 1 && t - 1 + STAGES < steps) issue(t - 1 + STAGES);",

@@ -13,7 +13,8 @@ key, its signatures and its plan rows above 2^26, against ntt_tpu.
   keywords); the differences by design are listed here, so the next
   drift fails;
 - the ``NTT_DEBUG`` tripwire, the ``NTT_FUSE_TW=0`` / ``NTT_TW_MATFOLD=1``
-  error and the ``NTT_MXU_BASE_LOG=6`` rejection on the CPU;
+  error, the single-level algorithms under ``NTT_MXU_BASE_LOG=6`` (m = 64)
+  and the ``NTT_MXU_BASE_LOG=7`` rejection on the CPU;
 - the matrix-fold plan of BLS12-381 Fr 2^27 and 2^28 and BN254 Fr 2^28.
 
 Canonical words out: the tolerance is exact equality.
@@ -268,23 +269,42 @@ def test_fuse_tw_off_with_the_matrix_fold_raises(monkeypatch):
 
 @pytest.mark.parametrize("algorithm", ["mxu_chunked", "mxu_pallas",
                                        "mxu_fused", "mxu_sub"])
-def test_base_log_6_is_rejected_where_a_kernel_takes_m_64(monkeypatch,
-                                                          algorithm):
-    """By design: the single-level kernels contract one conv matrix of at
-    most 32 points, so NTT_MXU_BASE_LOG=6 raises where one would run at
-    m = 64 (``mxu_sub`` through the 256-bit matrix fold); the plain
-    ``mxu`` transform and the narrow ``mxu_sub`` take it."""
+def test_base_log_6_runs_where_a_kernel_takes_m_64(monkeypatch, algorithm):
+    """The single-level kernels take m = 64, so NTT_MXU_BASE_LOG=6 runs
+    every single-level algorithm: BLS12-381 Fr 2^8 (a 64-point level and
+    a base of 4) word-equal to the golden result, through the kernels'
+    plain versions. ``mxu_sub`` takes the 256-bit matrix fold at BASE 64
+    only from 2^19 (a transform too large for the plain versions on one
+    core here: the card holds it, ``chip_smoke.py``; the plan,
+    ``test_torch_knobs.py``)."""
     monkeypatch.setattr(tmxu, "BASE_LOG", 6)
     monkeypatch.setattr(tmxu, "BASE", 64)
     f = tnt.BLS12_381_FR
-    n = (1 << 20) if algorithm == "mxu_sub" else 1 << 8
-    with pytest.raises(ValueError, match="NTT_MXU_BASE_LOG=6"):
-        tapi.get_runner(f, n, algorithm=algorithm, device="cpu")
-    g = tnt.GOLDILOCKS
-    x = _words(g, 1 << 12, 6)
-    got = tnt.ntt(x, g, algorithm="mxu" if algorithm != "mxu_sub"
-                  else "mxu_sub", device="cpu")
-    assert np.array_equal(got.numpy(), _golden(g, x))
+    if algorithm == "mxu_sub":
+        sub = tmxu.effective_subbase(f)
+        assert sub == 64 and not tapi._matfold_on(f, 1 << 18, sub)
+        assert tapi._matfold_on(f, 1 << 19, sub)
+    x = _words(f, 1 << 8, 8)
+    run, aux = tapi.get_runner(f, 1 << 8, algorithm=algorithm, device="cpu")
+    assert aux["plan"]["base_max"] == 64
+    got = tnt.ntt(x, f, algorithm=algorithm, device="cpu")
+    assert np.array_equal(got.numpy(), _golden(f, x))
+
+
+def test_base_log_7_is_rejected_where_a_kernel_takes_m_128(monkeypatch):
+    """By design: the single-level kernels contract one conv matrix of at
+    most 64 points (a 128-point one of a 256-bit field is 22 MB, which the
+    JAX package's kernels do not take either), so NTT_MXU_BASE_LOG=7
+    raises a ValueError that names the limit; the plain ``mxu`` transform
+    takes it."""
+    monkeypatch.setattr(tmxu, "BASE_LOG", 7)
+    monkeypatch.setattr(tmxu, "BASE", 128)
+    f = tnt.BLS12_381_FR
+    with pytest.raises(ValueError, match=r"NTT_MXU_BASE_LOG=7.*m <= 64"):
+        tapi.get_runner(f, 1 << 8, algorithm="mxu_chunked", device="cpu")
+    x = _words(f, 1 << 8, 7)
+    got = tnt.ntt(x, f, algorithm="mxu", device="cpu")
+    assert np.array_equal(got.numpy(), _golden(f, x))
 
 
 # --- the plan above 2^26 -----------------------------------------------------

@@ -51,12 +51,18 @@ FIELDS = ["bn254-fr", "bls12-381-fr", "goldilocks", "small-proth"]
 def _set(monkeypatch, **knobs):
     """Sets knobs alike in both packages (``transforms/mxu.py``): BASE_LOG,
     SUBBASE_LOG (with their powers of two), SUB256_LOG, TW_MATFOLD,
-    TW_STACK_MAX_NT, TW_MERGED_MAX, TW_RESID, FUSE_TW."""
+    TW_STACK_MAX_NT, TW_MERGED_MAX, TW_RESID, FUSE_TW. BASE also goes into
+    the default ``base`` of the JAX package's ``expanded_twiddles``, which
+    its ``mxu_fused`` tables take and which its import binds to BASE, as
+    the environment variable would have set it."""
     for name, v in knobs.items():
         if name in ("BASE_LOG", "SUBBASE_LOG"):
             for m in (jmxu, tmxu):
                 monkeypatch.setattr(m, name, v)
                 monkeypatch.setattr(m, name[:-4], 1 << v)
+            if name == "BASE_LOG":
+                monkeypatch.setattr(jmxu.expanded_twiddles, "__defaults__",
+                                    (1 << v,))
         else:
             for m in (jmxu, tmxu):
                 monkeypatch.setattr(m, name, v)

@@ -7,10 +7,14 @@ JAX entry (Pallas in interpret mode), on the CPU.
   ``test_torch_knobs._set``) the port's transform at n = 2^7 to 2^16 is
   word-equal to the hostlib's golden result, as at the default knobs;
 - for each family one transform is word-equal to the JAX entry: the peel
-  sizes (small Proth, Goldilocks) and NTT_FUSE_TW=0 (Goldilocks). No 256-bit JAX
-  transform: where the 256-bit knobs act, one costs 20 s to a minute on
-  one CPU core, and the suite's longest file (``test_mxu.py``, on one
-  worker) sets its time; the 256-bit settings are held against the golden
+  sizes (small Proth, Goldilocks) and NTT_FUSE_TW=0 (Goldilocks); under
+  NTT_MXU_BASE_LOG=6 (the single-level kernels' plain versions at
+  m = 64) Goldilocks 2^12 under ``mxu_chunked`` and ``mxu_fused``, and
+  one 256-bit transform, BLS12-381 Fr 2^7 ``mxu_chunked`` (about 20 s on
+  one CPU core, most of it the JAX package's trace and compile). No other
+  256-bit JAX transform: where the 256-bit knobs act, one costs 20 s to a
+  minute, and the suite's longest file (``test_mxu.py``, on one worker)
+  sets its time; the 256-bit settings are held against the golden
   result, and their plans and tables against the JAX package's
   (``test_torch_knobs.py``).
 
@@ -55,6 +59,14 @@ TRANSFORMS = [
      "bls12-381-fr", 12, ("mxu_chunked",)),
     ("TW_STACK_MAX_NT=1", {"BASE_LOG": 4, "TW_STACK_MAX_NT": 1},
      "bls12-381-fr", 13, ("mxu_chunked", "mxu_sub")),
+    ("BASE_LOG=6", {"BASE_LOG": 6}, "goldilocks", 16,
+     ("mxu_chunked", "mxu_fused", "mxu_pallas", "mxu_sub")),
+    ("BASE_LOG=6", {"BASE_LOG": 6}, "small-proth", 13,
+     ("mxu_chunked", "mxu_fused", "mxu_pallas", "mxu_sub")),
+    ("BASE_LOG=6", {"BASE_LOG": 6}, "bls12-381-fr", 16,
+     ("mxu_chunked", "mxu_fused")),
+    ("BASE_LOG=6", {"BASE_LOG": 6}, "bls12-381-fr", 12,
+     ("mxu_pallas", "mxu_sub")),
 ]
 
 
@@ -86,6 +98,9 @@ AGAINST_JAX = [
     ("peel", {"SUBBASE_LOG": 8}, "goldilocks", 12, "mxu_sub", False),
     ("fuse", {"TW_MATFOLD": False, "FUSE_TW": False}, "goldilocks", 12,
      "mxu_chunked", False),
+    ("base64", {"BASE_LOG": 6}, "goldilocks", 12, "mxu_chunked", False),
+    ("base64", {"BASE_LOG": 6}, "goldilocks", 12, "mxu_fused", False),
+    ("base64", {"BASE_LOG": 6}, "bls12-381-fr", 7, "mxu_chunked", False),
 ]
 
 

@@ -1,5 +1,5 @@
 """The launch plan of the tensor-core levels K1 (``base_ntt_mxu``), K2
-(``fused_level_stack``), K3 single-level (``fused_subntt``, m <= 32), K4
+(``fused_level_stack``), K3 single-level (``fused_subntt``, m <= 64), K4
 (``fused_level``) and K7 (``fused_level_probe``), and a torch emulation of
 their tiled contraction, of the epilogue's twiddle read and of K7's five
 stages read from the swizzled digit tile and the Z tile, on the CPU; the
@@ -14,9 +14,11 @@ shared bytes), and the block-by-block dataflow the kernels follow (a zero-
 padded digit tile per column tile, the chunk's conv-matrix rows gathered in
 GEMM row order e * kt + kk, the depth in 32-deep ring steps with int32
 sums, one pass per stack entry with the other entries' columns zeroed;
-K3's twiddle read at (b / rep) * m + k of the table [W, B / rep, m] for
-rep > 1). The emulation must give the plain versions' canonical words: the
-tolerance is exact equality.
+at m = 64 the digit tile streamed over the depth in two passes of 32 rows,
+the ring's steps taken in the passes' order and the sums carried from one
+pass to the next; K3's twiddle read at (b / rep) * m + k of the table
+[W, B / rep, m] for rep > 1). The emulation must give the plain versions'
+canonical words: the tolerance is exact equality.
 """
 
 import numpy as np
@@ -52,15 +54,20 @@ def _words(field, shape, seed):
     return torch.from_numpy(x.astype(np.uint32))
 
 
-@pytest.mark.parametrize("m", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 32, 64])
 @pytest.mark.parametrize("W", [1, 2, 8])
 def test_plan_fits_the_block_and_covers_the_level(W, m):
     field = FIELD_OF_WIDTH[W]
     D, E = tdigits.n_digits(field), tdigits.out_planes(field)
+    P = mxu_level.tc_passes(m)
     for B in (1, 37, 64, 300, 8192, 32768):
         plan = mxu_level.tc_plan(field, m, B)
         assert plan.smem_bytes <= 232448
         assert plan.k_pad >= D * m and plan.k_pad % 32 == 0
+        if P > 1:   # streamed: unpadded depth, a row chunk in one pass
+            assert plan.k_pad == D * m and 32 % plan.kt == 0
+            assert plan.smem_bytes == mxu_level.tc_plan(field, 32,
+                                                        B).smem_bytes
         assert plan.m_pad == mxu_level.TC_ROWS_PAD >= E * plan.kt
         assert plan.m_pad % 32 == 0     # two wgmma N halves, multiples of 16
         rows = [r for c in range(plan.chunks)
@@ -74,15 +81,15 @@ def test_plan_fits_the_block_and_covers_the_level(W, m):
 def _k1_k3_shapes(n: int, base_max: int) -> set:
     """(m, B) of every single-level K1 / K3 launch of an n-point four-step
     that peels ``base_max`` points a level: each level's column transform
-    of base_max (when that is at most 32) over n / base_max columns, and
+    of base_max (when that is at most 64) over n / base_max columns, and
     the last base."""
     shapes = set()
     m = n
     while m > base_max:
-        if base_max <= 32:
+        if base_max <= 64:
             shapes.add((base_max, n // base_max))
         m //= base_max
-    if 2 <= m <= 32:
+    if 2 <= m <= 64:
         shapes.add((m, n // m))
     return shapes
 
@@ -90,24 +97,28 @@ def _k1_k3_shapes(n: int, base_max: int) -> set:
 @pytest.mark.parametrize("W", [1, 2, 8])
 def test_plan_at_the_k1_k3_launch_shapes(W):
     """Every single-level K1 / K3 launch of the transforms from 2^14 to
-    2^24 (``mxu_chunked`` peels 32 points a level, ``mxu_sub`` 512 on the
-    narrow fields; the local transforms of n1 and n2 points of a dist
-    transform on 2, 4 or 8 shards), and batches below one column tile, have a plan that fits the block and
-    that the launcher's checks accept."""
+    2^24 (``mxu_chunked`` peels 32 points a level, 64 under
+    NTT_MXU_BASE_LOG=6, ``mxu_sub`` 512 on the narrow fields; the local
+    transforms of n1 and n2 points of a dist transform on 2, 4 or 8
+    shards), and batches below one column tile, have a plan that fits the
+    block and that the launcher's checks accept."""
     field = FIELD_OF_WIDTH[W]
     D, E = tdigits.n_digits(field), tdigits.out_planes(field)
     shapes = set()
     for log_n in range(14, 25):
         n = 1 << log_n
         shapes |= _k1_k3_shapes(n, 32)
+        shapes |= _k1_k3_shapes(n, 64)
         shapes |= _k1_k3_shapes(n, tmxu.effective_subbase(field))
         for part in tcore.split_log(n):     # a shard's local transforms
             for shards in (2, 4, 8):
                 shapes |= {(m, Bp * (n // part) // shards)
                            for m, Bp in _k1_k3_shapes(part, 32)}
-    shapes |= {(m, B) for m in (2, 4, 8, 16, 32) for B in (1, 2, 100, 127)}
+    shapes |= {(m, B) for m in (2, 4, 8, 16, 32, 64)
+               for B in (1, 2, 100, 127)}
     assert (8, 32768) in shapes and (32, 1 << 19) in shapes
     assert (16, 1 << 20) in shapes and (4, 1 << 20) in shapes
+    assert (64, 1 << 18) in shapes
     N = mxu_level.TC_COLS
     for m, B in sorted(shapes):
         plan = mxu_level.tc_plan(field, m, B)
@@ -115,6 +126,7 @@ def test_plan_at_the_k1_k3_launch_shapes(W):
         assert plan.chunks * plan.kt == m
         assert plan.blocks == -(-B // N) * (m // plan.kt) <= 0x7FFFFFFF
         assert plan.k_pad >= D * m and plan.k_pad % mxu_level.TC_BK == 0
+        assert m <= 32 or plan.k_pad == D * m
         assert E * plan.kt <= plan.m_pad == mxu_level.TC_ROWS_PAD
         assert plan.smem_bytes <= mxu_level.TC_MAX_SMEM
         assert mxu_level.plan_args(field, m, B) == (
@@ -124,36 +136,51 @@ def test_plan_at_the_k1_k3_launch_shapes(W):
 def test_plan_refuses_what_the_kernel_cannot_take():
     bls = tfields.BLS12_381_FR
     four_words = tfields.Field("m127", (1 << 127) - 1, 3, 1)
-    for field, m, B in ((four_words, 32, 64), (bls, 64, 64), (bls, 12, 64),
+    for field, m, B in ((four_words, 32, 64), (bls, 128, 64), (bls, 12, 64),
                         (bls, 32, 0)):
         with pytest.raises(ValueError):
             mxu_level.tc_plan(field, m, B)
 
 
+def _pass_digits(d, h, P):
+    """The operand of pass h of P (``tc::stage_digits``): digit j of row
+    h * m/P + i at contraction index j * m/P + i; d: [D, m, B]."""
+    D, m, B = d.shape
+    rp = m // P
+    return d[:, h * rp:(h + 1) * rp].reshape(D * rp, B)
+
+
 def _emulated_z(x3, field, As, rep):
-    """Z int64[E*m, B] formed block by block as the kernels form it."""
+    """Z int64[E*m, B] formed block by block as the kernels form it: per
+    stack entry and pass, the pass's digit tile, then its ring steps j at
+    contraction bytes (j * P + h) * 32, the sums carried in int32."""
     W, m, B = x3.shape
     D, E = tdigits.n_digits(field), tdigits.out_planes(field)
     plan = mxu_level.tc_plan(field, m, B)
     N, BK = mxu_level.TC_COLS, mxu_level.TC_BK
-    d = tdigits.extract_digits(x3, field).reshape(D * m, B).to(torch.int32)
+    P = mxu_level.tc_passes(m)
+    nk = plan.k_pad // BK // P              # ring steps a pass
+    d = tdigits.extract_digits(x3, field).to(torch.int32)
     Z = torch.full((E * m, B), -1, dtype=torch.int64)
     for blk in range(plan.blocks):
         tile, chunk = divmod(blk, plan.chunks)
         cols = torch.arange(tile * N, tile * N + N)
         valid = cols < B
-        dig = torch.zeros((N, plan.k_pad), dtype=torch.int32)
-        dig[valid, :D * m] = d[:, cols[valid]].T
         rows = _chunk_rows(E, m, plan, chunk)
         acc = torch.zeros((plan.m_pad, N), dtype=torch.int32)
         last = int(cols[valid][-1])
         for s in range(int(cols[0]) // rep, last // rep + 1):
             ring = torch.zeros((plan.m_pad, plan.k_pad), dtype=torch.int32)
             ring[:len(rows), :D * m] = As[s][rows].to(torch.int32)
-            frag = dig * (cols // rep == s)[:, None]
-            for kb in range(plan.k_pad // BK):
-                ks = slice(kb * BK, kb * BK + BK)
-                acc += ring[:, ks] @ frag[:, ks].T
+            for h in range(P):
+                dp = _pass_digits(d, h, P)
+                dig = torch.zeros((N, nk * BK), dtype=torch.int32)
+                dig[valid, :dp.shape[0]] = dp[:, cols[valid]].T
+                frag = dig * (cols // rep == s)[:, None]
+                for j in range(nk):
+                    c0 = (j * P + h) * BK
+                    acc += (ring[:, c0:c0 + BK]
+                            @ frag[:, j * BK:(j + 1) * BK].T)
         Z[torch.tensor(rows)[:, None], cols[valid][None, :]] = \
             acc[:len(rows), valid].to(torch.int64)
     assert bool((Z >= 0).all()), "a (row, column) no block formed"
@@ -182,6 +209,9 @@ def _stack(field, m, NT, seed):
     (8, 4, 4, 7, True),      # depth 148 -> 160; one column tile, 4 entries
     (2, 32, 5, 16, False),   # two row chunks; a ragged second column tile
     (1, 2, 3, 16, True),     # depth 10 -> 32
+    (8, 64, 2, 70, True),    # streamed depth: 2 passes x 37 steps, 8 chunks
+    (2, 64, 3, 48, False),   # 2 passes x 10 steps, 4 chunks
+    (1, 64, 2, 100, True),   # 2 passes x 5 steps, 2 chunks
 ])
 def test_emulated_stack_level_equals_plain(W, m, NT, rep, with_t3):
     field = FIELD_OF_WIDTH[W]
@@ -198,6 +228,9 @@ def test_emulated_stack_level_equals_plain(W, m, NT, rep, with_t3):
 @pytest.mark.parametrize("W, m, B, transpose", [
     (8, 8, 100, True),       # depth 296 -> 320, ragged B
     (2, 4, 37, False),
+    (8, 64, 130, True),      # two passes, two column tiles
+    (1, 64, 37, False),
+    (2, 64, 200, True),
 ])
 def test_emulated_fused_level_equals_plain(W, m, B, transpose):
     field = FIELD_OF_WIDTH[W]
@@ -236,6 +269,9 @@ def _emulated_twiddle(T3, rep: int, m: int, B: int):
     (8, 8, 300, 1),          # ragged B, the whole chunk by cp.async
     (2, 16, 300, 25),        # a rep that divides no column tile
     (1, 4, 256, 128),        # one table row a column tile
+    (8, 64, 256, 64),        # BASE 64: 2^14 level 1, two passes
+    (2, 64, 300, 1),
+    (1, 64, 200, 25),
 ])
 def test_emulated_subntt_equals_plain(W, m, B, rep):
     """K3 single-level: the tiled contraction, the reduction and the
@@ -252,7 +288,8 @@ def test_emulated_subntt_equals_plain(W, m, B, rep):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("W, m, B", [(8, 4, 200), (2, 32, 130)])
+@pytest.mark.parametrize("W, m, B", [(8, 4, 200), (2, 32, 130),
+                                     (8, 64, 129), (2, 64, 64), (1, 64, 300)])
 def test_emulated_base_equals_plain(W, m, B):
     """K1: the tensor-core level with no twiddle gives
     ``base_ntt_mxu_plain``'s words."""
@@ -263,6 +300,52 @@ def test_emulated_base_equals_plain(W, m, B):
     want = mxu_ntt.base_ntt_mxu_plain(x, field, mats[m], mats.get(-m))
     got = _emulated_level(x, field, mats[m][None], B, mats.get(-m))
     assert torch.equal(got, want)
+
+
+#: the multi-level K3's plans (``sub_plan`` at B = 300, W = 1, 2, 8) as they
+#: were before the single-level kernels took m = 64: its launches stay as
+#: they were
+SUB_PLANS_300 = {
+    (1, 64): (32, 2, 64, 160, 32, 320, 1, 5, 5, 2048, 152064, 168704),
+    (1, 128): (32, 4, 32, 160, 32, 320, 1, 10, 10, 1024, 152064, 168704),
+    (1, 256): (32, 8, 16, 160, 64, 320, 1, 19, 19, 528, 152064, 169216),
+    (1, 512): (32, 16, 8, 160, 96, 320, 1, 38, 38, 264, 152064, 169216),
+    (2, 64): (16, 2, 64, 320, 32, 320, 2, 5, 10, 1024, 160512, 177152),
+    (2, 128): (16, 4, 32, 320, 64, 320, 2, 10, 20, 512, 160512, 177152),
+    (2, 256): (16, 8, 16, 320, 96, 320, 2, 19, 38, 272, 160512, 178176),
+    (2, 512): (16, 16, 8, 320, 160, 320, 2, 38, 76, 136, 160512, 178176),
+    (8, 64): (4, 2, 64, 1184, 96, 320, 8, 5, 40, 256, 180736, 197376),
+    (8, 128): (4, 4, 32, 1184, 160, 320, 8, 10, 80, 128, 180736, 197376),
+    (8, 256): (4, 8, 16, 1184, 320, 320, 8, 19, 152, 80, 180736, 201472),
+    (8, 512): (4, 8, 8, 1184, 608, 320, 8, 38, 304, 40, 180736, 201472),
+}
+
+
+def test_sub_plan_unchanged_at_m_64_to_512():
+    for (W, m), want in SUB_PLANS_300.items():
+        assert tuple(mxu_level.sub_plan(FIELD_OF_WIDTH[W], m, 300)) == want
+
+
+def test_single_level_takes_m_64_where_the_plan_has_its_matrix(monkeypatch):
+    """K3 at m = 64 is the single-level kernel exactly where the plan's
+    mats hold the 64-point matrix: under NTT_MXU_BASE_LOG=6 (as the JAX
+    package's kernel, which contracts m <= BASE as one matrix), and the
+    multi-level kernel (peel 32) at the default BASE, whose plans read the
+    32- and 2-point matrices."""
+    bls = tfields.BLS12_381_FR
+    assert mxu_level.single_level(32, {}) and not mxu_level.single_level(
+        64, {32: 0, 2: 0}) and mxu_level.single_level(64, {64: 0})
+    assert not mxu_level.single_level(128, {128: 0})
+    for base, one in ((16, 32), (32, 32), (64, 64), (128, 64)):
+        monkeypatch.setattr(tmxu, "BASE", base)
+        assert tmxu.single_level_max() == one
+        sizes = tmxu.kernel_sizes({64, 512})
+        assert sizes == ({64, 32, 16} if one == 64 else {32, 2, 16})
+        assert mxu_level.single_level(64, dict.fromkeys(sizes)) == (
+            one == 64)
+    monkeypatch.setattr(tmxu, "BASE", 64)
+    assert 64 in tmxu.base_mats(bls, 1 << 12)
+    assert tmxu.sub_mats(bls, 1 << 12).keys() == {64, -64, -1}
 
 
 def test_plan_refuses_what_the_kernel_cannot_take_multi():
@@ -333,7 +416,7 @@ def test_sub_plan_fits_the_block_and_covers_both_levels(W, m):
 def _digit_tile(d, b0, k_pad):
     """The swizzled digit tile of columns b0 .. b0+127 as the kernels lay it
     out: byte c of column bl at (c / 32) * 4096 + bl * 32 + ((c % 32) ^
-    (((bl >> 2) & 1) << 4)); d: int8[D*m, B]."""
+    (((bl >> 2) & 1) << 4)); d: int8[K, B], the operand of one pass."""
     K, B = d.shape
     N = mxu_level.TC_COLS
     tile = torch.zeros(k_pad * N, dtype=torch.int64)
@@ -349,10 +432,12 @@ def _digit_tile(d, b0, k_pad):
     return tile, at
 
 
-@pytest.mark.parametrize("W, m, B", [(8, 32, 200), (2, 8, 300), (1, 2, 37)])
+@pytest.mark.parametrize("W, m, B", [(8, 32, 200), (2, 8, 300), (1, 2, 37),
+                                     (8, 64, 130), (2, 64, 37), (1, 64, 300)])
 def test_emulated_probe_stages_equal_plain(W, m, B):
     """K7 on the tensor-core block: ``digits`` read back from the swizzled
-    digit tile, ``matmul`` the Z tile's rows e * kt + kk for e < W,
+    digit tile (at m = 64 the pass that holds the chunk's rows, at
+    j * 32 + i - 32h), ``matmul`` the Z tile's rows e * kt + kk for e < W,
     ``reduce`` and ``tw`` (T3 at rep 1) through the same tiled contraction
     give ``fused_level_probe_plain``'s words at every stage."""
     field = FIELD_OF_WIDTH[W]
@@ -362,17 +447,21 @@ def test_emulated_probe_stages_equal_plain(W, m, B):
     A = torch.from_numpy(tmxu._base_matrix(field, m))
     plan = mxu_level.tc_plan(field, m, B)
     N = mxu_level.TC_COLS
-    d = tdigits.extract_digits(x, field).reshape(D * m, B)
+    P = mxu_level.tc_passes(m)
+    rp = m // P
+    d = tdigits.extract_digits(x, field)
     sums = torch.full((m, B), -1, dtype=torch.int64)
     for blk in range(plan.blocks):
         tile_i, chunk = divmod(blk, plan.chunks)
         b0 = tile_i * N
-        tile, at = _digit_tile(d, b0, plan.k_pad)
+        h = chunk * plan.kt // rp              # the pass of the chunk's rows
+        tile, at = _digit_tile(_pass_digits(d, h, P), b0, plan.k_pad // P)
         cols = b0 + torch.arange(N)
         valid = cols < B
         for kk in range(plan.kt):
             i = chunk * plan.kt + kk
-            got = tile[at[:, [j * m + i for j in range(D)]]].sum(dim=1)
+            got = tile[at[:, [j * rp + i - h * rp
+                              for j in range(D)]]].sum(dim=1)
             sums[i, cols[valid]] = got[valid]
     assert bool((sums >= 0).all())
     emulated = {"stream": x.clone(),

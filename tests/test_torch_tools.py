@@ -143,10 +143,24 @@ def test_microbench_knockout(capsys):
 
 
 def test_microbench_knockout_without_stack(capsys):
-    """m = 64 is past K2's 32 points: the stack row says so."""
+    """At 2^8, m = 64 leaves B = 4 columns, which 64 does not divide: K2
+    has no stack of that shape, and the stack row says so."""
     rc, out, _ = _run(microbench, ["knockout", "8", "goldilocks", "64"],
                       capsys)
-    assert rc == 0 and "# stack: K2 takes m <= 32" in out
+    assert rc == 0
+    assert "# stack: K2 takes m <= 64 dividing B; not m = 64, B = 4" in out
+
+
+def test_microbench_knockout_at_m_64(capsys):
+    """K7's five stages and K2's 64-entry stack at m = 64 (the knockout
+    ``chip_smoke.py`` runs under NTT_MXU_BASE_LOG=6), on the plain
+    versions."""
+    rc, out, _ = _run(microbench, ["knockout", "12", "goldilocks", "64"],
+                      capsys)
+    assert rc == 0 and "m=64" in out
+    rows = [ln.split()[0] for ln in out.splitlines()
+            if not ln.startswith("#")]
+    assert rows == ["stream", "digits", "matmul", "reduce", "tw", "stack"]
 
 
 def test_scaling(capsys):
