@@ -12,8 +12,9 @@ with, and prints no result line.
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
    parallel); reads the SASS of the level and multi-level libraries
    (``cuobjdump -sass``): every instantiation of every digit-matmul kernel
-   (K1, K2, K3 single- and multi-level, K4, K7) must hold int8 tensor-core
-   instructions (IGMMA, the integer wgmma) and no IDP.4A.
+   (K1 in both its forms, K2, K3 single- and multi-level, K4, K7) must
+   hold int8 tensor-core instructions (IGMMA, the integer wgmma) and no
+   IDP.4A.
 2. Holds each kernel, word for word, against its plain PyTorch version on
    the card and times kernel, plain version and ``torch._int_mm`` on the
    same int8 operands (K1-K7 also by profiler device time, and
@@ -22,7 +23,9 @@ with, and prints no result line.
    - K1, K2, K3 (single-level) at the shapes the 2^18 BLS12-381 forward
      transform gives them, plus K3 at rep = 32 and K2 with a residual
      twiddle, and K3 at rep = 1024 and K1 at m = 4 and 16 at the full
-     width of the 2^22 and 2^24 transforms;
+     width of the 2^22 and 2^24 transforms; K1's short form (E * m <= 160)
+     at [8,4,2^20] and [8,2,2^22] with ``torch._int_mm`` on the same
+     digits, each held below it by device time (``target`` lines);
    - K2 with a periodic residual T3[W, 32, s0] (level 0 above 2^24): BLS
      NT = 2 rep 128, a ragged B (NT = 5 rep 64), small-proth NT = 4 rep
      128, and the level-0 launch of the BLS 2^26 transform at full width
@@ -43,7 +46,10 @@ with, and prints no result line.
      version and ``permute().contiguous()`` of the stacked shards;
    - at small shapes: K1-K3 for every m from 2 to 32 on all four fields
      (ragged batches, odd reps, stack entries that straddle K2's column
-     tiles; K2 with periodic T3s), K3 multi-level for m = 64 .. 512 on both
+     tiles; K2 with periodic T3s), K1's short form at every m that takes
+     it on every field, at batch sizes that cross its column tile and its
+     spans of tiles a block (under the card's plan and the plan for 4
+     SMs), K3 multi-level for m = 64 .. 512 on both
      narrow fields and on BLS12-381 Fr, K4 and K7 for every m from 2 to
      32, K5 and K6 for every m from 2 to 256, with and without T3, both
      store orders, forward and inverse, and at B one column short of the
@@ -145,7 +151,9 @@ with, and prints no result line.
    profiler traces the card: the two K3 multi-level launches of Goldilocks
    2^18 below ``torch._int_mm`` on their two matmuls, K7's ``matmul``,
    ``reduce`` and ``tw`` stages below ``_int_mm`` on the level's matmul,
-   and ``tw`` within 15% of K3 single-level at [8,32,8192] rep 1.
+   ``tw`` within 15% of K3 single-level at [8,32,8192] rep 1, and K1's
+   short form at [8,4,2^20] and [8,2,2^22] below ``_int_mm`` on its
+   digits (asserted in step 2).
 7. Prints a ``kernels`` JSON
    line (a kernel's bound is the sum of its launches' own bounds,
    ``bound_by`` the kind with the larger share and ``bound_split`` both
@@ -192,9 +200,12 @@ TENSOR_CORE = {"base_ntt_mxu": "base_ntt_mxu_kernel<",
                "fused_subntt_multi": "fused_subntt_multi_kernel<",
                "fused_level": "fused_level_kernel<",
                "fused_level_probe": "fused_level_probe_kernel<"}
+#: K1's short form (E * m <= 160: W = 8 at m = 2 and 4), a kernel of its own
+SHORT_FORM = "base_ntt_mxu_short_kernel<"
 #: the kernels timed on the device too: the tensor-core kernels and the
-#: butterfly ladders K5 and K6
-DEVICE_TIMED = {**TENSOR_CORE, "stage_ntt": "stage_ntt_kernel<",
+#: butterfly ladders K5 and K6; K1 by the name its two forms share
+DEVICE_TIMED = {**TENSOR_CORE, "base_ntt_mxu": "base_ntt_mxu_",
+                "stage_ntt": "stage_ntt_kernel<",
                 "fused_stage_level": "fused_stage_level_kernel<"}
 
 
@@ -204,8 +215,9 @@ def check_sass() -> None:
     (``cuobjdump -sass``) shows tensor-core instructions (IGMMA, the
     integer wgmma, or IMMA) and no IDP.4A in each instantiation of each
     kernel of ``TENSOR_CORE`` (W = 1, 2, 8; the single-level kernels each
-    with the digit tile in one pass and in two, for m = 64), and no
-    IDP.4A anywhere in them."""
+    with the digit tile in one pass and in two, for m = 64) and of K1's
+    short form (``SHORT_FORM``, W = 1, 2, 8), and no IDP.4A anywhere in
+    them."""
     from ntt_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
@@ -217,10 +229,12 @@ def check_sass() -> None:
             counts[part.split()[0]] = (
                 len(re.findall(r"\b(?:IGMMA|HGMMA|IMMA)\b", part)),
                 len(re.findall(r"\bIDP\.?4A", part)))
-    for kernel in (k.rstrip("<") for k in TENSOR_CORE.values()):
+    for kernel in (k.rstrip("<") for k in (*TENSOR_CORE.values(),
+                                           SHORT_FORM)):
         got = [c for name, c in counts.items() if kernel + "I" in name]
         imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
-        want = 3 if kernel == "fused_subntt_multi_kernel" else 6
+        want = 3 if kernel in ("fused_subntt_multi_kernel",
+                               SHORT_FORM.rstrip("<")) else 6
         print(f"sass {kernel}: {len(got)} instantiations, {imma} tensor-core "
               f"(IGMMA/HGMMA/IMMA), {dp4a} IDP.4A", flush=True)
         if len(got) != want or not all(i > 0 and d == 0 for i, d in got):
@@ -386,7 +400,9 @@ def measure(cases, results, plain_iters: int = 5) -> None:
 def check_kernels(f, aux, rng, dev, results) -> None:
     """K1, K2 and single-level K3 against their plain versions, at the
     256-bit main path's shapes, and K1 and K3 at the full width of the
-    2^22 and 2^24 transforms."""
+    2^22 and 2^24 transforms; K1's short form at [8,4,2^20] and
+    [8,2,2^22], each held below ``torch._int_mm`` on its digits by device
+    time."""
     from ntt_tpu_torch import digits
     from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
 
@@ -474,6 +490,25 @@ def check_kernels(f, aux, rng, dev, results) -> None:
                   big[m].numel() * (1 << 20), mm(big[m], xb), False)],
                 results, plain_iters=1)
         del xb
+        if m == 4:
+            call = results["base_ntt_mxu"]["calls"][-1]
+            device_target("K1 short form [8,4,2^20] below _int_mm",
+                          call["device_ms"], call["library_device_ms"])
+    torch.cuda.empty_cache()
+    # K1's short form at m = 2 over 2^22 columns (the last base of 2^23),
+    # where _int_mm still runs (an int32 output of 1.34 GB)
+    two = sub_mats_on(f, {2}, False, dev)
+    xb = random_on_card(f, (2, 1 << 22), dev)
+    measure([("base_ntt_mxu", "2^23 base [8,2,4194304]",
+              lambda: mxu_ntt.base_ntt_mxu(xb, f, two[2], two[-2]),
+              lambda: mxu_ntt.base_ntt_mxu_plain(xb, f, two[2], two[-2]),
+              2 * xb.numel() * 4 + two[2].numel(),
+              two[2].numel() * (1 << 22), mm(two[2], xb), False)],
+            results, plain_iters=1)
+    del xb
+    call = results["base_ntt_mxu"]["calls"][-1]
+    device_target("K1 short form [8,2,2^22] below _int_mm",
+                  call["device_ms"], call["library_device_ms"])
     torch.cuda.empty_cache()
 
 
@@ -744,13 +779,50 @@ def random_stack(f, NT, m, rng, dev):
         mxu.twiddle_matrix_stack(f, m, False, tvals)).to(dev)
 
 
+#: the SMs that K1's short-form checks at small shapes plan for besides
+#: the card's own: spans of two and more tiles a block at a few thousand
+#: columns
+SHORT_CHECK_SMS = 4
+
+
+def short_base_batches(sms: int) -> tuple:
+    """Batch sizes that cross the edges of K1's short form planned for
+    ``sms`` SMs (S = 2 * sms blocks a wave): its 128-column tile (1, 37,
+    127, 128, 129) and two tiles (255, 256, 257); one wave of blocks of
+    one tile and of two tiles, each one column short (the last tile
+    ragged) and over (the span grows, the last block holds one column);
+    and a ragged size of several tiles a block."""
+    from ntt_tpu_torch.kernels import mxu_level
+    N, S = mxu_level.TC_COLS, mxu_level.TC_SHORT_BLOCKS * sms
+    return (1, 37, N - 1, N, N + 1, 2 * N - 1, 2 * N, 2 * N + 1,
+            S * N - 1, S * N + 1, 2 * S * N - 1, 2 * S * N + 1,
+            5 * S * N + 3 * N + 77)
+
+
+def short_base_at(x, f, A, sms: int) -> torch.Tensor:
+    """K1's short form on x under its plan for ``sms`` SMs, through the C
+    entry point (the wrapper plans for the card's SMs); not counted."""
+    from ntt_tpu_torch.kernels import _build, mxu_level
+    W, m, B = x.shape
+    out = torch.empty_like(x)
+    rc = mxu_level._lib().mxu_base_ntt(
+        _build.ptr(x), _build.ptr(A), _build.ptr(out), m, B,
+        *_build.field_args(f), *mxu_level.base_plan_args(f, m, B, sms),
+        _build.stream(x))
+    _build.check(rc, "base_ntt_mxu, short form")
+    return out
+
+
 def check_small_shapes(f, rng, dev) -> int:
     """K1-K3 (single-level) against their plain versions at every m from 2
     to 64 (at 64 the digit tile streamed in two passes), with ragged batch
     sizes (masked columns), reps that split a warp between stack entries,
-    both twiddle layouts and K2's periodic T3. Returns the number of
-    checks."""
-    from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
+    both twiddle layouts and K2's periodic T3; K1 in its short form at
+    every m that takes it, at the batch sizes of
+    :func:`short_base_batches` for ``SHORT_CHECK_SMS``, under the card's
+    plan (the wrapper) and under the plan for that many SMs. Returns the
+    number of checks."""
+    from ntt_tpu_torch.kernels import _build, mxu_level, mxu_ntt
 
     def rand(*shape):
         return torch.from_numpy(random_words(f, shape, rng)).to(dev)
@@ -798,6 +870,18 @@ def check_small_shapes(f, rng, dev) -> int:
                      mxu_level.fused_level_stack_plain(x, f, As, rep,
                                                        mats.get(-m), T3))
                 checks += 1
+    for m in (m for m in (2, 4, 8, 16) if mxu_level.short_form(f, m)):
+        mats = sub_mats_on(f, {m}, False, dev)
+        for B in short_base_batches(SHORT_CHECK_SMS):
+            x = rand(m, B)
+            want = mxu_ntt.base_ntt_mxu_plain(x, f, mats[m], mats.get(-m))
+            same(f"short base m={m} B={B} plan "
+                 f"{mxu_level.base_plan(f, m, B, SHORT_CHECK_SMS)}",
+                 short_base_at(x, f, mats[m], SHORT_CHECK_SMS), want)
+            same(f"short base m={m} B={B} plan "
+                 f"{mxu_level.base_plan(f, m, B, _build.sm_count(dev))}",
+                 mxu_ntt.base_ntt_mxu(x, f, mats[m], mats.get(-m)), want)
+            checks += 2
     return checks
 
 

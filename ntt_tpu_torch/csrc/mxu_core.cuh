@@ -1,6 +1,8 @@
 // Shared device core of the port's digit-matmul kernels:
 //
 //   mxu_level.cu  mxu_base_ntt           K1, replaces ntt_tpu/kernels/mxu_ntt.py::_kernel
+//                                            (its short form, E*m <= 160, a block of
+//                                            its own on the same wgmma step)
 //                 mxu_fused_level_stack  K2, replaces ntt_tpu/kernels/mxu_level.py::_kernel_stack
 //                 mxu_fused_subntt       K3, replaces ntt_tpu/kernels/mxu_level.py::_kernel_sub
 //                                            in its single-level form, m <= 64
@@ -139,6 +141,14 @@ constexpr int STAGES = 6;         // ring stages of the conv-matrix rows (TMA)
 constexpr int ZS = N + 4;         // Z row stride in words (conflict-free)
 constexpr int ALIGN = 256;        // the shared base is aligned up to the swizzle atom
 constexpr int MAX_SMEM = 232448;  // dynamic shared bytes a block may use
+// K1's short form (mxu_level.cu, base_ntt_mxu_short_kernel), taken where one
+// wgmma N half holds every GEMM row of the level (E*m <= NR): a block of two
+// warpgroups, both on columns (no row half of padding), that stages the conv
+// matrix once and walks a span of tiles of N columns; SHORT_BLOCKS blocks
+// share an SM. It does not use contract: its one N half, whole matrix and
+// span of tiles are its own.
+constexpr int SHORT_THREADS = N / NM * 128;  // two warpgroups, one a column half
+constexpr int SHORT_BLOCKS = 2;              // blocks an SM holds
 
 // Rows a stage holds: the E*kt GEMM rows, rounded up to the 8-row swizzle atom.
 __host__ __device__ inline int stage_rows(int E, int kt) { return (E * kt + 7) & ~7; }
@@ -170,6 +180,15 @@ __host__ __device__ inline int smem_bytes(int W, int D, int E, int m, int kt, in
   const int main_loop = contract_bytes(D, E, m, kt, k_pad);
   const int epilogue = E * kt * ZS * 4 + W * N * (kt | 1) * 4;
   return ALIGN + (main_loop > epilogue ? main_loop : epilogue);
+}
+
+// Dynamic shared bytes of a short-form block (E*m <= NR, depth k_pad): the
+// conv matrix whole (k_pad / BK steps of NR rows) and the digit tile
+// [k_pad / BK][N][BK], which the Z tile [E*m][ZS] aliases; ALIGN bytes of
+// slack. Python's mxu_level.base_plan computes the same.
+__host__ __device__ inline int short_smem_bytes(int E, int m, int k_pad) {
+  const int dig = N * k_pad, z = E * m * ZS * 4;
+  return ALIGN + NR * k_pad + (dig > z ? dig : z);
 }
 
 // One level's operands and its launch plan.

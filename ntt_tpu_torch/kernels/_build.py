@@ -120,6 +120,11 @@ def stream(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def field_args(field: Field) -> tuple:
     words = field.int_to_words(field.p)
     return ((ctypes.c_uint32 * 8)(*(words + [0] * (8 - len(words)))),

@@ -26,10 +26,12 @@ share with K1 (``kernels/mxu_ntt.py``).
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/mxu_level.cu``, ``csrc/mxu_sub.cu``); on a CPU tensor it runs its
 plain PyTorch version. Every kernel contracts on the int8 tensor cores
-(``csrc/mxu_core.cuh``, ``tc::contract``); the launch plans
-(:func:`tc_plan` for the one-level kernels, :func:`sub_plan` for the
-multi-level K3, whose block runs both levels on its own row chunk and
-columns) are computed here and checked by the C launchers.
+(``csrc/mxu_core.cuh``, ``tc::contract``; K1's short form its own
+block); the launch plans (:func:`tc_plan` for the one-level kernels,
+:func:`base_plan` for K1, which takes its short form where
+:func:`short_form`, :func:`sub_plan` for the multi-level K3, whose block
+runs both levels on its own row chunk and columns) are computed here and
+checked by the C launchers.
 """
 
 from __future__ import annotations
@@ -115,6 +117,15 @@ TC_MAX_SMEM = 232448
 #: output rows a block owns (a row chunk), by field width: about 300 GEMM
 #: rows (E * kt) for every width
 TC_KT = {8: 8, 2: 16, 1: 32}
+#: K1's short form (``base_ntt_mxu_short_kernel``), taken where one wgmma N
+#: half holds every GEMM row of the level, E * m <= TC_SHORT_ROWS: a block
+#: of two warpgroups, each on 64 columns of a TC_COLS-column tile, stages
+#: the conv matrix once and walks a span of tiles; TC_SHORT_BLOCKS blocks
+#: share an SM, one wave of them on the card's ``sms`` SMs (TC_SMS on an
+#: H100 SXM)
+TC_SHORT_ROWS = 160
+TC_SHORT_BLOCKS = 2
+TC_SMS = 132
 
 
 def tc_passes(m: int) -> int:
@@ -127,8 +138,9 @@ def tc_passes(m: int) -> int:
 class TcPlan(NamedTuple):
     """Launch plan of one tensor-core level: kt output rows a chunk, the
     contraction depth and GEMM rows padded for the MMA, ``chunks`` row
-    chunks x ``col_tiles`` column tiles of TC_COLS = ``blocks``, and the
-    block's dynamic shared bytes."""
+    chunks x ``col_tiles`` column tiles of TC_COLS, ``blocks`` blocks that
+    each cover ``span`` column tiles (the last one fewer), and the block's
+    dynamic shared bytes."""
     kt: int
     k_pad: int
     m_pad: int
@@ -136,6 +148,7 @@ class TcPlan(NamedTuple):
     col_tiles: int
     blocks: int
     smem_bytes: int
+    span: int = 1
 
 
 def _contract_bytes(D: int, E: int, m: int, kt: int, k_pad: int) -> int:
@@ -178,6 +191,44 @@ def tc_plan(field: Field, m: int, B: int) -> TcPlan:
 def plan_args(field: Field, m: int, B: int) -> tuple:
     """The plan of :func:`tc_plan` as the C entry points take it."""
     plan = tc_plan(field, m, B)
+    return (plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
+
+
+def short_form(field: Field, m: int) -> bool:
+    """Whether K1 takes its short form at m: every GEMM row of the level,
+    E * m, within one wgmma N half (W = 8 at m <= 4, W = 2 at m <= 8,
+    W = 1 at m <= 16)."""
+    return digits.out_planes(field) * m <= TC_SHORT_ROWS
+
+
+@functools.cache
+def base_plan(field: Field, m: int, B: int, sms: int = TC_SMS) -> TcPlan:
+    """The plan of a K1 launch on uint32[W, m, B]: the short form where
+    :func:`short_form` (one chunk of m rows, the GEMM rows padded to one N
+    half, TC_COLS-column tiles, at most TC_SHORT_BLOCKS * ``sms``
+    blocks, each walking ``span`` = ceil(tiles / (TC_SHORT_BLOCKS * sms))
+    tiles, so that no block is empty; the shared bytes of the matrix and
+    of the digit tile or the Z tile that aliases it), else
+    :func:`tc_plan`'s."""
+    plan = tc_plan(field, m, B)
+    if not short_form(field, m):
+        return plan
+    W, E = field.n_words, digits.out_planes(field)
+    tiles = -(-B // TC_COLS)
+    span = -(-tiles // (TC_SHORT_BLOCKS * sms))
+    smem = (TC_ALIGN + TC_SHORT_ROWS * plan.k_pad
+            + max(TC_COLS * plan.k_pad, E * m * TC_Z_STRIDE * 4))
+    plan = TcPlan(m, plan.k_pad, TC_SHORT_ROWS, 1, tiles, -(-tiles // span),
+                  smem, span)
+    if TC_SHORT_BLOCKS * smem > TC_MAX_SMEM:
+        raise ValueError(f"W = {W}, m = {m}: plan {plan} exceeds the SM")
+    return plan
+
+
+@functools.cache
+def base_plan_args(field: Field, m: int, B: int, sms: int = TC_SMS) -> tuple:
+    """The plan of :func:`base_plan` as ``mxu_base_ntt`` takes it."""
+    plan = base_plan(field, m, B, sms)
     return (plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
 
 

@@ -3,10 +3,15 @@
 ``base_ntt_mxu`` runs an m-point NTT (m <= 64) along axis 1 of
 uint32[W, m, B], Montgomery form in and out: digit extraction, one int8
 matmul against the DFT conv matrix A, Montgomery reduction. On a CUDA tensor
-it launches the hand-written kernel ``base_ntt_mxu_kernel`` (in the level
-library, ``csrc/mxu_level.cu``: the tensor-core level of K2-K4 with no
-twiddle, under the launch plan of ``mxu_level.tc_plan``); on a CPU tensor it
-runs :func:`base_ntt_mxu_plain`, the same function in plain PyTorch.
+it launches a hand-written kernel of the level library
+(``csrc/mxu_level.cu``) under the launch plan of ``mxu_level.base_plan``:
+``base_ntt_mxu_short_kernel`` where one wgmma N half holds every GEMM row
+of the level (``mxu_level.short_form``: E * m <= 160, so W = 8 at m = 2
+and 4; blocks of two warpgroups on 128-column tiles, two an SM, each
+walking a span of tiles with the matrix staged once), else
+``base_ntt_mxu_kernel``, the tensor-core level of K2-K4 with no twiddle
+(``mxu_level.tc_plan``). On a CPU tensor it runs
+:func:`base_ntt_mxu_plain`, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ def base_ntt_mxu(x, field: Field, A, F=None):
     out = torch.empty_like(x)
     rc = mxu_level._lib().mxu_base_ntt(
         _build.ptr(x), _build.ptr(A), _build.ptr(out), m, B,
-        *_build.field_args(field), *mxu_level.plan_args(field, m, B),
+        *_build.field_args(field),
+        *mxu_level.base_plan_args(field, m, B, _build.sm_count(x.device)),
         _build.stream(x))
     _build.check(rc, "base_ntt_mxu")
     _build.launches["base_ntt_mxu"] += 1

@@ -48,8 +48,12 @@ def _j(mats):
     return {k: jnp.asarray(v) for k, v in mats.items()}
 
 
-def test_base_ntt_mxu_plain_equals_pallas():
-    m, B = 8, 256
+@pytest.mark.parametrize("m", [2, 4, 8])
+def test_base_ntt_mxu_plain_equals_pallas(m):
+    """m = 2 and 4: the last bases of the 2^(5k+1) and 2^(5k+2) point
+    transforms at peel 32 (K1's short form on the card); m = 8 the 2^18
+    one."""
+    B = 256
     x = _words((m, B), 1)
     mats = _mats(m)
     got = mxu_ntt.base_ntt_mxu(torch.from_numpy(x), TF,

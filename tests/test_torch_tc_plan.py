@@ -1,4 +1,5 @@
-"""The launch plan of the tensor-core levels K1 (``base_ntt_mxu``), K2
+"""The launch plan of the tensor-core levels K1 (``base_ntt_mxu``; its
+short form, E * m <= 160, in ``test_torch_short_base.py``), K2
 (``fused_level_stack``), K3 single-level (``fused_subntt``, m <= 64), K4
 (``fused_level``) and K7 (``fused_level_probe``), and a torch emulation of
 their tiled contraction, of the epilogue's twiddle read and of K7's five
@@ -76,6 +77,24 @@ def test_plan_fits_the_block_and_covers_the_level(W, m):
         cols = mxu_level.TC_COLS
         assert (plan.col_tiles - 1) * cols < B <= plan.col_tiles * cols
         assert plan.blocks == plan.chunks * plan.col_tiles
+        _assert_k1_plan(field, m, B, plan)
+
+
+def _assert_k1_plan(field, m, B, plan):
+    """K1's plan at (m, B): ``plan`` (``tc_plan``'s) where the level does
+    not fit one wgmma N half, else the short form's own values (one chunk,
+    160 GEMM rows, 128-column tiles, two blocks an SM)."""
+    k1 = mxu_level.base_plan(field, m, B)
+    E = tdigits.out_planes(field)
+    if E * m > mxu_level.TC_SHORT_ROWS:
+        assert k1 == plan
+        return
+    N = mxu_level.TC_COLS
+    assert (k1.kt, k1.chunks, k1.k_pad) == (m, 1, plan.k_pad)
+    assert k1.m_pad == mxu_level.TC_SHORT_ROWS >= E * m
+    assert (k1.col_tiles - 1) * N < B <= k1.col_tiles * N
+    assert (k1.blocks - 1) * k1.span < k1.col_tiles <= k1.blocks * k1.span
+    assert mxu_level.TC_SHORT_BLOCKS * k1.smem_bytes <= mxu_level.TC_MAX_SMEM
 
 
 def _k1_k3_shapes(n: int, base_max: int) -> set:
@@ -131,6 +150,7 @@ def test_plan_at_the_k1_k3_launch_shapes(W):
         assert plan.smem_bytes <= mxu_level.TC_MAX_SMEM
         assert mxu_level.plan_args(field, m, B) == (
             plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
+        _assert_k1_plan(field, m, B, plan)
 
 
 def test_plan_refuses_what_the_kernel_cannot_take():
@@ -292,13 +312,18 @@ def test_emulated_subntt_equals_plain(W, m, B, rep):
                                      (8, 64, 129), (2, 64, 64), (1, 64, 300)])
 def test_emulated_base_equals_plain(W, m, B):
     """K1: the tensor-core level with no twiddle gives
-    ``base_ntt_mxu_plain``'s words."""
+    ``base_ntt_mxu_plain``'s words; at a short shape (E * m <= 160: here
+    [8, 4, 200]) in the short form's block, K1's plan there."""
+    from test_torch_short_base import emulated_short_base
     field = FIELD_OF_WIDTH[W]
     x = _words(field, (m, B), 5 * m + W)
     mats = {k: torch.from_numpy(v)
             for k, v in tmxu._mats_for(field, {m}, False).items()}
     want = mxu_ntt.base_ntt_mxu_plain(x, field, mats[m], mats.get(-m))
-    got = _emulated_level(x, field, mats[m][None], B, mats.get(-m))
+    if mxu_level.short_form(field, m):
+        got = emulated_short_base(x, field, mats[m])
+    else:
+        got = _emulated_level(x, field, mats[m][None], B, mats.get(-m))
     assert torch.equal(got, want)
 
 
