@@ -198,6 +198,7 @@ TENSOR_CORE = {"base_ntt_mxu": "base_ntt_mxu_kernel<",
                "fused_level_stack": "fused_level_stack_kernel<",
                "fused_subntt": "fused_subntt_kernel<",
                "fused_subntt_multi": "fused_subntt_multi_kernel<",
+               "fused_subntt_wide": "fused_subntt_wide_kernel<",
                "fused_level": "fused_level_kernel<",
                "fused_level_probe": "fused_level_probe_kernel<"}
 #: K1's short form (E * m <= 160: W = 8 at m = 2 and 4), a kernel of its own
@@ -215,9 +216,9 @@ def check_sass() -> None:
     (``cuobjdump -sass``) shows tensor-core instructions (IGMMA, the
     integer wgmma, or IMMA) and no IDP.4A in each instantiation of each
     kernel of ``TENSOR_CORE`` (W = 1, 2, 8; the single-level kernels each
-    with the digit tile in one pass and in two, for m = 64) and of K1's
-    short form (``SHORT_FORM``, W = 1, 2, 8), and no IDP.4A anywhere in
-    them."""
+    with the digit tile in one pass and in two, for m = 64; the wide
+    multi-level K3 for W = 1, 2) and of K1's short form (``SHORT_FORM``,
+    W = 1, 2, 8), and no IDP.4A anywhere in them."""
     from ntt_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
@@ -233,8 +234,9 @@ def check_sass() -> None:
                                            SHORT_FORM)):
         got = [c for name, c in counts.items() if kernel + "I" in name]
         imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
-        want = 3 if kernel in ("fused_subntt_multi_kernel",
-                               SHORT_FORM.rstrip("<")) else 6
+        want = (2 if kernel == "fused_subntt_wide_kernel" else
+                3 if kernel in ("fused_subntt_multi_kernel",
+                                SHORT_FORM.rstrip("<")) else 6)
         print(f"sass {kernel}: {len(got)} instantiations, {imma} tensor-core "
               f"(IGMMA/HGMMA/IMMA), {dp4a} IDP.4A", flush=True)
         if len(got) != want or not all(i > 0 and d == 0 for i, d in got):
@@ -379,7 +381,7 @@ def measure(cases, results, plain_iters: int = 5) -> None:
                       or kernel_device_ms(kern, DEVICE_TIMED[name]))
             lib_dev = None
             if lib is not None:
-                lib_dev = kernel_device_ms(lib) or kernel_device_ms(lib)
+                lib_dev = library_device_ms(lib)
             call = {"device_ms": dev_ms, "library_device_ms": lib_dev}
             timed = (f"  device {'-' if dev_ms is None else f'{dev_ms:.4f}'}"
                      f" ms, library device "
@@ -698,26 +700,37 @@ def sub_mats_on(f, sizes, inverse, dev) -> dict:
 def check_multi_level(rng, dev, results) -> None:
     """K3 multi-level (and the single-level last base of small-proth 2^22)
     against the plain version at the shapes the narrow-field transforms
-    give them. ``on_path`` marks the two launches of Goldilocks 2^18."""
+    give them, each in the form its wrapper takes there: the present form
+    at one wave of blocks (Goldilocks 2^18, ``on_path`` of
+    ``fused_subntt_multi``), the wide form above (Goldilocks 2^24,
+    ``on_path`` of ``fused_subntt_wide``; small-proth 2^22). The last bases
+    of Goldilocks 2^25 and 2^26 ([2,128,2^18], [2,256,2^18]) are held on
+    three column spans (the plain version on a whole launch would need
+    tens of GB). ``target`` lines assert, by device time, the 2^18 launches
+    and each wide launch below ``torch._int_mm``."""
     from ntt_tpu_torch import GOLDILOCKS, SMALL, digits
-    from ntt_tpu_torch.kernels import mxu_level
+    from ntt_tpu_torch.kernels import _build, mxu_level
 
-    # (field, m, B, twiddle: None / 1 / rep, what, on the 2^18 path)
+    sms = _build.sm_count(dev)
+    # (field, m, B, twiddle: None / 1 / rep, what, on its form's path)
     shapes = [
         (GOLDILOCKS, 512, 512, 1, "goldilocks 2^18 level 0", True),
         (GOLDILOCKS, 512, 512, None, "goldilocks 2^18 base", True),
-        (GOLDILOCKS, 512, 32768, 1, "goldilocks 2^24 level 0", False),
-        (GOLDILOCKS, 512, 32768, 512, "goldilocks 2^24 level 1", False),
-        (GOLDILOCKS, 64, 1 << 18, None, "goldilocks 2^24 base", False),
+        (GOLDILOCKS, 512, 32768, 1, "goldilocks 2^24 level 0", True),
+        (GOLDILOCKS, 512, 32768, 512, "goldilocks 2^24 level 1", True),
+        (GOLDILOCKS, 64, 1 << 18, None, "goldilocks 2^24 base", True),
+        (GOLDILOCKS, 128, 1 << 18, None, "goldilocks 2^25 base", False),
+        (GOLDILOCKS, 256, 1 << 18, None, "goldilocks 2^26 base", False),
         (SMALL, 512, 8192, 1, "small-proth 2^22 level 0", False),
         (SMALL, 512, 8192, 512, "small-proth 2^22 level 1", False),
         (SMALL, 16, 1 << 18, None, "small-proth 2^22 base", False),
     ]
+    wide = []
     for f, m, B, tw, what, on_path in shapes:
         W, D, E = f.n_words, digits.n_digits(f), digits.out_planes(f)
         sizes = {m} if m <= 32 else {32, m // 32}
         mats = sub_mats_on(f, sizes, False, dev)
-        x = torch.from_numpy(random_words(f, (m, B), rng)).to(dev)
+        x = random_on_card(f, (m, B), dev)
         rep = 1 if tw is None else tw
         T3 = None
         if tw is not None:
@@ -731,7 +744,8 @@ def check_multi_level(rng, dev, results) -> None:
             d = digits.extract_digits(x, f).reshape(D * m, -1)
             libs = [int_mm(mats[m], d)]
         else:
-            name = "fused_subntt_multi"
+            name = ("fused_subntt_wide" if mxu_level.sub_wide(f, m, B, sms)
+                    else "fused_subntt_multi")
             m2 = m // 32
             nbytes += mats[32].numel() + mats[m2].numel() + W * m * 4
             macs = (conv_macs(f, mats[32], m2 * B)
@@ -745,13 +759,29 @@ def check_multi_level(rng, dev, results) -> None:
             del d1, d2
         label = (f"{what} [{W},{m},{B}] "
                  + ("no twiddle" if tw is None else f"rep {rep}"))
-        big = x.numel() >= 1 << 24
-        measure([(name, label,
-                  lambda: mxu_level.fused_subntt(x, f, mats, T3, rep=rep),
-                  lambda: mxu_level.fused_subntt_plain(x, f, mats, T3,
-                                                       rep=rep),
-                  nbytes, macs, lambda: [g() for g in libs], on_path)],
-                results, plain_iters=2 if big else 5)
+
+        def kern():
+            return mxu_level.fused_subntt(x, f, mats, T3, rep=rep)
+
+        def lib():
+            return [g() for g in libs]
+        if m * B > 1 << 24:
+            step = 1 << 14
+            check_full_width(
+                name, label, kern,
+                [slice(i, i + step) for i in (0, B // 2, B - step)],
+                lambda c: mxu_level.fused_subntt_plain(
+                    x[:, :, c].contiguous(), f, mats), (nbytes, macs, 0),
+                results, lib)
+        else:
+            measure([(name, label, kern,
+                      lambda: mxu_level.fused_subntt_plain(x, f, mats, T3,
+                                                           rep=rep),
+                      nbytes, macs, lib, on_path)],
+                    results, plain_iters=2 if m * B >= 1 << 24 else 5)
+        if name == "fused_subntt_wide":
+            call = results[name]["calls"][-1]
+            wide.append((label, call["device_ms"], call["library_device_ms"]))
         del x, T3, libs
         torch.cuda.empty_cache()
     path = results["fused_subntt_multi"]["path"]
@@ -760,6 +790,56 @@ def check_multi_level(rng, dev, results) -> None:
     device_target("K3 multi, goldilocks 2^18's two launches, against "
                   "_int_mm", None if None in dev_ms else sum(dev_ms),
                   None if None in lib_ms else sum(lib_ms))
+    for label, kern_ms, lib_ms in wide:
+        device_target(f"K3 wide {label} against _int_mm", kern_ms, lib_ms)
+
+
+def check_narrow_short_bases(dev, results) -> None:
+    """The narrow fields' short last bases on the single-level K3 (no
+    twiddle), where ``auto`` at Goldilocks 2^19-2^21 and small-proth
+    2^19-2^22 ends: [2,2,2^18], [2,4,2^18], [2,8,2^18] and [1,16,2^18],
+    against the plain version and timed beside their bound and
+    ``torch._int_mm`` (``check`` lines, off the main path), then K1's
+    short form on the same input, word-equal to K3 (the same function),
+    by device time (``short base`` lines). Measured only: the next
+    candidates."""
+    from ntt_tpu_torch import GOLDILOCKS, SMALL, digits
+    from ntt_tpu_torch.kernels import mxu_level, mxu_ntt
+
+    B = 1 << 18
+    for f, m in ((GOLDILOCKS, 2), (GOLDILOCKS, 4), (GOLDILOCKS, 8),
+                 (SMALL, 16)):
+        mats = sub_mats_on(f, {m}, False, dev)
+        x = random_on_card(f, (m, B), dev)
+        d = digits.extract_digits(x, f).reshape(digits.n_digits(f) * m, -1)
+        lib = int_mm(mats[m], d)
+        del d
+        label = f"narrow short base [{f.n_words},{m},{B}] no twiddle"
+
+        def k3():
+            return mxu_level.fused_subntt(x, f, mats)
+
+        def k1():
+            return mxu_ntt.base_ntt_mxu(x, f, mats[m])
+        measure([("fused_subntt", label, k3,
+                  lambda: mxu_level.fused_subntt_plain(x, f, mats),
+                  2 * x.numel() * 4 + mats[m].numel(),
+                  conv_macs(f, mats[m], B), lib, False)], results)
+        if not torch.equal(k1(), k3()):
+            raise AssertionError(f"{label}: K1 != K3")
+        k1_ms = (kernel_device_ms(k1, SHORT_FORM)
+                 or kernel_device_ms(k1, SHORT_FORM))
+        call = results["fused_subntt"]["calls"][-1]
+
+        def show(v):
+            return "-" if v is None else f"{v:.4f}"
+        print(f"short base {label}: K3 single device "
+              f"{show(call['device_ms'])} ms, K1 short form device "
+              f"{show(k1_ms)} ms, _int_mm device "
+              f"{show(call['library_device_ms'])} ms, bound "
+              f"{call['bound_ms']:.4f} ms ({call['bound_by']})", flush=True)
+        del x, lib
+        torch.cuda.empty_cache()
 
 
 def random_stack(f, NT, m, rng, dev):
@@ -922,6 +1002,95 @@ def check_small_multi(f, ms, rng, dev) -> int:
     return checks
 
 
+#: the SMs that the wide multi-level K3's checks at small shapes plan for
+#: besides the card's own: spans of several tiles at a few thousand columns
+WIDE_CHECK_SMS = 4
+
+
+def wide_batches(f, m, sms: int) -> tuple:
+    """Batch sizes that cross the edges of the wide multi-level K3 planned
+    for ``sms`` SMs (P = sms / chunks spans a wave): its column tile of bt
+    = 128 / m2 columns (1, bt - 1, bt, bt + 1, 2 bt + 1); one wave of spans
+    of one tile and of two, each one column short (the last tile ragged),
+    exact and over (the span grows, the last block holds one column); and
+    a ragged size of several tiles a block. The sizes at the positions 2,
+    5, 8 (the twiddle at rep > 1 in :func:`check_small_wide`) are even
+    but for P * bt - 1."""
+    from ntt_tpu_torch.kernels import mxu_level
+    p = mxu_level.sub_wide_plan(f, m, 1, sms)
+    bt, P = p.bt, max(1, sms // p.chunks)
+    return (1, bt - 1, bt, bt + 1, 2 * bt + 1, P * bt - 1, P * bt + 1,
+            2 * P * bt - 1, 2 * P * bt, 2 * P * bt + 1,
+            5 * P * bt + 3 * bt + 7)
+
+
+def sub_wide_at(x, f, mats, T3, rep, inverse, sms: int) -> torch.Tensor:
+    """The wide multi-level K3 on x under its plan for ``sms`` SMs, through
+    the C entry point (the wrapper plans for the card's SMs, and takes the
+    wide form only above one wave); not counted."""
+    from ntt_tpu_torch.kernels import _build, mxu_level
+    W, m, B = x.shape
+    Tin = mxu_level.inner_twiddle(f, m, inverse, x.device)
+    out = torch.empty_like(x)
+    rc = mxu_level._lib_sub().mxu_fused_subntt_wide(
+        _build.ptr(x), _build.ptr(mats[32]), _build.ptr(mats[m // 32]),
+        _build.ptr(Tin), _build.ptr(T3), rep, _build.ptr(out), m, B,
+        *_build.field_args(f), *mxu_level.sub_wide_args(f, m, B, sms),
+        _build.stream(x))
+    _build.check(rc, "fused_subntt_wide")
+    return out
+
+
+def check_small_wide(f, rng, dev) -> int:
+    """The wide multi-level K3 against its plain version at every m from 64
+    to 512, forward and inverse, at the batch sizes of :func:`wide_batches`
+    for ``WIDE_CHECK_SMS`` SMs (through the C entry under that plan) and
+    for the card's (through the wrapper, its wide launch counted, at the
+    sizes where it takes the wide form), the twiddle taken in turn as
+    none, T3 at rep 1 and the i2-resolution table at rep > 1 (the largest
+    power of two up to 64 that divides B). Returns the number of
+    checks."""
+    from ntt_tpu_torch.kernels import _build, mxu_level
+
+    def rand(*shape):
+        return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    card = _build.sm_count(dev)
+    checks = 0
+    for inverse in (False, True):
+        for m in (64, 128, 256, 512):
+            mats = sub_mats_on(f, {32, m // 32}, inverse, dev)
+            for sms in (WIDE_CHECK_SMS, card):
+                for i, B in enumerate(wide_batches(f, m, sms)):
+                    if sms == card and not mxu_level.sub_wide(f, m, B, card):
+                        continue
+                    rep = min(B & -B, 64) if i % 3 == 2 else 1
+                    x, T3 = rand(m, B), None
+                    if i % 3 and rep == 1:
+                        T3 = rand(m, B)
+                    elif i % 3:
+                        T3 = rand(B // rep, m)
+                    if sms == card:
+                        got, c = counted(lambda: mxu_level.fused_subntt(
+                            x, f, mats, T3, rep=rep, inverse=inverse))
+                        expect_counts(f"{f.name} wide m={m} B={B}", c,
+                                      {"fused_subntt_wide": 1})
+                    else:
+                        got = sub_wide_at(x, f, mats, T3, rep, inverse, sms)
+                    torch.cuda.synchronize()
+                    want = mxu_level.fused_subntt_plain(
+                        x, f, mats, T3, rep=rep, inverse=inverse)
+                    if not torch.equal(got, want):
+                        bad = int((got != want).any(dim=0).sum())
+                        raise AssertionError(
+                            f"{f.name} wide m={m} B={B} rep={rep} "
+                            f"T3={T3 is not None} inverse={inverse} plan "
+                            f"{mxu_level.sub_wide_plan(f, m, B, sms)}: "
+                            f"kernel != plain at {bad} of {m * B} elements")
+                    checks += 1
+    return checks
+
+
 def check_small_level(f, rng, dev) -> int:
     """K4 and every stage of K7 against their plain versions at every m
     from 2 to 64: ragged batch sizes, with and without T3, both store
@@ -1071,6 +1240,17 @@ def check_small_exchange(rng, devs) -> int:
     return checks
 
 
+def library_device_ms(fn, iters: int = 10):
+    """Device time of one call of a library call ``fn`` (every kernel it
+    runs, summed), the larger of two traces: a trace that lost some calls'
+    events divides what it kept by the calls it counts, so it can only
+    read low (seen: half the time of an ``_int_mm`` call whose events
+    read twice that). None where neither trace shows device time."""
+    got = [ms for ms in (kernel_device_ms(fn, None, iters),
+                         kernel_device_ms(fn, None, iters)) if ms is not None]
+    return max(got) if got else None
+
+
 def kernel_device_ms(fn, key=None, iters: int = 10):
     """Average device time from ``torch.profiler`` over ``iters`` calls of
     ``fn``: of one launch of the kernel whose name holds ``key``, or, with
@@ -1133,7 +1313,7 @@ def check_exchange(rng, dev, results) -> None:
     lib_ms = time_ms(library)
     dev_ms = kernel_device_ms(lambda: exchange.a2a_transpose(shards, D),
                               "a2a_pull_kernel")
-    lib_dev = kernel_device_ms(library) or kernel_device_ms(library)
+    lib_dev = library_device_ms(library)
     nbytes = 2 * W * n1 * n2_loc * 4                 # one launch
     b_ms, b_by = bound(nbytes, 0)
     print(f"check a2a_transpose     [8,2048,512] x 4 (bls 2^22 dist)         "
@@ -1625,8 +1805,7 @@ def check_full_width(name, label, kern, spans, plain, cost, results,
     lib_ms = lib_dev = None
     if lib is not None:
         lib_ms = time_ms(lib, iters=5, warmup=1)
-        lib_dev = (kernel_device_ms(lib, None, 3)
-                   or kernel_device_ms(lib, None, 3))
+        lib_dev = library_device_ms(lib, 3)
     nbytes, macs, mads = cost
     b_ms, b_by = bound(nbytes, macs, mads)
 
@@ -1638,7 +1817,7 @@ def check_full_width(name, label, kern, spans, plain, cost, results,
           f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB, "
           f"{2 * macs / 1e12:.3f} T int8 ops, {mads / 1e9:.2f} G int32 "
           f"mads){note}", flush=True)
-    results[name]["calls"].append({
+    results.setdefault(name, {"calls": [], "path": []})["calls"].append({
         "shape": label, "ms": ms, "device_ms": dev_ms,
         "library_device_ms": lib_dev, "plain_ms": None, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": 0,
@@ -2000,29 +2179,56 @@ def giant_paths(dev, path_ms, xs, want, seen) -> None:
     torch.cuda.empty_cache()
 
 
-def narrow_paths(rng, dev, path_ms) -> dict:
-    """The narrow-field path. Returns the launch counts of the Goldilocks
-    2^18 forward transform."""
+#: the Goldilocks transforms above 2^24 whose golden results start on a
+#: host thread early (about 1.5 and 3 minutes on one thread)
+NARROW_HUGE_LOGS = (25, 26)
+
+
+def start_narrow_goldens(pool, rng) -> dict:
+    """{log2 n: (input, future of its golden forward)} for the Goldilocks
+    transforms of ``NARROW_HUGE_LOGS``, on the host threads of ``pool``."""
+    from ntt_tpu_torch import GOLDILOCKS as f
+    out = {}
+    for log_n in NARROW_HUGE_LOGS:
+        xs = random_words(f, (1 << log_n,), rng)
+        out[log_n] = (xs, pool.submit(golden_ntt, f, xs))
+    return out
+
+
+def narrow_paths(rng, dev, path_ms, huge=None) -> dict:
+    """The narrow-field path; with ``huge`` (:func:`start_narrow_goldens`)
+    also Goldilocks 2^25 and 2^26 forward. Returns the launch counts of
+    the Goldilocks 2^18 and 2^24 forward transforms (the main paths of the
+    multi-level K3's two forms)."""
     from ntt_tpu_torch import GOLDILOCKS, SMALL, limbs
     from ntt_tpu_torch.api import (coset_ntt, get_runner, intt, lde, ntt,
                                    polymul)
 
-    gold_counts = None
-    for f, log_n, want in [
-            (GOLDILOCKS, 18, {"fused_subntt_multi": 2}),
-            (GOLDILOCKS, 24, {"fused_subntt_multi": 3}),
-            (SMALL, 22, {"fused_subntt_multi": 2, "fused_subntt": 1})]:
+    counts = {}
+    # the wide form above one wave of blocks (2^24 and up: every K3 multi
+    # launch; small-proth 2^22: the two levels), the present form at 2^18
+    runs = [(GOLDILOCKS, 18, {"fused_subntt_multi": 2}),
+            (GOLDILOCKS, 24, {"fused_subntt_wide": 3}),
+            (SMALL, 22, {"fused_subntt_wide": 2, "fused_subntt": 1})]
+    runs += [(GOLDILOCKS, log_n, {"fused_subntt_wide": 3})
+             for log_n in (huge or {})]
+    for f, log_n, want in runs:
         n = 1 << log_n
-        xs = random_words(f, (n,), rng)
+        if log_n in (huge or {}) and f is GOLDILOCKS:
+            xs, golden = huge[log_n]
+        else:
+            xs = random_words(f, (n,), rng)
+            golden = None
         xd = torch.from_numpy(xs).to(dev)
         t0 = time.time()
         r, a = get_runner(f, n, device=dev)
         t_tab = time.time() - t0
         y, c = counted(lambda: ntt(xd, f, algorithm="auto", device=dev))
         expect_counts(f"{f.name} 2^{log_n} forward", c, want)
-        if gold_counts is None:
-            gold_counts = c
-        same_words(f"{f.name} 2^{log_n} forward", y, golden_ntt(f, xs))
+        if f is GOLDILOCKS and log_n in (18, 24):
+            counts.update(c)
+        same_words(f"{f.name} 2^{log_n} forward", y,
+                   golden_ntt(f, xs) if golden is None else golden.result())
         xm = limbs.to_mont(xd, f)
         ms = path_ms[f"{f.name} 2^{log_n} random"] = time_ms(lambda: r(xm, a))
         print(f"path {f.name} 2^{log_n} random  golden-equal  {ms:.4f} "
@@ -2083,7 +2289,7 @@ def narrow_paths(rng, dev, path_ms) -> dict:
         lambda: polymul(ad, bd, f, device=dev), iters=10)
     print(f"path goldilocks polymul n = 2^17 (full product)  golden-equal  "
           f"{ms:.4f} ms (standard-form I/O)", flush=True)
-    return gold_counts
+    return counts
 
 
 #: the knob settings of the knobs phase: (label, constants, the runs it
@@ -2413,10 +2619,12 @@ DIST_LDE_LOG = 22
 
 def dist_counts(f, n, algorithm, D, exchange) -> dict:
     """Launches of one distributed transform: the local transforms' kernels
-    (two local transforms a shard) and D K8 launches under exchange
-    "pallas"."""
-    from ntt_tpu_torch.kernels import mxu_level
+    (two local transforms a shard, each level of s points over the shard's
+    n / D / s columns: the wide multi-level K3 above one wave of blocks)
+    and D K8 launches under exchange "pallas"."""
+    from ntt_tpu_torch.kernels import _build, mxu_level
     from ntt_tpu_torch.transforms import core, fourstep, mxu
+    sms = _build.sm_count(torch.device("cuda", torch.cuda.current_device()))
 
     counts = {"a2a_transpose": D} if exchange == "pallas" else {}
     base = (mxu.effective_subbase(f) if algorithm == "mxu_sub"
@@ -2431,8 +2639,10 @@ def dist_counts(f, n, algorithm, D, exchange) -> dict:
             if s == 1:
                 continue
             name = ("stage_ntt" if algorithm == "pallas"
-                    else "fused_subntt_multi" if s > mxu_level.SUB_PEEL
-                    else "fused_subntt")
+                    else "fused_subntt" if s <= mxu_level.SUB_PEEL
+                    else "fused_subntt_wide"
+                    if mxu_level.sub_wide(f, s, n // D // s, sms)
+                    else "fused_subntt_multi")
             counts[name] = counts.get(name, 0) + D
     return counts
 
@@ -3395,6 +3605,8 @@ KERNELS = {
                      "ntt_tpu/kernels/mxu_level.py:144"),
     "fused_subntt_multi": ("ntt_tpu_torch/csrc/mxu_sub.cu",
                            "ntt_tpu/kernels/mxu_level.py:144"),
+    "fused_subntt_wide": ("ntt_tpu_torch/csrc/mxu_sub.cu",
+                          "ntt_tpu/kernels/mxu_level.py:144"),
     "fused_level": ("ntt_tpu_torch/csrc/mxu_level.cu",
                     "ntt_tpu/kernels/mxu_level.py:67"),
     "stage_ntt": ("ntt_tpu_torch/csrc/vmem_ntt.cu",
@@ -3410,6 +3622,7 @@ KERNELS = {
 #: the run whose launches each kernel's line counts
 MAIN_PATH = {
     "fused_subntt_multi": "goldilocks 2^18 forward",
+    "fused_subntt_wide": "goldilocks 2^24 forward",
     "fused_level": "bls12-381-fr 2^18 forward, algorithm mxu_fused",
     "stage_ntt": "bls12-381-fr 2^18 forward, algorithm pallas",
     "fused_stage_level": "bls12-381-fr 2^18 forward, algorithm pallas_fused",
@@ -3485,6 +3698,10 @@ def main() -> int:
               f"{check_small_multi(f, (64, 128, 256, 512), rng, dev)} "
               "multi-level kernel calls word-equal to the plain version",
               flush=True)
+        t0 = time.time()
+        print(f"small shapes {f.name}: {check_small_wide(f, rng, dev)} "
+              "wide multi-level kernel calls word-equal to the plain version "
+              f"({time.time() - t0:.1f} s)", flush=True)
     print(f"small shapes {BLS12_381_FR.name}: "
           f"{check_small_multi(BLS12_381_FR, (64, 128, 256, 512), rng, dev)} "
           "multi-level kernel calls word-equal to the plain version",
@@ -3510,6 +3727,7 @@ def main() -> int:
     pool = ThreadPoolExecutor(max_workers=6)
     huge_x = huge_inputs(rng)
     huge_want = start_huge_goldens(pool, huge_x)
+    narrow_huge = start_narrow_goldens(pool, rng)
     check_bigint(rng, dev)
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
 
@@ -3523,6 +3741,7 @@ def main() -> int:
     check_base_m2(rng, dev, results)
     check_table_generators(dev)
     check_multi_level(rng, dev, results)
+    check_narrow_short_bases(dev, results)
     check_ladder_kernels(rng, dev, results)
     check_base64_kernels(rng, dev, results)
     check_exchange(rng, dev, results)
@@ -3553,7 +3772,8 @@ def main() -> int:
     check_path_launches(seen, dev, timed=True)
     del seen
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
-    counts.update(narrow_paths(rng, dev, path_ms))
+    counts.update(narrow_paths(rng, dev, path_ms, narrow_huge))
+    del narrow_huge
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     knob_paths(rng, dev, path_ms, card, knob_early)
     pool.shutdown()

@@ -10,6 +10,10 @@
 //                 mxu_fused_level_probe  K7, replaces ntt_tpu/kernels/mxu_level.py::_kernel_probe
 //   mxu_sub.cu    mxu_fused_subntt_multi K3 in its multi-level form, m = 64 .. 512
 //                                            (a peel of 32 points, PEEL)
+//                 mxu_fused_subntt_wide  the same in its wide form (W = 1, 2, above
+//                                            one wave of blocks: persistent blocks,
+//                                            the matrices resident, a block of its own
+//                                            on the same wgmma step)
 //
 // (vmem_ntt.cu, the butterfly-stage kernels K5 and K6, takes only the field
 // arithmetic from here: FieldConst, the carry-chain primitives, cond_sub_p,
@@ -326,6 +330,12 @@ __device__ __forceinline__ uint32_t digit_hi(const uint32_t (&w)[W], int j) {
   const int bit = 7 * j, w0 = bit >> 5, r = bit & 31;
   if (r + 7 > 32 && w0 + 1 < W) return __funnelshift_r(w[w0], w[w0 + 1], r);
   return w[w0] >> r;
+}
+
+// Four seven-bit digits (bits 0..6 of each; higher bits garbage) as one word,
+// a in byte 0.
+__device__ __forceinline__ uint32_t pack_digits(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410) & 0x7F7F7F7Fu;
 }
 
 // Byte c of batch column bl in the digit tile: sub-tile c / BK, row bl.
@@ -646,8 +656,11 @@ __device__ __forceinline__ void cond_sub_p(const uint32_t (&r)[W], uint32_t top,
 
 // y = V * 2^-(32 W + 16) mod p for V = sum_e z[e] * 2^(7e), each
 // 0 <= z[e] < 2^26 (m <= 64) and V * 2^16 < 2^(32 (W + 1)) * p (the windows
-// at the top of this file).
-template <int W>
+// at the top of this file). MAD: each plane goes into its 64-bit lane whole,
+// z[e] * 2^r added by one mad.wide.u32 (a lane then holds at most 5 planes
+// below 2^57 each, far from a 64-bit carry), where the default splits it
+// over two lanes, 32 bits each; the same V, the same words.
+template <int W, bool MAD = false>
 __device__ __forceinline__ void reduce(const int (&z)[Geo<W>::E], const FieldConst& fc,
                                        uint32_t (&y)[W]) {
   constexpr int E = Geo<W>::E, NS = Geo<W>::NS, NT = Geo<W>::NT;
@@ -658,9 +671,13 @@ __device__ __forceinline__ void reduce(const int (&z)[Geo<W>::E], const FieldCon
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int bit = 7 * e + 16, q = bit >> 5, r = bit & 31;
-    const uint64_t v = (uint64_t)(uint32_t)z[e] << r;
-    s[q] += (uint32_t)v;
-    s[q + 1] += v >> 32;
+    if constexpr (MAD) {
+      asm("mad.wide.u32 %0, %1, %2, %0;" : "+l"(s[q]) : "r"((uint32_t)z[e]), "r"(1u << r));
+    } else {
+      const uint64_t v = (uint64_t)(uint32_t)z[e] << r;
+      s[q] += (uint32_t)v;
+      s[q + 1] += v >> 32;
+    }
   }
   uint32_t t[NT];
   uint64_t c = 0u;

@@ -242,12 +242,6 @@ __global__ void __launch_bounds__(mxu::tc::THREADS, 1)
 // (E*m <= NR: W = 8 at m = 2 and 4, W = 2 at m <= 8, W = 1 at m <= 16).
 // ---------------------------------------------------------------------------
 
-// Four seven-bit digits (bits 0..6 of each; higher bits garbage) as one word,
-// a in byte 0.
-__device__ __forceinline__ uint32_t pack_digits(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410) & 0x7F7F7F7Fu;
-}
-
 // The digit tile of the short-form tile at columns b0 .. b0+N-1 of x: digit j
 // of element (i, bl) at contraction byte c = j*m + i of column bl, sub-tile
 // c / BK of N rows; zero for c >= D*m and for the columns at or past B. Each

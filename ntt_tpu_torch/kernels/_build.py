@@ -120,8 +120,10 @@ def stream(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+@functools.cache
 def sm_count(device) -> int:
-    """The streaming multiprocessors of a CUDA device."""
+    """The streaming multiprocessors of a CUDA device (read once a device:
+    the wrappers of K1 and K3 plan for it at every launch)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

@@ -14,7 +14,9 @@ share with K1 (``kernels/mxu_ntt.py``).
   64-point matrix (``NTT_MXU_BASE_LOG=6``; :func:`single_level`);
   multi-level for m = 64 .. 512 otherwise: the peel-32 recursion with its
   two inner matmul levels and the inner twiddle ω_m^{k1·i2} between them,
-  all in one kernel.
+  all in one kernel; on the narrow fields, above one wave of its blocks,
+  in its wide form (:func:`sub_wide`: persistent blocks with both
+  matrices resident, level B in one pass, both epilogues from registers).
 
 - ``fused_level`` (K4): one conv matrix, an optional full-resolution
   twiddle T3 [W, m, B], and the store transposed to [W, B, m] on request:
@@ -30,8 +32,9 @@ plain PyTorch version. Every kernel contracts on the int8 tensor cores
 block); the launch plans (:func:`tc_plan` for the one-level kernels,
 :func:`base_plan` for K1, which takes its short form where
 :func:`short_form`, :func:`sub_plan` for the multi-level K3, whose block
-runs both levels on its own row chunk and columns) are computed here and
-checked by the C launchers.
+runs both levels on its own row chunk and columns, and
+:func:`sub_wide_plan` for its wide form) are computed here and checked by
+the C launchers.
 """
 
 from __future__ import annotations
@@ -93,6 +96,10 @@ def _lib_sub() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
         *[ctypes.c_int] * 7, ll, ctypes.c_int, vp]
     lib.mxu_fused_subntt_multi.restype = ctypes.c_int
+    lib.mxu_fused_subntt_wide.argtypes = [
+        vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
+        *[ctypes.c_int] * 4, ll, ll, ctypes.c_int, vp]
+    lib.mxu_fused_subntt_wide.restype = ctypes.c_int
     return lib
 
 
@@ -300,6 +307,87 @@ def sub_plan_args(field: Field, m: int, B: int) -> tuple:
             p.blocks, p.smem_bytes)
 
 
+#: field widths the wide form of the multi-level K3 is built for: the
+#: narrow fields (W = 8 keeps the present form)
+SUB_WIDE_WORDS = (1, 2)
+#: words between the rows kk of the wide form's level-A result tile Y
+SUB_WIDE_YS = TC_COLS + 4
+
+
+class SubWidePlan(NamedTuple):
+    """Launch plan of the wide form of the multi-level K3
+    (``fused_subntt_wide_kernel``) on uint32[W, m, B], m2 = m / 32: each
+    wgmma N half holds ``slots`` output rows (groups of 8, the E planes of
+    slot s at GEMM rows e * 8 + s, ``group_rows`` apart); a block owns
+    ``kt`` = 2 * slots rows k1 (``chunks`` row chunks) and walks ``span``
+    column tiles of ``bt`` = 128 / m2 batch columns, both matrices resident
+    in shared memory. Level B stacks ``lb`` / m2 vectors in one GEMM
+    column of ``lb`` rows (A2 block-diagonal). Depths padded to 32
+    (``ka_pad``, ``kb_pad``); ``blocks`` = chunks x ceil(col_tiles / span),
+    one wave on the card's SMs, none empty; the block's dynamic shared
+    bytes (the two matrices, the digit tile, level A's result tile Y and
+    the tile's twiddle)."""
+    slots: int
+    group_rows: int
+    kt: int
+    chunks: int
+    bt: int
+    lb: int
+    ka_pad: int
+    kb_pad: int
+    col_tiles: int
+    span: int
+    blocks: int
+    smem_bytes: int
+
+
+def sub_wide(field: Field, m: int, B: int, sms: int = TC_SMS) -> bool:
+    """Whether a multi-level K3 launch takes the wide form: a narrow field
+    (SUB_WIDE_WORDS) and more blocks in the present form
+    (:func:`sub_plan`) than the card has SMs (``sms``), that is more than
+    one wave of them."""
+    return (field.n_words in SUB_WIDE_WORDS
+            and sub_plan(field, m, B).blocks > sms)
+
+
+@functools.cache
+def sub_wide_plan(field: Field, m: int, B: int, sms: int = TC_SMS
+                  ) -> SubWidePlan:
+    """The plan of a wide-form launch on uint32[W, m, B] for a card of
+    ``sms`` SMs (``mxu_sub.cu``, ``launch_wide``, which checks it): one
+    block an SM, the chunks of one span of tiles in neighbouring blocks."""
+    W = field.n_words
+    if (W not in SUB_WIDE_WORDS or m & (m - 1)
+            or not 2 * SUB_PEEL <= m <= MAX_SUB or B < 1 or sms < 1):
+        raise ValueError(f"no wide multi-level plan for W = {W}, m = {m}, "
+                         f"B = {B}")
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    group_rows = -(-8 * E // 16) * 16
+    slots = 8 * (TC_SHORT_ROWS // group_rows)
+    kt, m2 = 2 * slots, m // SUB_PEEL
+    chunks, bt, lb = SUB_PEEL // kt, TC_COLS // m2, max(slots, m2)
+    ka_pad, kb_pad = D * SUB_PEEL, -(-D * lb // TC_BK) * TC_BK
+    tiles = -(-B // bt)
+    span = -(-tiles // max(1, sms // chunks))
+    rows = TC_SHORT_ROWS * TC_BK    # bytes of one step of one row unit
+    smem = (TC_ALIGN + ka_pad // TC_BK * 2 * rows
+            + kb_pad // TC_BK * (lb // slots) * rows
+            + max(TC_COLS * ka_pad, kt * TC_COLS // lb * kb_pad)
+            + W * kt * (SUB_WIDE_YS + TC_COLS) * 4)
+    plan = SubWidePlan(slots, group_rows, kt, chunks, bt, lb, ka_pad, kb_pad,
+                       tiles, span, chunks * -(-tiles // span), smem)
+    if ka_pad % TC_BK or smem > TC_MAX_SMEM:
+        raise ValueError(f"W = {W}, m = {m}: plan {plan} exceeds the block")
+    return plan
+
+
+@functools.cache
+def sub_wide_args(field: Field, m: int, B: int, sms: int = TC_SMS) -> tuple:
+    """The plan of :func:`sub_wide_plan` as the C entry point takes it."""
+    p = sub_wide_plan(field, m, B, sms)
+    return (p.kt, p.lb, p.ka_pad, p.kb_pad, p.span, p.blocks, p.smem_bytes)
+
+
 def _zmax_bits(field: Field, m: int) -> int:
     return (m * digits.n_digits(field) * digits.DIGIT_MASK ** 2).bit_length()
 
@@ -471,7 +559,7 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
     matrix} built for the direction ``inverse``; the kernels read only the
     conv matrices: of m itself where :func:`single_level` (m <= 32, or 64
     with its matrix in ``mats``), else of 32 and m // 32 (the multi-level
-    kernel)."""
+    kernel, in its wide form where :func:`sub_wide` for the card's SMs)."""
     W, m, B = x3.shape
     if m == 1:
         return x3
@@ -504,6 +592,16 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
     _build.check_operand(A2, f"A[{m2}]", torch.int8, (E * m2, D * m2),
                          x3.device)
     Tin = inner_twiddle(field, m, inverse, x3.device)
+    sms = _build.sm_count(x3.device)
+    if sub_wide(field, m, B, sms):
+        rc = _lib_sub().mxu_fused_subntt_wide(
+            _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
+            _build.ptr(T3), rep, _build.ptr(out), m, B,
+            *_build.field_args(field), *sub_wide_args(field, m, B, sms),
+            _build.stream(x3))
+        _build.check(rc, "fused_subntt_wide")
+        _build.launches["fused_subntt_wide"] += 1
+        return out
     rc = _lib_sub().mxu_fused_subntt_multi(
         _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
         _build.ptr(T3), rep, _build.ptr(out), m, B,

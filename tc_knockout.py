@@ -20,18 +20,28 @@ A variant's outputs are wrong by construction; only its time is read.
 line a variant and last a JSON object of all the times (ms). Needs a CUDA
 device; imports neither JAX nor ``ntt_tpu``.
 
+``python3 tc_knockout.py --sub`` does the same for the multi-level K3 alone
+at the launches of the narrow fields' paths (``SUB_SHAPES``: the last bases
+of Goldilocks 2^24, 2^25, 2^26, the levels of Goldilocks 2^24 and
+small-proth 2^22, one launch of Goldilocks 2^18), in whichever form its
+wrapper takes there, each level's phases apart (``SUB_PHASES``: the
+matrices, the digit tile of each level, each level's wgmma steps, each
+level's epilogue).
+
 ``python3 tc_knockout.py --parent DIR`` compares instead the ``mxu_level``
-library built from the checkout at DIR (another commit of this
-repository, unpacked with ``git archive``) with this one's, in one
+and ``mxu_sub`` libraries built from the checkout at DIR (another commit of
+this repository, unpacked with ``git archive``) with this one's, in one
 process, in the order parent, change, change, parent: each library's
 device time for K1 at [8,8,32768], [8,4,2^20], [8,2,2^22] and
-[8,2,2^25] and for K2, K3 and K4 at the BLS12-381 Fr 2^18 shapes, every
-output word-equal between the two. K1 runs the plan each tree gives it:
-DIR's is ``tc_plan``'s at every m (the plan of the kernels other than
-K1, which both trees share). Then K1's short form at [8,4,2^20] and
-[8,2,2^25] under other spans of tiles a block beside the plan's own (one
-wave of two blocks an SM): one tile a block, one block an SM, and two
-waves. Prints one line a measurement and last a JSON object of them.
+[8,2,2^25], for K2, K3 and K4 at the BLS12-381 Fr 2^18 shapes and for the
+multi-level K3 at ``SUB_SHAPES``, every output word-equal between the
+two, each under this tree's plans; the multi-level K3 runs DIR's
+present form and this tree's choice of form.
+Then the wide form at its launches of m = 64 and 512 under other spans of
+tiles a block beside the plan's (one wave): one tile a block, two waves;
+and the launch that keeps the present form (Goldilocks 2^18, one wave of
+its blocks) in both forms. Prints one line a measurement and last a JSON
+object of them.
 """
 
 from __future__ import annotations
@@ -75,6 +85,55 @@ VARIANTS["skeleton"] = list(PHASES)
 #: the libraries a variant builds, by their source
 LIBS = {"mxu_level": "mxu_level.cu", "mxu_sub": "mxu_sub.cu"}
 
+#: the multi-level K3's launches on the narrow fields' paths, which
+#: ``--sub`` and ``--parent`` time: (label, field, m, B, rep; None for no
+#: twiddle). The last bases of Goldilocks 2^24, 2^25, 2^26 (m = 64, 128,
+#: 256 over 2^18 columns), the two levels of Goldilocks 2^24 and of
+#: small-proth 2^22, and one launch of Goldilocks 2^18 (one wave of blocks)
+SUB_SHAPES = (
+    ("goldilocks 2^24 base", "goldilocks", 64, 1 << 18, None),
+    ("goldilocks 2^24 level 0", "goldilocks", 512, 32768, 1),
+    ("goldilocks 2^24 level 1", "goldilocks", 512, 32768, 512),
+    ("goldilocks 2^25 base", "goldilocks", 128, 1 << 18, None),
+    ("goldilocks 2^26 base", "goldilocks", 256, 1 << 18, None),
+    ("small-proth 2^22 level 0", "small-proth", 512, 8192, 1),
+    ("small-proth 2^22 level 1", "small-proth", 512, 8192, 512),
+    ("goldilocks 2^18 level 0", "goldilocks", 512, 512, 1),
+)
+#: the wgmma step of tc::contract, which both levels of the present form run
+_CORE_MMA = ("wgmma_s8(acc, desc(dig + kb * (N * BK) + mh * NM * BK), "
+             "desc(stage + nh * NR * BK), t > 0);")
+#: phase of the multi-level K3 -> {source: [(statement, condition)]}: in a
+#: variant that knocks the phase out, the statement runs only where its
+#: condition holds ("false": never). In the present form level A's
+#: contraction is the one of m = 32 (the peel), level B's the one of m / 32
+SUB_PHASES = {
+    "aload": {"mxu_core.cuh": [(s, "false")
+                               for s in PHASES["aload"]["mxu_core.cuh"]],
+              "mxu_sub.cu": [("wide_matrices<W>(S, k0, a1, a2);", "false")]},
+    "stage_a": {"mxu_sub.cu": [("tc::stage_tile<W>(PEEL, S.a.k_pad,", "false"),
+                               ("tc::stage_tile<W>(PEEL, Gw::KA,", "false")]},
+    "stage_b": {"mxu_sub.cu": [("tc::stage_tile<W>(S.m2, S.b.k_pad,", "false"),
+                               ("wide_stage_b<W>(S, Y, dig);", "false")]},
+    "mma_a": {"mxu_core.cuh": [(_CORE_MMA, "L.m != 32")],
+              "mxu_sub.cu": [("wgmma_s8(acc, desc(dig + (kb * N + mh * NM) "
+                              "* BK),", "false")]},
+    "mma_b": {"mxu_core.cuh": [(_CORE_MMA, "L.m == 32")],
+              "mxu_sub.cu": [("wgmma_s8(acc, desc(dig + (kb * cb + cg * NM) "
+                              "* BK),", "false")]},
+    "epi_a": {"mxu_sub.cu": [("epilogue_a<W>(S, k0, smem, Y);", "false"),
+                             ("wide_epilogue_a<W>(S, k0, mh, ua, acc, Y);",
+                              "false")]},
+    "epi_b": {"mxu_sub.cu": [("epilogue_b<W>(S, b0, k0, u0, k2, smem);",
+                              "false"),
+                             ("wide_epilogue_b<W>(S, b0, k0, cg, ub, acc);",
+                              "false")]},
+}
+#: the C entry points of the ``mxu_sub`` library
+SUB_ENTRIES = ("mxu_fused_subntt_multi", "mxu_fused_subntt_wide")
+SUB_VARIANTS = {"base": [], **{f"no_{p}": [p] for p in SUB_PHASES},
+                "skeleton": list(SUB_PHASES)}
+
 
 def guarded(src: str, macro: str, stmts) -> str:
     """Each statement under ``#ifndef macro`` (an empty statement else)."""
@@ -116,26 +175,126 @@ def build(work: str) -> dict:
     return libs
 
 
-def build_parent(parent: str, work: str) -> str:
-    """The ``mxu_level`` library of the checkout at ``parent``, built into
-    ``work``."""
+def build_sub(work: str) -> dict:
+    """{variant: path} of the ``mxu_sub`` library with the phases of
+    ``SUB_VARIANTS`` knocked out, each variant's sources in a directory
+    of its own, every variant compiled at once."""
     from ntt_tpu_torch.kernels import _build
-    out = os.path.join(work, "libmxu_level_parent.so")
-    src = os.path.join(parent, "ntt_tpu_torch", "csrc", LIBS["mxu_level"])
-    p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                       capture_output=True, text=True, timeout=900)
-    if p.returncode != 0:
-        raise RuntimeError(f"parent mxu_level: nvcc exit {p.returncode}\n"
-                           f"{p.stdout}{p.stderr}")
-    return out
+    base = {name: open(os.path.join(_build.CSRC, name)).read()
+            for name in ("mxu_core.cuh", LIBS["mxu_sub"])}
+    procs = []
+    for variant, off in SUB_VARIANTS.items():
+        srcs = dict(base)
+        for phase in off:
+            for name, stmts in SUB_PHASES[phase].items():
+                for stmt, cond in stmts:
+                    if stmt not in srcs[name]:
+                        raise RuntimeError("tc_knockout: source changed, not "
+                                           f"found: {stmt}")
+                    srcs[name] = srcs[name].replace(stmt,
+                                                    f"if ({cond}) {stmt}")
+        where = os.path.join(work, variant)
+        os.makedirs(where)
+        for name, src in srcs.items():
+            with open(os.path.join(where, name), "w") as f:
+                f.write(src)
+        out = os.path.join(where, "libmxu_sub.so")
+        procs.append((variant, out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+             os.path.join(where, LIBS["mxu_sub"])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for variant, out, proc in procs:
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{variant} mxu_sub: nvcc exit "
+                               f"{proc.returncode}\n{log}")
+        libs[variant] = out
+    return libs
+
+
+def sub_calls(dev) -> dict:
+    """{label: call} of the multi-level K3 through its wrapper at each of
+    ``SUB_SHAPES``, on random canonical words drawn on the card."""
+    import chip_smoke as cs
+    from ntt_tpu_torch import get_field
+    from ntt_tpu_torch.kernels import mxu_level
+
+    calls = {}
+    for label, name, m, B, rep in SUB_SHAPES:
+        f = get_field(name)
+        mats = cs.sub_mats_on(f, {32, m // 32}, False, dev)
+        x = cs.random_on_card(f, (m, B), dev)
+        T3 = None
+        if rep is not None:
+            T3 = cs.random_on_card(f, (m, B) if rep == 1 else (B // rep, m),
+                                   dev)
+        tw = "no twiddle" if rep is None else f"rep {rep}"
+        calls[f"K3 multi {label} [{f.n_words},{m},{B}] {tw}"] = (
+            lambda x=x, f=f, mats=mats, T3=T3, rep=rep:
+            mxu_level.fused_subntt(x, f, mats, T3, rep=rep or 1))
+    return calls
+
+
+def sub_knockout() -> int:
+    """``--sub``: the multi-level K3 at ``SUB_SHAPES`` under every
+    variant of ``SUB_VARIANTS``."""
+    import chip_smoke as cs
+    from ntt_tpu_torch.kernels import _build, mxu_level
+
+    print(f"card: {cs.card_line()}", flush=True)
+    dev = torch.device("cuda", 0)
+    calls = sub_calls(dev)
+    built = mxu_level._lib_sub()
+    print("variant     device ms: " + " | ".join(calls), flush=True)
+    times = {}
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
+        for name, path in build_sub(work).items():
+            lib = ctypes.CDLL(path)
+            for fn in SUB_ENTRIES:
+                getattr(lib, fn).argtypes = getattr(built, fn).argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            mxu_level._lib_sub = lambda lib=lib: lib
+            times[name] = {what: cs.kernel_device_ms(fn, "fused_subntt_",
+                                                     iters=10)
+                           for what, fn in calls.items()}
+            print(f"{name:11s} " + "  ".join(
+                "-" if ms is None else f"{ms:.4f}"
+                for ms in times[name].values()), flush=True)
+    mxu_level._lib_sub = lambda: built
+    print(json.dumps({"device_ms": times}))
+    return 0
+
+
+def build_parent(parent: str, work: str) -> dict:
+    """{library: path} of the ``mxu_level`` and ``mxu_sub`` libraries of the
+    checkout at ``parent``, built into ``work``, both at once."""
+    from ntt_tpu_torch.kernels import _build
+    procs = []
+    for lib, src in LIBS.items():
+        out = os.path.join(work, f"lib{lib}_parent.so")
+        procs.append((lib, out, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+             os.path.join(parent, "ntt_tpu_torch", "csrc", src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for lib, out, proc in procs:
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {lib}: nvcc exit {proc.returncode}\n"
+                               f"{log}")
+        libs[lib] = out
+    return libs
 
 
 def parent_against_change(parent: str) -> int:
-    """``--parent DIR``: the two trees' ``mxu_level`` libraries in turn
-    (parent, change, change, parent), then K1's short form under other
-    spans."""
+    """``--parent DIR``: the two trees' ``mxu_level`` and ``mxu_sub``
+    libraries in turn (parent, change, change, parent), then K1's short
+    form under other spans."""
     import chip_smoke as cs
     from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch import get_field
     from ntt_tpu_torch.kernels import _build, mxu_level, mxu_ntt
 
     print(f"card: {cs.card_line()}", flush=True)
@@ -170,23 +329,32 @@ def parent_against_change(parent: str) -> int:
             lambda: mxu_level.fused_level(xs[8, 32768], f, mats[8], None,
                                           False),
             "fused_level_kernel<")})
-    change = mxu_level._lib()
-    own_plan = mxu_level.base_plan_args
+    # the multi-level K3: the parent's present form, the change's form
+    # (the wide one above one wave of blocks)
+    calls.update({what: (fn, "fused_subntt_")
+                  for what, fn in sub_calls(dev).items()})
+    change = {"mxu_level": mxu_level._lib(), "mxu_sub": mxu_level._lib_sub()}
+    entries = {"mxu_level": ("mxu_fused_level_stack", "mxu_fused_level",
+                             "mxu_fused_subntt", "mxu_base_ntt"),
+               "mxu_sub": ("mxu_fused_subntt_multi",)}
+    own_wide = mxu_level.sub_wide
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     times, outs = {}, {}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
-        old = ctypes.CDLL(build_parent(parent, work))
-        for fn in ("mxu_fused_level_stack", "mxu_fused_level",
-                   "mxu_fused_subntt", "mxu_base_ntt"):
-            getattr(old, fn).argtypes = getattr(change, fn).argtypes
-            getattr(old, fn).restype = ctypes.c_int
+        old = {lib: ctypes.CDLL(path)
+               for lib, path in build_parent(parent, work).items()}
+        for lib, fns in entries.items():
+            for fn in fns:
+                getattr(old[lib], fn).argtypes = getattr(change[lib],
+                                                         fn).argtypes
+                getattr(old[lib], fn).restype = ctypes.c_int
         for turn, which in enumerate(("parent", "change", "change",
                                       "parent")):
-            lib = old if which == "parent" else change
-            mxu_level._lib = lambda lib=lib: lib
-            mxu_level.base_plan_args = (
-                own_plan if which == "change" else
-                lambda fl, m, B, sms=None: mxu_level.plan_args(fl, m, B))
+            libs = old if which == "parent" else change
+            mxu_level._lib = lambda lib=libs["mxu_level"]: lib
+            mxu_level._lib_sub = lambda lib=libs["mxu_sub"]: lib
+            mxu_level.sub_wide = (own_wide if which == "change" else
+                                  lambda *a, **k: False)
             got = {}
             for what, (fn, key) in calls.items():
                 y = fn()
@@ -200,34 +368,56 @@ def parent_against_change(parent: str) -> int:
                       f"{'-' if got[what] is None else f'{got[what]:.4f}'}"
                       " ms", flush=True)
             times[f"{turn} {which}"] = got
-    mxu_level._lib = lambda: change
-    mxu_level.base_plan_args = own_plan
+    mxu_level._lib = lambda: change["mxu_level"]
+    mxu_level._lib_sub = lambda: change["mxu_sub"]
+    mxu_level.sub_wide = own_wide
     outs.clear()
-    # the short form under other spans: one tile a block (the matrix
-    # staged for every tile), one block an SM (nothing runs under a
-    # block's epilogue but its own loads in flight), two waves of two
-    # blocks an SM, and the plan's one wave of two
+    # the wide multi-level K3 under other spans: one tile a block (the
+    # matrices staged for every tile, as the present form does), two waves
+    # of blocks, and the plan's one wave
     sms = _build.sm_count(dev)
     spans = {}
-    for m, B in ((4, 1 << 20), (2, 1 << 25)):
-        plan = mxu_level.base_plan(f, m, B, sms)
+    own_args = mxu_level.sub_wide_args
+    for what, fn in sub_calls(dev).items():
+        name, m, B = next((n, m, B) for lab, n, m, B, _ in SUB_SHAPES
+                          if lab in what)
+        fl = get_field(name)
+        if not mxu_level.sub_wide(fl, m, B, sms) or m not in (64, 512):
+            continue
+        plan = mxu_level.sub_wide_plan(fl, m, B, sms)
         tiles = plan.col_tiles
         for label, span in (("one tile a block", 1),
-                            ("one block an SM", -(-tiles // sms)),
-                            ("two waves", -(-tiles // (4 * sms))),
+                            ("two waves", -(-tiles // (sms // plan.chunks
+                                                       * 2))),
                             ("one wave (the plan)", plan.span)):
-            blocks = -(-tiles // span)
-            mxu_level.base_plan_args = (
-                lambda fl, mm, BB, s=None, blocks=blocks, plan=plan:
-                (plan.kt, plan.k_pad, plan.m_pad, blocks, plan.smem_bytes))
-            fn = k1(m, B)
-            ms = cs.kernel_device_ms(fn, "base_ntt_mxu_", iters=10)
-            spans[f"K1 [8,{m},{B}] {label}: {blocks} blocks of {span} "
-                  "tiles"] = ms
-            print(f"span   K1 [8,{m},{B}] {label:20s} {blocks:7d} blocks of "
+            blocks = plan.chunks * -(-tiles // span)
+            mxu_level.sub_wide_args = (
+                lambda *a, p=plan, span=span, blocks=blocks:
+                (p.kt, p.lb, p.ka_pad, p.kb_pad, span, blocks, p.smem_bytes))
+            ms = cs.kernel_device_ms(fn, "fused_subntt_wide_kernel<",
+                                     iters=10)
+            spans[f"{what} {label}: {blocks} blocks of {span} tiles"] = ms
+            print(f"span   {what} {label:20s} {blocks:7d} blocks of "
                   f"{span:5d} tiles: device "
                   f"{'-' if ms is None else f'{ms:.4f}'} ms", flush=True)
-        mxu_level.base_plan_args = own_plan
+        mxu_level.sub_wide_args = own_args
+    # the launches that keep the present form (one wave of its blocks), in
+    # the wide form beside it
+    for what, fn in sub_calls(dev).items():
+        name, m, B = next((n, m, B) for lab, n, m, B, _ in SUB_SHAPES
+                          if lab in what)
+        if mxu_level.sub_wide(get_field(name), m, B, sms):
+            continue
+        ms = {}
+        for form, wide in (("present", False), ("wide", True)):
+            mxu_level.sub_wide = lambda *a, wide=wide, **k: wide
+            ms[form] = cs.kernel_device_ms(fn, "fused_subntt_", iters=10)
+        mxu_level.sub_wide = own_wide
+        spans[f"{what} present form"], spans[f"{what} wide form"] = (
+            ms["present"], ms["wide"])
+        print(f"form   {what}: " + ", ".join(
+            f"{form} {'-' if v is None else f'{v:.4f}'} ms"
+            for form, v in ms.items()), flush=True)
     print(json.dumps({"device_ms": times, "spans": spans}))
     return 0
 
@@ -236,6 +426,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tc_knockout: no CUDA device", file=sys.stderr)
         return 1
+    if "--sub" in sys.argv[1:]:
+        return sub_knockout()
     if "--parent" in sys.argv[1:]:
         return parent_against_change(sys.argv[sys.argv.index("--parent") + 1])
     import chip_smoke as cs
