@@ -35,7 +35,11 @@ with, and prints no result line.
      ``geometric_outer_chunked``, ``geometric_outer``) against the host
      tables at 2^20 entries;
    - K3 multi-level at the shapes of the narrow-field transforms:
-     Goldilocks 2^18 and 2^24, small-proth 2^22;
+     Goldilocks 2^18 and 2^24, small-proth 2^22, and at m = 1024 the small
+     Proth prime's launches under NTT_MXU_SUBBASE_LOG=10 (2^20 and 2^22);
+   - the transposed store (``transpose_out=True``) of K2, K3 single and
+     K3 multi in both forms, timed beside the plain store at main-path
+     shapes (``transposed`` lines);
    - K4 (``fused_level``), K5 (``stage_ntt``), K6 (``fused_stage_level``)
      and the five stages of K7 (``fused_level_probe``) at the shapes the
      BLS12-381 Fr 2^18 transforms give them under ``mxu_fused``, ``pallas``
@@ -50,7 +54,11 @@ with, and prints no result line.
      it on every field, at batch sizes that cross its column tile and its
      spans of tiles a block (under the card's plan and the plan for 4
      SMs), K3 multi-level for m = 64 .. 512 on both
-     narrow fields and on BLS12-381 Fr, K4 and K7 for every m from 2 to
+     narrow fields and on BLS12-381 Fr, and at m = 1024 on W = 1, 2, 8 in
+     both forms (the wide one on W = 1) through the C entries, the wide
+     one under the plan for 4 SMs, and through the wrapper; the transposed
+     store of K2, K3 single and K3 multi in both forms against the plain
+     versions; K4 and K7 for every m from 2 to
      32, K5 and K6 for every m from 2 to 256, with and without T3, both
      store orders, forward and inverse, and at B one column short of the
      launch plan's tile and B = 4097, 8193; K8 for D in {2, 4, 8}, W in
@@ -102,9 +110,12 @@ with, and prints no result line.
      from 2^18; ``polymul`` at n = 2^17;
    - the knobs (``ntt_tpu_torch.config``): each setting of ``KNOB_RUNS``
      (the peel sizes NTT_MXU_BASE_LOG=4, NTT_MXU_SUBBASE_LOG=8 and 10,
-     NTT_MXU_SUB256_LOG=6 and 7; NTT_TW_MATFOLD=0 with NTT_FUSE_TW 1 and
+     NTT_MXU_SUB256_LOG=6, 7 and 9; NTT_TW_MATFOLD=0 with NTT_FUSE_TW 1 and
      0; NTT_TW_RESID=1; NTT_TW_STACK_MAX_NT=32) on the runs it changes
-     (BLS12-381 Fr 2^18 to 2^22, Goldilocks and small-proth 2^20), every
+     (BLS12-381 Fr 2^18 to 2^22, Goldilocks 2^20, small-proth 2^20 and
+     2^22: the JAX package's peels, 1024 on the small Proth prime under
+     NTT_MXU_SUBBASE_LOG=10 and 256 on BLS12-381 Fr under
+     NTT_MXU_SUB256_LOG=9, their K3 shapes asserted), every
      output word against the golden result, a fresh runner under each
      setting (``config_key()`` changes, and comes back after), the runner
      built under the knob golden-equal again once the knobs are restored
@@ -432,8 +443,8 @@ def check_kernels(f, aux, rng, dev, results) -> None:
     T1 = batch1.T4.reshape(8, 32, 8192)
     sub = {k: mats[k] for k in (32, -32, -1)}
     cases.append(("fused_subntt", "level 1 [8,32,8192] TwBatch rep 1",
-                  lambda: mxu_level.fused_subntt(x1, f, sub, T1, rep=1),
-                  lambda: mxu_level.fused_subntt_plain(x1, f, sub, T1, rep=1),
+                  lambda: mxu_level.fused_subntt(x1, f, False, sub, T1),
+                  lambda: mxu_level.fused_subntt_plain(x1, f, False, sub, T1),
                   3 * x1.numel() * 4 + mats[32].numel(),
                   mats[32].numel() * 8192, mm(mats[32], x1), True))
     x2 = rand(32, 8192)
@@ -455,8 +466,10 @@ def check_kernels(f, aux, rng, dev, results) -> None:
     x4 = rand(32, 512)
     T4 = rand(16, 32)
     cases.append(("fused_subntt", "rep 32 [8,32,512] table [8,16,32]",
-                  lambda: mxu_level.fused_subntt(x4, f, sub, T4, rep=32),
-                  lambda: mxu_level.fused_subntt_plain(x4, f, sub, T4, rep=32),
+                  lambda: mxu_level.fused_subntt(x4, f, False, sub, T4,
+                                                 rep=32),
+                  lambda: mxu_level.fused_subntt_plain(x4, f, False, sub, T4,
+                                                       rep=32),
                   2 * x4.numel() * 4 + T4.numel() * 4 + mats[32].numel(),
                   mats[32].numel() * 512, None, False))
     x5 = rand(32, 256)
@@ -477,8 +490,9 @@ def check_kernels(f, aux, rng, dev, results) -> None:
     x6 = rand(32, 1 << 19)
     T6 = rand(512, 32)
     measure([("fused_subntt", "2^24 level 2 [8,32,524288] rep 1024",
-              lambda: mxu_level.fused_subntt(x6, f, sub, T6, rep=1024),
-              lambda: mxu_level.fused_subntt_plain(x6, f, sub, T6, rep=1024),
+              lambda: mxu_level.fused_subntt(x6, f, False, sub, T6, rep=1024),
+              lambda: mxu_level.fused_subntt_plain(x6, f, False, sub, T6,
+                                                   rep=1024),
               2 * x6.numel() * 4 + T6.numel() * 4 + mats[32].numel(),
               mats[32].numel() * (1 << 19), mm(mats[32], x6), False)],
             results, plain_iters=1)
@@ -648,12 +662,13 @@ def check_base64_kernels(rng, dev, results) -> None:
          lambda: mxu_ntt.base_ntt_mxu_plain(x, f, A, F),
          2 * nb + A.numel(), macs, lib, 0),
         ("fused_subntt", "BASE 64: level 0 [8,64,4096] T3 rep 1",
-         lambda: mxu_level.fused_subntt(x, f, mats, T, rep=1),
-         lambda: mxu_level.fused_subntt_plain(x, f, mats, T, rep=1),
+         lambda: mxu_level.fused_subntt(x, f, False, mats, T),
+         lambda: mxu_level.fused_subntt_plain(x, f, False, mats, T),
          3 * nb + A.numel(), macs, lib, 0, tw),
         ("fused_subntt", "BASE 64: level 1 [8,64,4096] rep 64 table [8,64,64]",
-         lambda: mxu_level.fused_subntt(x, f, mats, Td, rep=64),
-         lambda: mxu_level.fused_subntt_plain(x, f, mats, Td, rep=64),
+         lambda: mxu_level.fused_subntt(x, f, False, mats, Td, rep=64),
+         lambda: mxu_level.fused_subntt_plain(x, f, False, mats, Td,
+                                              rep=64),
          2 * nb + Td.numel() * 4 + A.numel(), macs, lib, 0, tw),
         ("fused_level", "BASE 64: level [8,64,4096] T3, transposed store",
          lambda: mxu_level.fused_level(x, f, A, T, True, F, F2),
@@ -706,8 +721,11 @@ def check_multi_level(rng, dev, results) -> None:
     ``on_path`` of ``fused_subntt_wide``; small-proth 2^22). The last bases
     of Goldilocks 2^25 and 2^26 ([2,128,2^18], [2,256,2^18]) are held on
     three column spans (the plain version on a whole launch would need
-    tens of GB). ``target`` lines assert, by device time, the 2^18 launches
-    and each wide launch below ``torch._int_mm``."""
+    tens of GB). The small Proth prime's launches at m = 1024 under
+    NTT_MXU_SUBBASE_LOG=10 (2^20: [1,1024,1024] with T3 at rep 1 and the
+    base; 2^22: [1,1024,4096] at rep 1 and 1024) are measured only.
+    ``target`` lines assert, by device time, the 2^18 launches and each
+    wide launch up to m = 512 below ``torch._int_mm``."""
     from ntt_tpu_torch import GOLDILOCKS, SMALL, digits
     from ntt_tpu_torch.kernels import _build, mxu_level
 
@@ -724,6 +742,15 @@ def check_multi_level(rng, dev, results) -> None:
         (SMALL, 512, 8192, 1, "small-proth 2^22 level 0", False),
         (SMALL, 512, 8192, 512, "small-proth 2^22 level 1", False),
         (SMALL, 16, 1 << 18, None, "small-proth 2^22 base", False),
+        # under NTT_MXU_SUBBASE_LOG=10, the small Proth prime's peel of 1024
+        (SMALL, 1024, 1024, 1, "small-proth 2^20 level 0, SUBBASE_LOG=10",
+         False),
+        (SMALL, 1024, 1024, None, "small-proth 2^20 base, SUBBASE_LOG=10",
+         False),
+        (SMALL, 1024, 4096, 1, "small-proth 2^22 level 0, SUBBASE_LOG=10",
+         False),
+        (SMALL, 1024, 4096, 1024, "small-proth 2^22 level 1, SUBBASE_LOG=10",
+         False),
     ]
     wide = []
     for f, m, B, tw, what, on_path in shapes:
@@ -761,7 +788,7 @@ def check_multi_level(rng, dev, results) -> None:
                  + ("no twiddle" if tw is None else f"rep {rep}"))
 
         def kern():
-            return mxu_level.fused_subntt(x, f, mats, T3, rep=rep)
+            return mxu_level.fused_subntt(x, f, False, mats, T3, rep=rep)
 
         def lib():
             return [g() for g in libs]
@@ -771,15 +798,16 @@ def check_multi_level(rng, dev, results) -> None:
                 name, label, kern,
                 [slice(i, i + step) for i in (0, B // 2, B - step)],
                 lambda c: mxu_level.fused_subntt_plain(
-                    x[:, :, c].contiguous(), f, mats), (nbytes, macs, 0),
+                    x[:, :, c].contiguous(), f, False, mats),
+                (nbytes, macs, 0),
                 results, lib)
         else:
             measure([(name, label, kern,
-                      lambda: mxu_level.fused_subntt_plain(x, f, mats, T3,
-                                                           rep=rep),
+                      lambda: mxu_level.fused_subntt_plain(
+                          x, f, False, mats, T3, rep=rep),
                       nbytes, macs, lib, on_path)],
                     results, plain_iters=2 if m * B >= 1 << 24 else 5)
-        if name == "fused_subntt_wide":
+        if name == "fused_subntt_wide" and m <= 512:
             call = results[name]["calls"][-1]
             wide.append((label, call["device_ms"], call["library_device_ms"]))
         del x, T3, libs
@@ -792,6 +820,74 @@ def check_multi_level(rng, dev, results) -> None:
                   None if None in lib_ms else sum(lib_ms))
     for label, kern_ms, lib_ms in wide:
         device_target(f"K3 wide {label} against _int_mm", kern_ms, lib_ms)
+
+
+def time_transposed(rng, dev, card) -> None:
+    """The transposed store (``transpose_out=True``) beside the plain store
+    at main-path shapes, the two outputs word-compared (the transposed one
+    against the plain one transposed): K2 at BLS12-381 Fr 2^18's level 0
+    ([8,32,8192], 32 stack entries, rep 256), K3 single at its level 1
+    ([8,32,8192], T3 at rep 1), K3 multi in its present form at
+    Goldilocks 2^18 ([2,512,512], T3 at rep 1) and in its wide form at
+    Goldilocks 2^24 ([2,512,32768], T3 at rep 1) and at the small Proth
+    prime's m = 1024 ([1,1024,1024], T3 at rep 1): one ``transposed`` line
+    each, events and device time of both stores. Measured only: no path of
+    either package asks for the transposed store."""
+    from ntt_tpu_torch import BLS12_381_FR, GOLDILOCKS, SMALL
+    from ntt_tpu_torch.kernels import _build, mxu_level
+
+    def show(v):
+        return "-" if v is None else f"{v:.4f}"
+
+    cases = [("fused_level_stack", BLS12_381_FR, 32, 8192,
+              "bls12-381-fr 2^18 level 0, stack 32 rep 256"),
+             ("fused_subntt", BLS12_381_FR, 32, 8192,
+              "bls12-381-fr 2^18 level 1 rep 1"),
+             ("fused_subntt", GOLDILOCKS, 512, 512,
+              "goldilocks 2^18 level 0 rep 1"),
+             ("fused_subntt", GOLDILOCKS, 512, 32768,
+              "goldilocks 2^24 level 0 rep 1"),
+             ("fused_subntt", SMALL, 1024, 1024,
+              "small-proth 2^20 level 0 rep 1, SUBBASE_LOG=10")]
+    sms = _build.sm_count(dev)
+    for name, f, m, B, what in cases:
+        x = random_on_card(f, (m, B), dev)
+        if name == "fused_level_stack":
+            As = random_stack(f, 32, m, rng, dev)
+            F = sub_mats_on(f, {m}, False, dev).get(-m)
+
+            def call(t, x=x, As=As, F=F, f=f):
+                return mxu_level.fused_level_stack(x, f, As, 256, F,
+                                                   transpose_out=t)
+            key = DEVICE_TIMED[name]
+        else:
+            T3 = random_on_card(f, (m, B), dev)
+            mats = sub_mats_on(f, {m} if m <= 32 else {32, m // 32}, False,
+                               dev)
+
+            def call(t, x=x, T3=T3, mats=mats, f=f):
+                return mxu_level.fused_subntt(x, f, False, mats, T3, t)
+            key = DEVICE_TIMED[
+                "fused_subntt" if m <= 32 else "fused_subntt_wide"
+                if mxu_level.sub_wide(f, m, B, sms) else "fused_subntt_multi"]
+        plain_store, transposed = call(False), call(True)
+        torch.cuda.synchronize()
+        if not torch.equal(transposed, plain_store.transpose(1, 2)):
+            raise AssertionError(f"{name} {what}: the transposed store != "
+                                 "the plain store transposed")
+        del plain_store, transposed
+        times = []
+        for t in (False, True):
+            times.append((time_ms(lambda: call(t)),
+                          kernel_device_ms(lambda: call(t), key)
+                          or kernel_device_ms(lambda: call(t), key)))
+        (ms, dev_ms), (ms_t, dev_t) = times
+        print(f"transposed {name} [{f.n_words},{m},{B}] {what} "
+              f"({key.rstrip('<')}): store [W,m,B] {ms:.4f} ms (device "
+              f"{show(dev_ms)}), transposed [W,B,m] {ms_t:.4f} ms (device "
+              f"{show(dev_t)})  ({card})", flush=True)
+        del x, call
+        torch.cuda.empty_cache()
 
 
 def check_narrow_short_bases(dev, results) -> None:
@@ -817,12 +913,12 @@ def check_narrow_short_bases(dev, results) -> None:
         label = f"narrow short base [{f.n_words},{m},{B}] no twiddle"
 
         def k3():
-            return mxu_level.fused_subntt(x, f, mats)
+            return mxu_level.fused_subntt(x, f, False, mats)
 
         def k1():
             return mxu_ntt.base_ntt_mxu(x, f, mats[m])
         measure([("fused_subntt", label, k3,
-                  lambda: mxu_level.fused_subntt_plain(x, f, mats),
+                  lambda: mxu_level.fused_subntt_plain(x, f, False, mats),
                   2 * x.numel() * 4 + mats[m].numel(),
                   conv_macs(f, mats[m], B), lib, False)], results)
         if not torch.equal(k1(), k3()):
@@ -921,14 +1017,15 @@ def check_small_shapes(f, rng, dev) -> int:
                  mxu_ntt.base_ntt_mxu(x, f, mats[m], mats.get(-m)),
                  mxu_ntt.base_ntt_mxu_plain(x, f, mats[m], mats.get(-m)))
             same(f"subntt m={m} B={B}",
-                 mxu_level.fused_subntt(x, f, mats, T),
-                 mxu_level.fused_subntt_plain(x, f, mats, T))
+                 mxu_level.fused_subntt(x, f, False, mats, T),
+                 mxu_level.fused_subntt_plain(x, f, False, mats, T))
             checks += 2
         for n2, rep in ((4, 8), (2, 128)):
             x, T = rand(m, n2 * rep), rand(n2, m)
             same(f"subntt m={m} rep={rep}",
-                 mxu_level.fused_subntt(x, f, mats, T, rep=rep),
-                 mxu_level.fused_subntt_plain(x, f, mats, T, rep=rep))
+                 mxu_level.fused_subntt(x, f, False, mats, T, rep=rep),
+                 mxu_level.fused_subntt_plain(x, f, False, mats, T,
+                                              rep=rep))
             checks += 1
         for NT, rep in ((3, 16), (4, 7), (3, 100)):
             x, T = rand(m, NT * rep), rand(m, NT * rep)
@@ -987,11 +1084,11 @@ def check_small_multi(f, ms, rng, dev) -> int:
                 T3 = None
                 if tw is not None:
                     T3 = rand(m, B) if rep == 1 else rand(B // rep, m)
-                got = mxu_level.fused_subntt(x, f, mats, T3, rep=rep,
-                                             inverse=inverse)
+                got = mxu_level.fused_subntt(x, f, inverse, mats, T3,
+                                             rep=rep)
                 torch.cuda.synchronize()
-                want = mxu_level.fused_subntt_plain(x, f, mats, T3, rep=rep,
-                                                    inverse=inverse)
+                want = mxu_level.fused_subntt_plain(x, f, inverse, mats, T3,
+                                                    rep=rep)
                 if not torch.equal(got, want):
                     bad = int((got != want).any(dim=0).sum())
                     raise AssertionError(
@@ -1024,20 +1121,39 @@ def wide_batches(f, m, sms: int) -> tuple:
             5 * P * bt + 3 * bt + 7)
 
 
-def sub_wide_at(x, f, mats, T3, rep, inverse, sms: int) -> torch.Tensor:
+def sub_wide_at(x, f, mats, T3, rep, inverse, sms: int,
+                transpose_out: bool = False) -> torch.Tensor:
     """The wide multi-level K3 on x under its plan for ``sms`` SMs, through
     the C entry point (the wrapper plans for the card's SMs, and takes the
     wide form only above one wave); not counted."""
     from ntt_tpu_torch.kernels import _build, mxu_level
     W, m, B = x.shape
     Tin = mxu_level.inner_twiddle(f, m, inverse, x.device)
-    out = torch.empty_like(x)
+    out = mxu_level._output(x, transpose_out)
     rc = mxu_level._lib_sub().mxu_fused_subntt_wide(
         _build.ptr(x), _build.ptr(mats[32]), _build.ptr(mats[m // 32]),
-        _build.ptr(Tin), _build.ptr(T3), rep, _build.ptr(out), m, B,
-        *_build.field_args(f), *mxu_level.sub_wide_args(f, m, B, sms),
-        _build.stream(x))
+        _build.ptr(Tin), _build.ptr(T3), rep, _build.ptr(out),
+        int(transpose_out), m, B, *_build.field_args(f),
+        *mxu_level.sub_wide_args(f, m, B, sms), _build.stream(x))
     _build.check(rc, "fused_subntt_wide")
+    return out
+
+
+def sub_multi_at(x, f, mats, T3, rep, inverse,
+                 transpose_out: bool = False) -> torch.Tensor:
+    """The present form of the multi-level K3 on x through its C entry
+    point (the wrapper takes the wide form above one wave of its blocks on
+    the narrow fields); not counted."""
+    from ntt_tpu_torch.kernels import _build, mxu_level
+    W, m, B = x.shape
+    Tin = mxu_level.inner_twiddle(f, m, inverse, x.device)
+    out = mxu_level._output(x, transpose_out)
+    rc = mxu_level._lib_sub().mxu_fused_subntt_multi(
+        _build.ptr(x), _build.ptr(mats[32]), _build.ptr(mats[m // 32]),
+        _build.ptr(Tin), _build.ptr(T3), rep, _build.ptr(out),
+        int(transpose_out), m, B, *_build.field_args(f),
+        *mxu_level.sub_plan_args(f, m, B), _build.stream(x))
+    _build.check(rc, "fused_subntt_multi")
     return out
 
 
@@ -1072,14 +1188,14 @@ def check_small_wide(f, rng, dev) -> int:
                         T3 = rand(B // rep, m)
                     if sms == card:
                         got, c = counted(lambda: mxu_level.fused_subntt(
-                            x, f, mats, T3, rep=rep, inverse=inverse))
+                            x, f, inverse, mats, T3, rep=rep))
                         expect_counts(f"{f.name} wide m={m} B={B}", c,
                                       {"fused_subntt_wide": 1})
                     else:
                         got = sub_wide_at(x, f, mats, T3, rep, inverse, sms)
                     torch.cuda.synchronize()
                     want = mxu_level.fused_subntt_plain(
-                        x, f, mats, T3, rep=rep, inverse=inverse)
+                        x, f, inverse, mats, T3, rep=rep)
                     if not torch.equal(got, want):
                         bad = int((got != want).any(dim=0).sum())
                         raise AssertionError(
@@ -1088,6 +1204,154 @@ def check_small_wide(f, rng, dev) -> int:
                             f"{mxu_level.sub_wide_plan(f, m, B, sms)}: "
                             f"kernel != plain at {bad} of {m * B} elements")
                     checks += 1
+    return checks
+
+
+#: batch sizes of the m = 1024 checks at small shapes (bt = 4 columns a
+#: tile): the tile and its edges (1, 3, 4, 5, 9); one wave of the wide
+#: form's spans for WIDE_CHECK_SMS (4 spans: one tile each at 16 columns,
+#: two at 32) one column short and over; a ragged size of several tiles a
+#: span (99); and one wave of the present form's blocks on an H100 at
+#: W = 1 (132 blocks of one tile: 528 columns) one column short and over
+SUB1024_BATCHES = (1, 3, 4, 5, 9, 15, 17, 31, 33, 99, 527, 529)
+
+
+def check_small_1024(f, rng, dev) -> int:
+    """K3 at m = 1024 (two 32-point levels) against its plain version on
+    ``f``, forward and inverse, at ``SUB1024_BATCHES``, the twiddle taken in
+    turn as none, T3 at rep 1 and the i2-resolution table at rep > 1 (the
+    largest power of two up to 64 that divides B): the present form through
+    its C entry; the wide form (W = 1 only: at W = 2 the block does not
+    hold it) through its C entry under the plan for ``WIDE_CHECK_SMS`` SMs;
+    and the wrapper under the card's plan, its launch counted (the wide
+    form where ``sub_wide``, else the present one). Returns the number of
+    checks."""
+    from ntt_tpu_torch.kernels import _build, mxu_level
+
+    def rand(*shape):
+        return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    m, card = 1024, _build.sm_count(dev)
+    checks = 0
+    for inverse in (False, True):
+        mats = sub_mats_on(f, {32}, inverse, dev)
+        for i, B in enumerate(SUB1024_BATCHES):
+            rep = min(B & -B, 64) if i % 3 == 2 else 1
+            x, T3 = rand(m, B), None
+            if i % 3 and rep == 1:
+                T3 = rand(m, B)
+            elif i % 3:
+                T3 = rand(B // rep, m)
+            form = ("fused_subntt_wide" if mxu_level.sub_wide(f, m, B, card)
+                    else "fused_subntt_multi")
+            got, c = counted(lambda: mxu_level.fused_subntt(
+                x, f, inverse, mats, T3, rep=rep))
+            expect_counts(f"{f.name} m=1024 B={B}", c, {form: 1})
+            runs = [("wrapper, " + form, got),
+                    ("present form", sub_multi_at(x, f, mats, T3, rep,
+                                                  inverse))]
+            if mxu_level.sub_wide_holds(f, m):
+                runs.append((f"wide form, {WIDE_CHECK_SMS} SMs", sub_wide_at(
+                    x, f, mats, T3, rep, inverse, WIDE_CHECK_SMS)))
+            torch.cuda.synchronize()
+            want = mxu_level.fused_subntt_plain(x, f, inverse, mats, T3,
+                                                rep=rep)
+            for what, y in runs:
+                if not torch.equal(y, want):
+                    bad = int((y != want).any(dim=0).sum())
+                    raise AssertionError(
+                        f"{f.name} m=1024 {what} B={B} rep={rep} "
+                        f"T3={T3 is not None} inverse={inverse}: kernel != "
+                        f"plain at {bad} of {m * B} elements")
+                checks += 1
+    return checks
+
+
+def check_small_transposed(f, rng, dev) -> int:
+    """The transposed store (``transpose_out=True``, output [W, B, m]) of
+    K2, K3 single-level, K3 multi-level in its present form and, on the
+    narrow fields, in its wide form, against the plain versions with the
+    same flag: K2 at m = 8, 32 and 64 (two stack entries, a ragged one,
+    with T3 at batch resolution and periodic); K3 single at m = 4, 32 and
+    64 (no twiddle, T3 at rep 1, the table at rep 8); K3 multi at m = 64,
+    512 and 1024 through the present form's C entry, the wide form's under
+    the plan for ``WIDE_CHECK_SMS`` SMs where the field has it, and the
+    wrapper at a width where it takes the wide form on the card (its
+    launch counted); ragged batches. Returns the number of checks."""
+    from ntt_tpu_torch.kernels import _build, mxu_level
+
+    def rand(*shape):
+        return torch.from_numpy(random_words(f, shape, rng)).to(dev)
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{f.name} {label}, transposed store: "
+                                 "kernel != plain")
+
+    checks = 0
+    for m in (8, 32, 64):
+        mats = sub_mats_on(f, {m}, False, dev)
+        for NT, rep in ((2, 64), (3, 100)):
+            x = rand(m, NT * rep)
+            As = random_stack(f, NT, m, rng, dev)
+            for T3 in (None, rand(m, NT * rep), rand(m, 4)):
+                if T3 is not None and (NT * rep) % T3.shape[2]:
+                    continue
+                same(f"stack m={m} NT={NT} rep={rep} T3 "
+                     f"{None if T3 is None else list(T3.shape)}",
+                     mxu_level.fused_level_stack(x, f, As, rep, mats.get(-m),
+                                                 T3, transpose_out=True),
+                     mxu_level.fused_level_stack_plain(
+                         x, f, As, rep, mats.get(-m), T3, transpose_out=True))
+                checks += 1
+    for m in (4, 32, 64):
+        mats = sub_mats_on(f, {m}, False, dev)
+        for B, rep, tw in ((37, 1, False), (300, 1, True), (296, 8, True)):
+            x = rand(m, B)
+            T3 = None if not tw else rand(m, B) if rep == 1 else rand(
+                B // rep, m)
+            same(f"subntt m={m} B={B} rep={rep} T3={tw}",
+                 mxu_level.fused_subntt(x, f, False, mats, T3, True, rep),
+                 mxu_level.fused_subntt_plain(x, f, False, mats, T3, True,
+                                              rep))
+            checks += 1
+    wide = f.n_words in mxu_level.SUB_WIDE_WORDS
+    card = _build.sm_count(dev)
+    for m in (64, 512, 1024):
+        for inverse in (False, True):
+            mats = sub_mats_on(f, {32, m // 32}, inverse, dev)
+            for B, rep, tw in ((37, 1, False), (300, 1, True),
+                               (300, 25, True)):
+                x = rand(m, B)
+                T3 = None if not tw else rand(m, B) if rep == 1 else rand(
+                    B // rep, m)
+                want = mxu_level.fused_subntt_plain(x, f, inverse, mats, T3,
+                                                    True, rep)
+                label = f"multi m={m} B={B} rep={rep} inverse={inverse}"
+                same(label + " present form",
+                     sub_multi_at(x, f, mats, T3, rep, inverse, True), want)
+                checks += 1
+                if mxu_level.sub_wide_holds(f, m):
+                    same(label + " wide form", sub_wide_at(
+                        x, f, mats, T3, rep, inverse, WIDE_CHECK_SMS, True),
+                        want)
+                    checks += 1
+            if wide and m != 64:
+                # a launch above one wave, where the wrapper takes the wide
+                # form on the narrow fields (else the present one)
+                B = 2 * card * mxu_level.TC_COLS // (m // 32) + 3
+                x, T3 = rand(m, B), rand(m, B)
+                form = ("fused_subntt_wide" if mxu_level.sub_wide(
+                    f, m, B, card) else "fused_subntt_multi")
+                got, c = counted(lambda: mxu_level.fused_subntt(
+                    x, f, inverse, mats, T3, True))
+                expect_counts(f"{f.name} transposed m={m} B={B}", c,
+                              {form: 1})
+                same(f"multi m={m} B={B} wrapper, {form}", got,
+                     mxu_level.fused_subntt_plain(x, f, inverse, mats, T3,
+                                                  True))
+                checks += 1
     return checks
 
 
@@ -2301,10 +2565,13 @@ KNOB_RUNS = [
     ("NTT_MXU_SUBBASE_LOG=8", {"mxu.SUBBASE_LOG": 8, "mxu.SUBBASE": 256},
      [("goldilocks", 20, "auto")]),
     ("NTT_MXU_SUBBASE_LOG=10", {"mxu.SUBBASE_LOG": 10, "mxu.SUBBASE": 1024},
-     [("goldilocks", 20, "auto"), ("small-proth", 20, "auto")]),
+     [("goldilocks", 20, "auto"), ("small-proth", 20, "auto"),
+      ("small-proth", 22, "auto")]),
     ("NTT_MXU_SUB256_LOG=6", {"mxu.SUB256_LOG": 6},
      [("bls12-381-fr", 18, "mxu_sub")]),
     ("NTT_MXU_SUB256_LOG=7", {"mxu.SUB256_LOG": 7},
+     [("bls12-381-fr", 18, "mxu_sub")]),
+    ("NTT_MXU_SUB256_LOG=9", {"mxu.SUB256_LOG": 9},
      [("bls12-381-fr", 18, "mxu_sub")]),
     ("NTT_TW_MATFOLD=0", {"mxu.TW_MATFOLD": False},
      [("bls12-381-fr", 18, "auto"), ("bls12-381-fr", 22, "auto")]),
@@ -2326,8 +2593,19 @@ KNOB_RUNS = [
 #: 2^20 at m = 64): BLS12-381 Fr 2^18 has no fold (two levels with
 #: tables, K3, and the base, K1); 2^20 and 2^24 fold (a 64-entry stack,
 #: the merged table, a stack of 4 or 64 entries, the base); BN254 Fr 2^20
-#: under mxu_sub the same levels with the base on K3
+#: under mxu_sub the same levels with the base on K3. The peels of the JAX
+#: package's rule: NTT_MXU_SUBBASE_LOG=10 peels 1024 on the small Proth
+#: prime (2^20: two wide launches of [1,1024,1024]; 2^22: two of
+#: [1,1024,4096] and the base m = 4 on K3 single), NTT_MXU_SUB256_LOG=9
+#: peels 256 on BLS12-381 Fr (two present-form launches of [8,256,1024],
+#: the base m = 4)
 KNOB_COUNTS = {
+    ("NTT_MXU_SUBBASE_LOG=10", "small-proth", 20, "auto"):
+        {"fused_subntt_wide": 2},
+    ("NTT_MXU_SUBBASE_LOG=10", "small-proth", 22, "auto"):
+        {"fused_subntt_wide": 2, "fused_subntt": 1},
+    ("NTT_MXU_SUB256_LOG=9", "bls12-381-fr", 18, "mxu_sub"):
+        {"fused_subntt_multi": 2, "fused_subntt": 1},
     ("NTT_MXU_BASE_LOG=6", "bls12-381-fr", 18, "auto"):
         {"fused_subntt": 2, "base_ntt_mxu": 1},
     ("NTT_MXU_BASE_LOG=6", "bls12-381-fr", 20, "auto"):
@@ -2344,6 +2622,15 @@ KNOB_COUNTS = {
         {"fused_subntt": 3, "base_ntt_mxu": 1},
     ("NTT_MXU_BASE_LOG=6", "small-proth", 18, "mxu_chunked"):
         {"fused_subntt": 2, "base_ntt_mxu": 1},
+}
+#: the input shapes [W, m, B] of the K3 launches asserted under a knob,
+#: as :func:`recording` sees them (one entry a distinct shape)
+KNOB_SHAPES = {
+    ("NTT_MXU_SUBBASE_LOG=10", "small-proth", 20, "auto"): {(1, 1024, 1024)},
+    ("NTT_MXU_SUBBASE_LOG=10", "small-proth", 22, "auto"):
+        {(1, 1024, 4096), (1, 4, 1 << 20)},
+    ("NTT_MXU_SUB256_LOG=9", "bls12-381-fr", 18, "mxu_sub"):
+        {(8, 256, 1024), (8, 4, 65536)},
 }
 #: the knob run whose golden result starts on a host thread before the
 #: narrow paths (about half a minute on one thread)
@@ -2383,7 +2670,8 @@ def knob_paths(rng, dev, path_ms, card, early=None) -> None:
     """Every knob setting of ``KNOB_RUNS`` on the card: each run it changes
     at its full width (random input, Montgomery I/O), every output word
     against the hostlib golden result, its launches counted (asserted
-    where ``KNOB_COUNTS`` has them) and each distinct K1-K4 launch
+    where ``KNOB_COUNTS`` has them, and their K3 input shapes where
+    ``KNOB_SHAPES`` has them: the peel of 1024) and each distinct K1-K4 launch
     recorded and then held against its plain version and timed
     (:func:`check_path_launches`); each run timed (median of 10, 5 at
     2^22 and above; tables resident) right after the same run at the
@@ -2433,15 +2721,26 @@ def knob_paths(rng, dev, path_ms, card, early=None) -> None:
                 if config_key() == default_key:
                     raise AssertionError(f"{label}: config_key() unchanged")
                 cached = len(api._runner_cache)
+                mine = {}
                 y, c = counted(lambda: api.ntt(xm, f, algorithm=alg,
                                                mont_io=True, device=dev),
-                               seen)
+                               mine)
                 if len(api._runner_cache) != cached + 1:
                     raise AssertionError(f"{label} {tag}: no fresh runner")
                 same_words(f"{label} {tag}", limbs.from_mont(y, f), want)
                 want_c = KNOB_COUNTS.get((label, name, log_n, alg))
                 if want_c is not None:
                     expect_counts(f"{label} {tag}", c, want_c)
+                want_s = KNOB_SHAPES.get((label, name, log_n, alg))
+                if want_s is not None:
+                    got_s = {shape for k, shape, _ in mine.values()
+                             if k == "fused_subntt"}
+                    print(f"shapes {label} {tag}: K3 {sorted(got_s)}",
+                          flush=True)
+                    if got_s != want_s:
+                        raise AssertionError(f"{label} {tag}: K3 shapes "
+                                             f"{got_s} != {want_s}")
+                seen.update(mine)
                 r, a = list(api._runner_cache.values())[-1]
                 ms = path_ms[f"knob {label} {tag}"] = time_ms(
                     lambda: r(xm, a), iters=iters(log_n, alg))
@@ -2647,7 +2946,28 @@ def dist_counts(f, n, algorithm, D, exchange) -> dict:
     return counts
 
 
-def dist_paths(rng, dev, path_ms) -> dict:
+def start_dist_goldens(pool, rng) -> dict:
+    """The inputs of the multi-device phase and the futures of their golden
+    results, on the host threads of ``pool`` (about a minute and a half of
+    host time in all, most of it Goldilocks 2^24 and the LDE to 2^24):
+    {(field, log2 n, algorithm): (input, forward)} for ``DIST_RUNS``,
+    ``"coset"``: the BLS12-381 Fr forward coset of the first run's input,
+    ``"lde"``: (Goldilocks 2^DIST_LDE_LOG evaluations, their LDE x4)."""
+    from ntt_tpu_torch import get_field
+    out = {}
+    for fname, log_n, alg in DIST_RUNS:
+        f = get_field(fname)
+        xs = random_words(f, (1 << log_n,), rng)
+        out[(fname, log_n, alg)] = (xs, pool.submit(golden_ntt, f, xs))
+        if "coset" not in out:
+            out["coset"] = pool.submit(golden_coset_ntt, f, xs, f.generator)
+    f = get_field("goldilocks")
+    xs = random_words(f, (1 << DIST_LDE_LOG,), rng)
+    out["lde"] = (xs, pool.submit(golden_lde, f, xs, 4))
+    return out
+
+
+def dist_paths(rng, dev, path_ms, goldens) -> dict:
     """The multi-device four-step (``ntt_tpu_torch.parallel``) on a mesh of
     four shards of one card, every output word against the hostlib golden
     result, launch counts asserted: BLS12-381 Fr 2^22 (``mxu_sub``, K3)
@@ -2657,7 +2977,9 @@ def dist_paths(rng, dev, path_ms) -> dict:
     exchange; BLS 2^20 under the local ``pallas`` (K5); Goldilocks 2^24
     (K3 multi-level) forward and ``dist_lde`` from 2^22 at blowup 4; then,
     where the machine has two cards or more, the BLS 2^22 forward across
-    distinct cards. Returns the launch counts of the BLS 2^22 forward."""
+    distinct cards. ``goldens``: the inputs and golden results
+    (:func:`start_dist_goldens`). Returns the launch counts of the BLS
+    2^22 forward."""
     from ntt_tpu_torch import get_field, limbs
     from ntt_tpu_torch.parallel import (dist_lde, make_dist_ntt, make_mesh,
                                         shard_for_ntt)
@@ -2667,8 +2989,8 @@ def dist_paths(rng, dev, path_ms) -> dict:
     for fname, log_n, alg in DIST_RUNS:
         f, n = get_field(fname), 1 << log_n
         tag = f"{fname} 2^{log_n} dist D={DIST_D} {alg}"
-        xs = random_words(f, (n,), rng)
-        want = golden_ntt(f, xs)
+        xs, want = goldens[(fname, log_n, alg)]
+        want = want.result()
         xm = limbs.to_mont(torch.from_numpy(xs).to(dev), f)
         t0 = time.time()
         fwd = make_dist_ntt(f, n, mesh, algorithm=alg, exchange="pallas")
@@ -2685,14 +3007,15 @@ def dist_paths(rng, dev, path_ms) -> dict:
               f"in {t_tab:.1f} s)", flush=True)
         if main is None:
             main = c
-            dist_bls_extras(f, n, alg, mesh, xs, xm, y, rng, dev, path_ms)
+            dist_bls_extras(f, n, alg, mesh, xs, xm, y, rng, dev, path_ms,
+                            goldens["coset"])
         del y, shards, fwd
         torch.cuda.empty_cache()
 
     # dist_lde: Goldilocks 2^22 evaluations -> 2^24 coset evaluations
     f, n = get_field("goldilocks"), 1 << DIST_LDE_LOG
-    xs = random_words(f, (n,), rng)
-    want = golden_lde(f, xs, 4)
+    xs, want = goldens["lde"]
+    want = want.result()
     shards = shard_for_ntt(limbs.to_mont(torch.from_numpy(xs).to(dev), f), f,
                            mesh)
     y = dist_lde(shards, f, mesh, n, blowup=4, algorithm="mxu_sub")
@@ -2708,11 +3031,13 @@ def dist_paths(rng, dev, path_ms) -> dict:
     return main
 
 
-def dist_bls_extras(f, n, alg, mesh, xs, xm, y, rng, dev, path_ms) -> None:
+def dist_bls_extras(f, n, alg, mesh, xs, xm, y, rng, dev, path_ms,
+                    want_coset) -> None:
     """BLS12-381 Fr 2^22 beyond the forward: ``dist_intt`` back to the
-    input, the forward coset, the other two exchanges (the same words as
-    K8's), five random inputs through K8 against the plain exchange, and
-    the run across distinct cards where there are two or more."""
+    input, the forward coset (against the golden future ``want_coset``),
+    the other two exchanges (the same words as K8's), five random inputs
+    through K8 against the plain exchange, and the run across distinct
+    cards where there are two or more."""
     from ntt_tpu_torch import limbs
     from ntt_tpu_torch.parallel import dist_intt, make_dist_ntt, shard_for_ntt
 
@@ -2739,7 +3064,7 @@ def dist_bls_extras(f, n, alg, mesh, xs, xm, y, rng, dev, path_ms) -> None:
                         coset_shift=f.generator)
     yc = cos(shards)
     same_words(tag + " coset", limbs.from_mont(gathered(yc), f),
-               golden_coset_ntt(f, xs, f.generator))
+               want_coset.result())
     ms = path_ms[tag + " coset"] = time_ms(lambda: cos(shards), iters=5,
                                            warmup=1)
     print(f"path {tag} coset_shift  golden-equal  {ms:.4f} ms/transform",
@@ -3706,6 +4031,16 @@ def main() -> int:
           f"{check_small_multi(BLS12_381_FR, (64, 128, 256, 512), rng, dev)} "
           "multi-level kernel calls word-equal to the plain version",
           flush=True)
+    for f in (SMALL, GOLDILOCKS, BLS12_381_FR):
+        t0 = time.time()
+        print(f"small shapes {f.name}: {check_small_1024(f, rng, dev)} "
+              "m = 1024 multi-level kernel calls word-equal to the plain "
+              f"version ({time.time() - t0:.1f} s)", flush=True)
+    for f in (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL):
+        t0 = time.time()
+        print(f"small shapes {f.name}: {check_small_transposed(f, rng, dev)} "
+              "transposed-store calls of K2 and K3 word-equal to the plain "
+              f"versions ({time.time() - t0:.1f} s)", flush=True)
     for f in (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL):
         print(f"small shapes {f.name}: {check_small_shapes(f, rng, dev)} "
               "single-level kernel calls word-equal to their plain versions",
@@ -3741,6 +4076,7 @@ def main() -> int:
     check_base_m2(rng, dev, results)
     check_table_generators(dev)
     check_multi_level(rng, dev, results)
+    time_transposed(rng, dev, card)
     check_narrow_short_bases(dev, results)
     check_ladder_kernels(rng, dev, results)
     check_base64_kernels(rng, dev, results)
@@ -3775,6 +4111,11 @@ def main() -> int:
     counts.update(narrow_paths(rng, dev, path_ms, narrow_huge))
     del narrow_huge
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
+    # the multi-device phase's golden results, on host threads under the
+    # knob, ladder and probe phases (one after another they took most of
+    # its time)
+    dist_pool = ThreadPoolExecutor(max_workers=3)
+    dist_goldens = start_dist_goldens(dist_pool, rng)
     knob_paths(rng, dev, path_ms, card, knob_early)
     pool.shutdown()
     del knob_early
@@ -3782,7 +4123,10 @@ def main() -> int:
     counts.update(ladder_paths(rng, dev, path_ms))
     counts.update(probe_path(rng, dev))
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
-    counts["a2a_transpose"] = dist_paths(rng, dev, path_ms)["a2a_transpose"]
+    counts["a2a_transpose"] = dist_paths(rng, dev, path_ms,
+                                         dist_goldens)["a2a_transpose"]
+    dist_pool.shutdown()
+    del dist_goldens
     print(f"seconds so far: {time.time() - t_start:.1f}", flush=True)
     breakdown(GOLDILOCKS, 1 << 18, rng, dev)
     breakdown(BLS12_381_FR, 1 << 18, rng, dev)

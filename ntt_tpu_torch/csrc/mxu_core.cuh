@@ -8,7 +8,7 @@
 //                                            in its single-level form, m <= 64
 //                 mxu_fused_level        K4, replaces ntt_tpu/kernels/mxu_level.py::_kernel_level
 //                 mxu_fused_level_probe  K7, replaces ntt_tpu/kernels/mxu_level.py::_kernel_probe
-//   mxu_sub.cu    mxu_fused_subntt_multi K3 in its multi-level form, m = 64 .. 512
+//   mxu_sub.cu    mxu_fused_subntt_multi K3 in its multi-level form, m = 64 .. 1024
 //                                            (a peel of 32 points, PEEL)
 //                 mxu_fused_subntt_wide  the same in its wide form (W = 1, 2, above
 //                                            one wave of blocks: persistent blocks,
@@ -97,7 +97,8 @@
 //      matmul and a 16-bit tail (W = 8) or a 16-bit wide reduction (narrow
 //      fields), at m = 64 as at 32;
 //   5. optionally multiply by a Montgomery twiddle (32-bit CIOS, R = 2^(32 W));
-//   6. store the words at [w, k, b], coalesced over b (K4: or at [w, b, k]).
+//   6. store the words at [w, k, b], coalesced over b (K2, K3, K4: or at
+//      [w, b, k] on request, the transposed store).
 #pragma once
 
 #include <cstdint>

@@ -32,13 +32,16 @@
 // residual twiddle is multiplied into the output, at batch resolution
 // T3[W, m, B] or periodic T3[W, m, s0], column b reading column b mod s0 (s0 a
 // power of two dividing B): level 0 above 2^24, whose residual the JAX package
-// tiles to each chunk's width, reads its compact [W, 32, s0] table here.
+// tiles to each chunk's width, reads its compact [W, 32, s0] table here. The
+// store is transposed to [W, B, m] on request (transpose_out of the JAX entry),
+// through K4's tile.
 //
 // K3 mxu_fused_subntt replaces the single-level form (m <= 64) of
 // ntt_tpu/kernels/mxu_level.py::_kernel_sub (entry fused_subntt): one conv matrix,
 // then the decomposition twiddle by a Montgomery product, read from T3[W, m, B]
 // (rep == 1) or from the i2-resolution table T3[W, B / rep, m] (rep > 1; a warp
-// reads one row of it, mostly as broadcasts).
+// reads one row of it, mostly as broadcasts); the store transposed on request,
+// as K2's.
 //
 // K4 mxu_fused_level replaces ntt_tpu/kernels/mxu_level.py::_kernel_level (entry
 // fused_level): one conv matrix, an optional product with a full-resolution
@@ -65,12 +68,12 @@
 // from one to the next: tc::contract), and four warpgroups run wgmma
 // m64n160k32 s8 on it (two column halves x two row halves); the sums go
 // through a shared Z tile to the epilogue: reduce<W>,
-// then T3 by mont_mul, then the store (for K4's transposed store through a
-// [w][column][row | 1] tile, so that the writes run along m). The epilogue
-// takes the probe's stage as an argument; the other kernels pass TW, which the
+// then T3 by mont_mul, then the store (for the transposed store of K2, K3 and
+// K4 through a [w][column][row | 1] tile, so that the writes run along m). The
+// epilogue takes the probe's stage as an argument; the other kernels pass TW, which the
 // compiler folds away. Blocks are numbered column tile by column tile, the row
 // chunks of one tile together, so the blocks of one stack entry run together
-// and read its matrix from L2. K3's multi-level form (m = 64 .. 512, peel 32) is
+// and read its matrix from L2. K3's multi-level form (m = 64 .. 1024, peel 32) is
 // mxu_sub.cu, on the same contraction; which form a launch of m = 64 takes is
 // the caller's plan (the single-level one under NTT_MXU_BASE_LOG=6).
 //
@@ -545,13 +548,15 @@ static long long stack_stride(int n_words, int m) {
 }
 
 // t_period: T3's columns, B or the period s0 of a periodic T3[W, m, s0].
+// transpose: the output is [W, B, m] (else [W, m, B]).
 extern "C" int mxu_fused_level_stack(const void* x, const void* As, long long rep,
-                                     const void* T3, long long t_period, void* out, int m,
-                                     long long B, const uint32_t* p, uint32_t np0, int n_words,
-                                     int kt, int k_pad, int m_pad, long long blocks, int smem,
-                                     void* stream) {
+                                     const void* T3, long long t_period, void* out,
+                                     int transpose, int m, long long B, const uint32_t* p,
+                                     uint32_t np0, int n_words, int kt, int k_pad, int m_pad,
+                                     long long blocks, int smem, void* stream) {
   if (rep < 1 || B % rep) return (int)cudaErrorInvalidValue;
   mxu::tc::Level L = tc_operands(x, As, T3, out, m, B);
+  L.transpose = transpose;
   L.t_period = t_period;
   L.a_stride = stack_stride(n_words, m);
   L.a_rep = rep;
@@ -559,10 +564,11 @@ extern "C" int mxu_fused_level_stack(const void* x, const void* As, long long re
 }
 
 extern "C" int mxu_fused_subntt(const void* x, const void* A, const void* T3, long long rep,
-                                void* out, int m, long long B, const uint32_t* p,
-                                uint32_t np0, int n_words, int kt, int k_pad, int m_pad,
-                                long long blocks, int smem, void* stream) {
+                                void* out, int transpose, int m, long long B,
+                                const uint32_t* p, uint32_t np0, int n_words, int kt, int k_pad,
+                                int m_pad, long long blocks, int smem, void* stream) {
   mxu::tc::Level L = tc_operands(x, A, T3, out, m, B);
+  L.transpose = transpose;
   L.t_rep = rep;
   return tc_entry(TC_SUBNTT, L, 1, p, np0, n_words, kt, k_pad, m_pad, blocks, smem, stream);
 }

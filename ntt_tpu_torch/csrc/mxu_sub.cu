@@ -1,5 +1,7 @@
-// K3, multi-level: a whole m-point sub-NTT (m = 64 .. 512) with its decomposition
-// twiddle in one launch, on uint32[W, m, B] (W = 8, 2 or 1 words per element).
+// K3, multi-level: a whole m-point sub-NTT (m = 64 .. 1024) with its decomposition
+// twiddle in one launch, on uint32[W, m, B] (W = 8, 2 or 1 words per element),
+// stored as [W, m, B] or, on request (transpose_out of the JAX entry), as
+// [W, B, m].
 //
 // mxu_fused_subntt_multi and, on the narrow fields above one wave of blocks,
 // mxu_fused_subntt_wide (its wide form, below) replace the multi-level form of
@@ -14,7 +16,14 @@
 //            A2[E*m2, D*m2]; the element for (k2, k1) is output row k2 * 32 + k1;
 //   then the optional decomposition twiddle T3, indexed by that row: T3[W, m, B]
 //   for rep == 1, the i2-resolution table T3[W, B / rep, m] for rep > 1 (read
-//   directly at [w, b / rep, row]).
+//   directly at [w, b / rep, row]); the word stored at [w, row, b], or at
+//   [w, b, row] for the transposed store (out_at: each thread writes its own
+//   words, a chunk's kt rows k1 of one k2 contiguous there).
+// At m = 1024 (m2 = 32, the small Proth prime's peel under
+// NTT_MXU_SUBBASE_LOG=10) level B is a 32-point contraction like level A's: A2
+// is A1's shape, bt = 4 columns a block, and the wide form's A2 two row units
+// (W = 1; at W = 2 its block-diagonal A2 alone exceeds a block, and the
+// present form takes every launch).
 //
 // Both levels contract on the int8 tensor cores with the core of K1-K4
 // (mxu_core.cuh, tc::contract: the TMA ring or the cp.async chunk, the 32-byte
@@ -53,14 +62,19 @@
 // series. The wide launches of Goldilocks 2^24 are bound by bytes too: its
 // levels [2,512,32768] with T3 at rep 1 move 403 MB (0.120 ms), its base
 // [2,64,2^18] 268 MB (0.080 ms); the present form takes 32x and 12x that (62
-// waves of its blocks), the wide form below is made for them.
+// waves of its blocks), the wide form below is made for them. The small Proth
+// prime's launches at m = 1024 (NTT_MXU_SUBBASE_LOG=10: [1,1024,1024] at 2^20)
+// are bound by bytes as well: 12.6 MB with T3 at rep 1 (3.8 us) against 1.68 G
+// banded MACs (1.7 us).
 #include "mxu_core.cuh"
 
 namespace mxu {
 
 // Level A's transform length, the peel of the recursion: 32 whatever the
-// single-level kernels' largest m (MAX_LEVEL_M) and NTT_MXU_BASE_LOG are
+// single-level kernels' largest m (MAX_LEVEL_M) and NTT_MXU_BASE_LOG are; and
+// the longest sub-NTT (level B at most PEEL points too)
 constexpr int PEEL = 32;
+constexpr int MAX_SUB = PEEL * PEEL;
 
 struct SubLevel {
   tc::Level a;          // level A: A1 (m = 32), kt rows k1 a block, padded depth, TMA
@@ -69,7 +83,8 @@ struct SubLevel {
   const uint32_t* Tin;  // inner twiddle [W, 32, m2]
   const uint32_t* T3;   // decomposition twiddle, or nullptr
   long long t_rep;      // 1: T3 is [W, m, B]; > 1: T3 is [W, B / t_rep, m]
-  uint32_t* out;        // [W, m, B]
+  uint32_t* out;        // [W, m, B], or [W, B, m] when transpose
+  int transpose;
   int m, m2;
   int lbt;              // log2 of bt, the batch columns a block owns (bt * m2 = 128)
   int ys;               // words between the rows i2 of Y (the plan's)
@@ -77,6 +92,12 @@ struct SubLevel {
   long long B;
   FieldConst fc;
 };
+
+// Where word q of output (row, b) goes: [W, m, B], or [W, B, m] when transpose.
+__device__ __forceinline__ long long out_at(int transpose, int q, int m, long long B, int row,
+                                            long long b) {
+  return transpose ? ((long long)q * B + b) * m + row : ((long long)q * m + row) * B + b;
+}
 
 // Level A's epilogue: Z of the block's rows k1 = k0 + kk over the virtual columns
 // v = i2 * bt + bl, reduced and multiplied by Tin[w, k1, i2], into Y.
@@ -129,7 +150,7 @@ __device__ __forceinline__ void epilogue_b(const SubLevel& S, long long b0, int 
       for (int q = 0; q < W; ++q) y[q] = r[q];
     }
 #pragma unroll
-    for (int q = 0; q < W; ++q) S.out[((long long)q * S.m + row) * S.B + b] = y[q];
+    for (int q = 0; q < W; ++q) S.out[out_at(S.transpose, q, S.m, S.B, row, b)] = y[q];
   }
 }
 
@@ -225,7 +246,8 @@ static int launch_sub(SubLevel& S, long long blocks, int smem, void* stream) {
 //     the chunk, and A2 as a block-diagonal matrix of lb / m2 copies of itself
 //     (lb = max(S, m2) GEMM rows a level-B column, S below), so that level B
 //     contracts lb / m2 of its m2-point vectors in one column and runs as one
-//     pass: one wgmma N half for every m2 <= 8 at W = 2 and every m2 at W = 1;
+//     pass: one wgmma N half for every m2 <= 8 at W = 2 and every m2 <= 16 at
+//     W = 1 (two at m2 = 32);
 //   - the GEMM rows of each wgmma N half are slot-major, plane e of output slot
 //     s at row e * 8 + s (groups of 8 slots GS rows apart, GW groups a half: GS
 //     = 160 at W = 2, 80 at W = 1), so that the accumulator registers of a
@@ -246,8 +268,9 @@ static int launch_sub(SubLevel& S, long long blocks, int smem, void* stream) {
 // the digit tile (40,960) exceed the 232,448 bytes of a block. The plan
 // (mxu_level.sub_wide_plan) puts the chunks of one span of tiles in
 // neighbouring blocks, so that the second read of a tile comes from L2.
-// The present form stays for one wave or less (Goldilocks 2^18: 128 blocks)
-// and for W = 8 (its K3 multi runs only under NTT_MXU_SUB256_LOG).
+// The present form stays for one wave or less (Goldilocks 2^18: 128 blocks),
+// for W = 8 (its K3 multi runs only under NTT_MXU_SUB256_LOG) and for W = 2 at
+// m = 1024 (A1's two units and the block-diagonal A2's four exceed a block).
 namespace wide {
 
 constexpr int YS = tc::N + 4;  // words between Y's rows kk (conflict-free stores)
@@ -305,7 +328,8 @@ struct SubWide {
   const uint32_t* Tin;  // [W, 32, m2]
   const uint32_t* T3;   // as SubLevel's, or nullptr
   long long t_rep;
-  uint32_t* out;        // [W, m, B]
+  uint32_t* out;        // [W, m, B], or [W, B, m] when transpose
+  int transpose;
   int m, m2, lm2;       // lm2 = log2 m2
   int lbt;              // log2 bt
   int lb, llb;          // level B's rows a column and its log2
@@ -471,7 +495,7 @@ __device__ __forceinline__ void wide_epilogue_b(const SubWide& S, long long b0, 
       for (int q = 0; q < W; ++q) y[q] = r[q];
     }
 #pragma unroll
-    for (int q = 0; q < W; ++q) S.out[((long long)q * S.m + row) * S.B + b] = y[q];
+    for (int q = 0; q < W; ++q) S.out[out_at(S.transpose, q, S.m, S.B, row, b)] = y[q];
   }
 }
 
@@ -564,13 +588,14 @@ static int launch_wide(SubWide& S, int kt, int ka_pad, long long blocks, int sme
 
 }  // namespace mxu
 
+// transpose (both entries): the output is [W, B, m] (else [W, m, B]).
 extern "C" int mxu_fused_subntt_wide(const void* x, const void* A1, const void* A2,
                                      const void* Tin, const void* T3, long long rep,
-                                     void* out, int m, long long B, const uint32_t* p,
-                                     uint32_t np0, int n_words, int kt, int lb, int ka_pad,
-                                     int kb_pad, long long span, long long blocks, int smem,
-                                     void* stream) {
-  if (m < 64 || m > 512 || (m & (m - 1)) || B < 1 || lb < 1 || (lb & (lb - 1)))
+                                     void* out, int transpose, int m, long long B,
+                                     const uint32_t* p, uint32_t np0, int n_words, int kt,
+                                     int lb, int ka_pad, int kb_pad, long long span,
+                                     long long blocks, int smem, void* stream) {
+  if (m < 64 || m > mxu::MAX_SUB || (m & (m - 1)) || B < 1 || lb < 1 || (lb & (lb - 1)))
     return (int)cudaErrorInvalidValue;
   mxu::SubWide S{};
   S.x = static_cast<const uint32_t*>(x);
@@ -580,6 +605,7 @@ extern "C" int mxu_fused_subntt_wide(const void* x, const void* A1, const void* 
   S.T3 = static_cast<const uint32_t*>(T3);
   S.t_rep = rep;
   S.out = static_cast<uint32_t*>(out);
+  S.transpose = transpose;
   S.m = m;
   S.m2 = m / mxu::PEEL;
   S.lm2 = __builtin_ctz(S.m2);
@@ -599,11 +625,11 @@ extern "C" int mxu_fused_subntt_wide(const void* x, const void* A1, const void* 
 
 extern "C" int mxu_fused_subntt_multi(const void* x, const void* A1, const void* A2,
                                       const void* Tin, const void* T3, long long rep,
-                                      void* out, int m, long long B, const uint32_t* p,
-                                      uint32_t np0, int n_words, int kt, int kt2, int ka_pad,
-                                      int kb_pad, int m_pad, int ys, int y_off,
-                                      long long blocks, int smem, void* stream) {
-  if (m < 64 || m > 512 || (m & (m - 1)) || B < 1) return (int)cudaErrorInvalidValue;
+                                      void* out, int transpose, int m, long long B,
+                                      const uint32_t* p, uint32_t np0, int n_words, int kt,
+                                      int kt2, int ka_pad, int kb_pad, int m_pad, int ys,
+                                      int y_off, long long blocks, int smem, void* stream) {
+  if (m < 64 || m > mxu::MAX_SUB || (m & (m - 1)) || B < 1) return (int)cudaErrorInvalidValue;
   mxu::SubLevel S{};
   S.m = m;
   S.m2 = m / mxu::PEEL;
@@ -628,6 +654,7 @@ extern "C" int mxu_fused_subntt_multi(const void* x, const void* A1, const void*
   S.T3 = static_cast<const uint32_t*>(T3);
   S.t_rep = rep;
   S.out = static_cast<uint32_t*>(out);
+  S.transpose = transpose;
   S.fc = mxu::field_const(p, np0);
   switch (n_words) {
     case 8: return mxu::launch_sub<8>(S, blocks, smem, stream);

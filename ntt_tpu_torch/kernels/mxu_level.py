@@ -12,11 +12,15 @@ share with K1 (``kernels/mxu_ntt.py``).
   i2-resolution table T3 [W, B // rep, m] (rep > 1). Single-level (one
   conv matrix) up to 32 points, and at 64 where the caller's plan has the
   64-point matrix (``NTT_MXU_BASE_LOG=6``; :func:`single_level`);
-  multi-level for m = 64 .. 512 otherwise: the peel-32 recursion with its
+  multi-level for m = 64 .. 1024 otherwise: the peel-32 recursion with its
   two inner matmul levels and the inner twiddle ω_m^{k1·i2} between them,
   all in one kernel; on the narrow fields, above one wave of its blocks,
-  in its wide form (:func:`sub_wide`: persistent blocks with both
-  matrices resident, level B in one pass, both epilogues from registers).
+  in its wide form where its block holds the level (:func:`sub_wide`:
+  persistent blocks with both matrices resident, level B in one pass, both
+  epilogues from registers).
+
+K2 and K3 store their output as [W, B, m] when ``transpose_out``, as the
+JAX package's entries do (no path of either package asks for it).
 
 - ``fused_level`` (K4): one conv matrix, an optional full-resolution
   twiddle T3 [W, m, B], and the store transposed to [W, B, m] on request:
@@ -58,7 +62,7 @@ LEVEL_MAX_M = 64
 #: the peel of the multi-level sub-NTT (its level A) and its largest
 #: transform length; the peel stays 32 under every NTT_MXU_BASE_LOG
 SUB_PEEL = 32
-MAX_SUB = 512
+MAX_SUB = 1024
 
 
 @functools.cache
@@ -67,12 +71,12 @@ def _lib() -> ctypes.CDLL:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     plan = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ll, ctypes.c_int]
     lib.mxu_fused_level_stack.argtypes = [
-        vp, vp, ll, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
-        *plan, vp]
+        vp, vp, ll, vp, ll, vp, ctypes.c_int, ctypes.c_int, ll,
+        *_build.FIELD_ARGTYPES, *plan, vp]
     lib.mxu_fused_level_stack.restype = ctypes.c_int
     lib.mxu_fused_subntt.argtypes = [
-        vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES, *plan,
-        vp]
+        vp, vp, vp, ll, vp, ctypes.c_int, ctypes.c_int, ll,
+        *_build.FIELD_ARGTYPES, *plan, vp]
     lib.mxu_fused_subntt.restype = ctypes.c_int
     lib.mxu_base_ntt.argtypes = [vp, vp, vp, ctypes.c_int, ll,
                                  *_build.FIELD_ARGTYPES, *plan, vp]
@@ -93,12 +97,12 @@ def _lib_sub() -> ctypes.CDLL:
     lib = _build.load("mxu_sub")
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.mxu_fused_subntt_multi.argtypes = [
-        vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
-        *[ctypes.c_int] * 7, ll, ctypes.c_int, vp]
+        vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ctypes.c_int, ll,
+        *_build.FIELD_ARGTYPES, *[ctypes.c_int] * 7, ll, ctypes.c_int, vp]
     lib.mxu_fused_subntt_multi.restype = ctypes.c_int
     lib.mxu_fused_subntt_wide.argtypes = [
-        vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ll, *_build.FIELD_ARGTYPES,
-        *[ctypes.c_int] * 4, ll, ll, ctypes.c_int, vp]
+        vp, vp, vp, vp, vp, ll, vp, ctypes.c_int, ctypes.c_int, ll,
+        *_build.FIELD_ARGTYPES, *[ctypes.c_int] * 4, ll, ll, ctypes.c_int, vp]
     lib.mxu_fused_subntt_wide.restype = ctypes.c_int
     return lib
 
@@ -341,12 +345,40 @@ class SubWidePlan(NamedTuple):
     smem_bytes: int
 
 
-def sub_wide(field: Field, m: int, B: int, sms: int = TC_SMS) -> bool:
-    """Whether a multi-level K3 launch takes the wide form: a narrow field
-    (SUB_WIDE_WORDS) and more blocks in the present form
-    (:func:`sub_plan`) than the card has SMs (``sms``), that is more than
-    one wave of them."""
+@functools.cache
+def _wide_geometry(field: Field, m: int) -> tuple:
+    """The wide form's slot geometry and shared bytes on uint32[W, m, B]
+    (they do not depend on B): group_rows, slots, kt, lb, ka_pad, kb_pad and
+    the block's dynamic shared bytes (the two matrices, the digit tile,
+    level A's result tile Y and the tile's twiddle)."""
+    W = field.n_words
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    group_rows = -(-8 * E // 16) * 16
+    slots = 8 * (TC_SHORT_ROWS // group_rows)
+    kt, lb = 2 * slots, max(slots, m // SUB_PEEL)
+    ka_pad, kb_pad = D * SUB_PEEL, -(-D * lb // TC_BK) * TC_BK
+    rows = TC_SHORT_ROWS * TC_BK    # bytes of one step of one row unit
+    smem = (TC_ALIGN + ka_pad // TC_BK * 2 * rows
+            + kb_pad // TC_BK * (lb // slots) * rows
+            + max(TC_COLS * ka_pad, kt * TC_COLS // lb * kb_pad)
+            + W * kt * (SUB_WIDE_YS + TC_COLS) * 4)
+    return group_rows, slots, kt, lb, ka_pad, kb_pad, smem
+
+
+def sub_wide_holds(field: Field, m: int) -> bool:
+    """Whether the wide form is built for the field (SUB_WIDE_WORDS) and
+    its block holds an m-point level: not W = 2 at m = 1024, whose
+    block-diagonal A2 alone exceeds it."""
     return (field.n_words in SUB_WIDE_WORDS
+            and _wide_geometry(field, m)[-1] <= TC_MAX_SMEM)
+
+
+def sub_wide(field: Field, m: int, B: int, sms: int = TC_SMS) -> bool:
+    """Whether a multi-level K3 launch takes the wide form: where
+    :func:`sub_wide_holds`, above one wave of the present form's blocks
+    (:func:`sub_plan`) on the card's ``sms`` SMs. Else the present form
+    takes it."""
+    return (sub_wide_holds(field, m)
             and sub_plan(field, m, B).blocks > sms)
 
 
@@ -361,19 +393,10 @@ def sub_wide_plan(field: Field, m: int, B: int, sms: int = TC_SMS
             or not 2 * SUB_PEEL <= m <= MAX_SUB or B < 1 or sms < 1):
         raise ValueError(f"no wide multi-level plan for W = {W}, m = {m}, "
                          f"B = {B}")
-    D, E = digits.n_digits(field), digits.out_planes(field)
-    group_rows = -(-8 * E // 16) * 16
-    slots = 8 * (TC_SHORT_ROWS // group_rows)
-    kt, m2 = 2 * slots, m // SUB_PEEL
-    chunks, bt, lb = SUB_PEEL // kt, TC_COLS // m2, max(slots, m2)
-    ka_pad, kb_pad = D * SUB_PEEL, -(-D * lb // TC_BK) * TC_BK
+    group_rows, slots, kt, lb, ka_pad, kb_pad, smem = _wide_geometry(field, m)
+    chunks, bt = SUB_PEEL // kt, TC_COLS // (m // SUB_PEEL)
     tiles = -(-B // bt)
     span = -(-tiles // max(1, sms // chunks))
-    rows = TC_SHORT_ROWS * TC_BK    # bytes of one step of one row unit
-    smem = (TC_ALIGN + ka_pad // TC_BK * 2 * rows
-            + kb_pad // TC_BK * (lb // slots) * rows
-            + max(TC_COLS * ka_pad, kt * TC_COLS // lb * kb_pad)
-            + W * kt * (SUB_WIDE_YS + TC_COLS) * 4)
     plan = SubWidePlan(slots, group_rows, kt, chunks, bt, lb, ka_pad, kb_pad,
                        tiles, span, chunks * -(-tiles // span), smem)
     if ka_pad % TC_BK or smem > TC_MAX_SMEM:
@@ -424,8 +447,21 @@ def t3_period(T3, W: int, m: int, B: int) -> int:
     return s0
 
 
+def _store(y, transpose_out: bool):
+    """y [W, m, B], or as [W, B, m] when ``transpose_out``."""
+    return y.transpose(1, 2).contiguous() if transpose_out else y
+
+
+def _output(x3, transpose_out: bool):
+    """The kernels' output tensor: [W, m, B], or [W, B, m] when
+    ``transpose_out``."""
+    W, m, B = x3.shape
+    return torch.empty((W, B, m) if transpose_out else (W, m, B),
+                       dtype=torch.uint32, device=x3.device)
+
+
 def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
-                            T3=None):
+                            T3=None, transpose_out: bool = False):
     """Plain PyTorch version of K2. A periodic T3 is expanded to batch
     resolution by indexing."""
     W, m, B = x3.shape
@@ -444,32 +480,35 @@ def fused_level_stack_plain(x3, field: Field, As, rep: int, F=None,
             cols = torch.arange(B, device=T3.device) % s0
             T3 = T3.view(torch.int32)[:, :, cols].view(torch.uint32)
         y = _twiddle_product(y, T3, field)
-    return y
+    return _store(y, transpose_out)
 
 
-def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None):
+def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None,
+                      transpose_out: bool = False):
     """m-point level on uint32[W, m, B] with the decomposition twiddle
     folded into the conv-matrix stack ``As`` (int8[NT, D*m, D*m],
     NT * rep == B). ``T3``: optional residual twiddle, uint32[W, m, B] or
     periodic [W, m, s0] (:func:`t3_period`), which the kernel reads
-    compact. ``F``: the fold matrix, which only the plain version reads."""
+    compact. ``F``: the fold matrix, which only the plain version reads.
+    Stored as [W, B, m] when ``transpose_out`` (else [W, m, B])."""
     W, m, B = x3.shape
     NT = As.shape[0]
     if NT * rep != B:
         raise ValueError(f"stack of {NT} entries x rep {rep} != B = {B}")
     period = B if T3 is None else t3_period(T3, W, m, B)
     if x3.device.type == "cpu":
-        return fused_level_stack_plain(x3, field, As, rep, F, T3)
+        return fused_level_stack_plain(x3, field, As, rep, F, T3,
+                                       transpose_out)
     _build.check_level(x3, field, LEVEL_MAX_M)
     D, E = digits.n_digits(field), digits.out_planes(field)
     _build.check_operand(As, "As", torch.int8, (NT, E * m, D * m), x3.device)
     if T3 is not None:
         _build.check_operand(T3, "T3", torch.uint32, (W, m, period),
                              x3.device)
-    out = torch.empty_like(x3)
+    out = _output(x3, transpose_out)
     rc = _lib().mxu_fused_level_stack(
         _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), period,
-        _build.ptr(out), m, B, *_build.field_args(field),
+        _build.ptr(out), int(transpose_out), m, B, *_build.field_args(field),
         *plan_args(field, m, B), _build.stream(x3))
     _build.check(rc, "fused_level_stack")
     _build.launches["fused_level_stack"] += 1
@@ -539,49 +578,53 @@ def _subntt_plain(x3, field: Field, mats, inverse: bool):
     return y.reshape(W, m, B)
 
 
-def fused_subntt_plain(x3, field: Field, mats, T3=None, rep: int = 1,
-                       inverse: bool = False):
+def fused_subntt_plain(x3, field: Field, inverse: bool, mats, T3=None,
+                       transpose_out: bool = False, rep: int = 1):
     """Plain PyTorch version of K3, single- and multi-level."""
     B = x3.shape[2]
     y = _subntt_plain(x3, field, mats, inverse)
-    if T3 is None:
-        return y
-    return _twiddle_product(y, _expand_twiddle(T3, rep, B), field,
-                            mats.get(-1))
+    if T3 is not None:
+        y = _twiddle_product(y, _expand_twiddle(T3, rep, B), field,
+                             mats.get(-1))
+    return _store(y, transpose_out)
 
 
-def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
-                 inverse: bool = False):
+def fused_subntt(x3, field: Field, inverse: bool, mats, T3=None,
+                 transpose_out: bool = False, rep: int = 1):
     """m-point sub-NTT along axis 1 of uint32[W, m, B] (m a power of two
-    up to 512), then the optional decomposition twiddle ``T3``: [W, m, B]
-    for rep == 1, the i2-resolution table [W, B // rep, m] for rep > 1.
+    up to 1024), then the optional decomposition twiddle ``T3``: [W, m, B]
+    for rep == 1, the i2-resolution table [W, B // rep, m] for rep > 1;
+    stored as [W, B, m] when ``transpose_out`` (else [W, m, B]).
     ``mats``: {size: conv matrix, -size: fold matrix, -1: twiddle fold
     matrix} built for the direction ``inverse``; the kernels read only the
     conv matrices: of m itself where :func:`single_level` (m <= 32, or 64
     with its matrix in ``mats``), else of 32 and m // 32 (the multi-level
-    kernel, in its wide form where :func:`sub_wide` for the card's SMs)."""
+    kernel, in its wide form where :func:`sub_wide` for the card's SMs),
+    whose inner twiddle is of the direction ``inverse``."""
     W, m, B = x3.shape
     if m == 1:
-        return x3
+        return _store(x3, transpose_out)
     if T3 is not None:
         want = (W, m, B) if rep == 1 else (W, B // rep, m)
         if B % rep or tuple(T3.shape) != want:
             raise ValueError(f"rep {rep}: T3 must be {want}, "
                              f"got {tuple(T3.shape)}")
     if x3.device.type == "cpu":
-        return fused_subntt_plain(x3, field, mats, T3, rep, inverse)
+        return fused_subntt_plain(x3, field, inverse, mats, T3,
+                                  transpose_out, rep)
     _build.check_level(x3, field, MAX_SUB)
     D, E = digits.n_digits(field), digits.out_planes(field)
     if T3 is not None:
         _build.check_operand(T3, "T3", torch.uint32, T3.shape, x3.device)
-    out = torch.empty_like(x3)
+    out = _output(x3, transpose_out)
     if single_level(m, mats):
         A = mats[m]
         _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
         rc = _lib().mxu_fused_subntt(
             _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep,
-            _build.ptr(out), m, B, *_build.field_args(field),
-            *plan_args(field, m, B), _build.stream(x3))
+            _build.ptr(out), int(transpose_out), m, B,
+            *_build.field_args(field), *plan_args(field, m, B),
+            _build.stream(x3))
         _build.check(rc, "fused_subntt")
         _build.launches["fused_subntt"] += 1
         return out
@@ -596,7 +639,7 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
     if sub_wide(field, m, B, sms):
         rc = _lib_sub().mxu_fused_subntt_wide(
             _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
-            _build.ptr(T3), rep, _build.ptr(out), m, B,
+            _build.ptr(T3), rep, _build.ptr(out), int(transpose_out), m, B,
             *_build.field_args(field), *sub_wide_args(field, m, B, sms),
             _build.stream(x3))
         _build.check(rc, "fused_subntt_wide")
@@ -604,7 +647,7 @@ def fused_subntt(x3, field: Field, mats, T3=None, rep: int = 1,
         return out
     rc = _lib_sub().mxu_fused_subntt_multi(
         _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
-        _build.ptr(T3), rep, _build.ptr(out), m, B,
+        _build.ptr(T3), rep, _build.ptr(out), int(transpose_out), m, B,
         *_build.field_args(field), *sub_plan_args(field, m, B),
         _build.stream(x3))
     _build.check(rc, "fused_subntt_multi")
@@ -623,7 +666,7 @@ def fused_level_plain(x3, field: Field, A, T3=None,
     y = digits.apply_matrix(A, x3, field, m, _zmax_bits(field, m), fold_mat=F)
     if T3 is not None:
         y = _twiddle_product(y, T3, field, F2)
-    return y.transpose(1, 2).contiguous() if transpose_out else y
+    return _store(y, transpose_out)
 
 
 def _check_level_operands(x3, field: Field, A, T3) -> None:
@@ -646,8 +689,7 @@ def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
     if x3.device.type == "cpu":
         return fused_level_plain(x3, field, A, T3, transpose_out, F, F2)
     _check_level_operands(x3, field, A, T3)
-    out = torch.empty((W, B, m) if transpose_out else (W, m, B),
-                      dtype=torch.uint32, device=x3.device)
+    out = _output(x3, transpose_out)
     rc = _lib().mxu_fused_level(
         _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
         int(transpose_out), m, B, *_build.field_args(field),

@@ -12,6 +12,9 @@ walking a span of tiles with the matrix staged once), else
 ``base_ntt_mxu_kernel``, the tensor-core level of K2-K4 with no twiddle
 (``mxu_level.tc_plan``). On a CPU tensor it runs
 :func:`base_ntt_mxu_plain`, the same function in plain PyTorch.
+``base_ntt_mxu_pallas`` is the same kernel under the JAX entry's name and
+parameters (without its TPU batch tile), building the conv matrix where the
+caller passes none.
 """
 
 from __future__ import annotations
@@ -52,3 +55,17 @@ def base_ntt_mxu(x, field: Field, A, F=None):
     _build.check(rc, "base_ntt_mxu")
     _build.launches["base_ntt_mxu"] += 1
     return out
+
+
+def base_ntt_mxu_pallas(x, field: Field, inverse: bool, A=None, F=None):
+    """m-point NTT along axis 1 of uint32[W, m, B] (m <= 64; Montgomery
+    form in and out) as :func:`base_ntt_mxu`, under the JAX package's
+    entry name and parameters: where ``A`` is None the conv matrix of the
+    direction ``inverse`` is built on the host and put on x's device."""
+    m = x.shape[1]
+    if m == 1:
+        return x
+    if A is None:
+        from ..transforms.mxu import _base_matrix
+        A = torch.from_numpy(_base_matrix(field, m, inverse)).to(x.device)
+    return base_ntt_mxu(x, field, A, F)

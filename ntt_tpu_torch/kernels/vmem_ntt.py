@@ -201,6 +201,11 @@ def stage_ntt(x, field: Field, inverse: bool = False):
     return out
 
 
+#: K5 under the JAX package's entry name (``ntt_tpu.kernels``), the same
+#: parameters but its TPU batch tile
+ntt_along_axis_pallas = stage_ntt
+
+
 # ---------------------------------------------------------------------------
 # K6: the ladder, the decomposition twiddle and the transposed store
 # ---------------------------------------------------------------------------

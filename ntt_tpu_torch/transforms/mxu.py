@@ -326,15 +326,46 @@ def _card_fits(field: Field, s: int) -> bool:
     return True
 
 
+#: the JAX package's TPU build settings that its peel rule reads, at their
+#: defaults (their knobs, NTT_MXU_BT = 256 and NTT_VMEM_LIMIT_MB = 64, have
+#: no counterpart here): the scoped-VMEM budget of its kernels and that of
+#: its 256-bit multi-level kernels (the 64 MB limit less 8 MB). The rule
+#: takes a peel whose kernel keeps a tile of REF_MIN_TILE columns (the
+#: TPU's 128 lanes) within the budget: its tile search halves 256 until
+#: the working set fits, so it reaches 128 exactly where 128 columns fit
+REF_VMEM_BUDGET = 14 << 20
+REF_VMEM_BUDGET_WIDE = (64 - 8) << 20
+REF_MIN_TILE = 128
+
+
+def reference_peel_fits(field: Field, s: int) -> bool:
+    """Whether the JAX package takes s points as the multi-level peel of
+    ``mxu_sub`` (``ntt_tpu/kernels/mxu_ntt.py`` ``vmem_batch_tile`` at a
+    wide batch with a twiddle, its multi-level working set, against
+    REF_MIN_TILE): the conv matrices of the inner base sizes, and per batch
+    column the int32 Z planes, the digits and the double-buffered input,
+    output and twiddle words, four times that for a 256-bit peel above
+    BASE (its CIOS temporaries), against its budget. The arithmetic of the
+    reference's peel, copied; not the card's (:func:`_card_fits`)."""
+    D, E, W = digits.n_digits(field), digits.out_planes(field), field.n_words
+    mat = sum(E * sz * D * sz for sz in base_sizes(s) if sz > 1)
+    per_col = E * s * 4 + D * s + 3 * 2 * W * s * 4
+    budget = REF_VMEM_BUDGET
+    if field.n_halves > 8 and s > BASE:
+        per_col *= 4
+        budget = REF_VMEM_BUDGET_WIDE
+    return mat + REF_MIN_TILE * per_col <= budget
+
+
 def effective_subbase(field: Field) -> int:
-    """The peel size of ``mxu_sub``: SUBBASE on the narrow fields, the
-    single-level BASE on the 256-bit ones unless NTT_MXU_SUB256_LOG asks
-    for a multi-level peel; halved while the card's kernels would not take
-    it (:func:`_card_fits`: the multi-level kernel keeps W·m/32 words of
-    each of its columns in shared memory and takes m up to 512). That is
-    the JAX package's peel at every setting its tests use but one: the
-    small Proth prime under NTT_MXU_SUBBASE_LOG=10, where the JAX package
-    peels 1024."""
+    """The peel size of ``mxu_sub``, the JAX package's: SUBBASE on the
+    narrow fields, the single-level BASE on the 256-bit ones unless
+    NTT_MXU_SUB256_LOG asks for a multi-level peel; halved while the
+    reference's kernel would not take it (:func:`reference_peel_fits`).
+    ValueError where the card's kernels do not take that peel
+    (:func:`_card_fits`: the multi-level kernel takes m up to 1024 where
+    its plan fits a block): the port never peels smaller than the
+    reference."""
     key = (field.name, BASE, SUBBASE, SUB256_LOG)
     got = _subbase_cache.get(key)
     if got is None:
@@ -342,8 +373,14 @@ def effective_subbase(field: Field) -> int:
             s = SUBBASE
         else:
             s = max(BASE, 1 << SUB256_LOG) if SUB256_LOG else BASE
-        while s > BASE and not _card_fits(field, s):
+        while s > BASE and not reference_peel_fits(field, s):
             s //= 2
+        if not _card_fits(field, s):
+            raise ValueError(
+                f"{field.name}: mxu_sub peels {s} points (NTT_MXU_SUBBASE_LOG"
+                f"={SUBBASE_LOG}, NTT_MXU_SUB256_LOG={SUB256_LOG}), which no "
+                f"kernel of the port takes in one launch (multi-level up to "
+                f"m = {mxu_level.MAX_SUB} where its plan fits a block)")
         got = _subbase_cache[key] = s
     return got
 
@@ -411,7 +448,7 @@ def _drive(x, field: Field, inverse: bool, tws, mats, pre_col, first_mats,
             if isinstance(t3, TwMatStack):
                 return fused_level_stack(c3, field, t3.As, t3.rep,
                                          md.get(-c3.shape[1]))
-            return fused_subntt(c3, field, md, t3, rep=rep, inverse=inverse)
+            return fused_subntt(c3, field, inverse, md, t3, rep=rep)
         return base, (tw_base if fuse else None)
 
     base, tw_base = make(mats)
@@ -454,7 +491,7 @@ def ntt_mxu_sub(x, field: Field, inverse: bool = False, tws=None,
     n = 2^18 is two passes over the data. ``mats``: the :func:`sub_mats`
     dict as device tensors."""
     def base(c3, md):
-        return fused_subntt(c3, field, md, None, inverse=inverse)
+        return fused_subntt(c3, field, inverse, md)
     return _drive(x, field, inverse, tws, mats, pre_col, first_mats,
                   base_max or effective_subbase(field), base)
 

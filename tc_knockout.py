@@ -36,7 +36,10 @@ device time for K1 at [8,8,32768], [8,4,2^20], [8,2,2^22] and
 [8,2,2^25], for K2, K3 and K4 at the BLS12-381 Fr 2^18 shapes and for the
 multi-level K3 at ``SUB_SHAPES``, every output word-equal between the
 two, each under this tree's plans; the multi-level K3 runs DIR's
-present form and this tree's choice of form.
+present form and this tree's choice of form. DIR's C entries must take
+this tree's arguments (its wrappers call both libraries): since the
+transposed store of K2 and K3, each takes a ``transpose`` flag after
+``out``.
 Then the wide form at its launches of m = 64 and 512 under other spans of
 tiles a block beside the plan's (one wave): one tile a block, two waves;
 and the launch that keeps the present form (Goldilocks 2^18, one wave of
@@ -232,7 +235,7 @@ def sub_calls(dev) -> dict:
         tw = "no twiddle" if rep is None else f"rep {rep}"
         calls[f"K3 multi {label} [{f.n_words},{m},{B}] {tw}"] = (
             lambda x=x, f=f, mats=mats, T3=T3, rep=rep:
-            mxu_level.fused_subntt(x, f, mats, T3, rep=rep or 1))
+            mxu_level.fused_subntt(x, f, False, mats, T3, rep=rep or 1))
     return calls
 
 
@@ -320,7 +323,7 @@ def parent_against_change(parent: str) -> int:
             lambda: mxu_level.fused_level_stack(x, f, As, 256),
             "fused_level_stack_kernel<"),
         "K3 level 1 [8,32,8192] TwBatch rep 1": (
-            lambda: mxu_level.fused_subntt(x, f, sub, T, rep=1),
+            lambda: mxu_level.fused_subntt(x, f, False, sub, T),
             "fused_subntt_kernel<"),
         "K4 [8,32,8192] T3, transposed store": (
             lambda: mxu_level.fused_level(x, f, mats[32], T, True),
@@ -455,7 +458,7 @@ def main() -> int:
             lambda: mxu_level.fused_level_stack(x, f, As, 256),
             "fused_level_stack_kernel<"),
         "K3 level 1 [8,32,8192] TwBatch rep 1": (
-            lambda: mxu_level.fused_subntt(x, f, sub, T, rep=1),
+            lambda: mxu_level.fused_subntt(x, f, False, sub, T),
             "fused_subntt_kernel<"),
         "K1 base [8,8,32768]": (
             lambda: mxu_ntt.base_ntt_mxu(x8, f, mats[8]),
@@ -467,7 +470,8 @@ def main() -> int:
             lambda: mxu_level.fused_level(x8, f, mats[8], None, False),
             "fused_level_kernel<"),
         "K3 multi [2,512,512] rep 1": (
-            lambda: mxu_level.fused_subntt(xg, GOLDILOCKS, gmats, Tg, rep=1),
+            lambda: mxu_level.fused_subntt(xg, GOLDILOCKS, False, gmats,
+                                            Tg),
             "fused_subntt_multi_kernel<"),
         "K1 short [8,4,2^20]": (
             lambda: mxu_ntt.base_ntt_mxu(x4, f, mats[4]),

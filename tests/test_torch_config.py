@@ -7,11 +7,13 @@ key, its signatures and its plan rows above 2^26, against ntt_tpu.
   the environment at import (one subprocess), and the three that have no
   counterpart are not read;
 - every function that the reference's ``transforms/{core, fourstep, mxu,
-  naive}.py`` and ``api.py`` define and the port keeps takes the
-  reference's parameters in the reference's order (the port may append
-  ``device``, ``chunk`` and ``deep``, and the plan its drivers take as
-  keywords); the differences by design are listed here, so the next
-  drift fails;
+  naive}.py``, ``api.py``, ``kernels/{mxu_level, mxu_ntt, vmem_ntt,
+  exchange}.py`` and ``parallel/dist_ntt.py`` define and the port keeps
+  takes the reference's parameters in the reference's order (the port may
+  append ``device``, ``chunk`` and ``deep``, and the plan its drivers take
+  as keywords; its kernel entries leave out the TPU's ``batch_tile``);
+  the differences by design are listed here, so the next drift fails;
+  ``ntt_along_axis_pallas`` is exported under the reference's name;
 - the ``NTT_DEBUG`` tripwire, the ``NTT_FUSE_TW=0`` / ``NTT_TW_MATFOLD=1``
   error, the single-level algorithms under ``NTT_MXU_BASE_LOG=6`` (m = 64)
   and the ``NTT_MXU_BASE_LOG=7`` rejection on the CPU;
@@ -170,7 +172,8 @@ def test_knobs_are_read_at_import():
 # --- signatures --------------------------------------------------------------
 
 MODULES = ["transforms.core", "transforms.fourstep", "transforms.mxu",
-           "transforms.naive", "api"]
+           "transforms.naive", "api", "kernels.mxu_level", "kernels.mxu_ntt",
+           "kernels.vmem_ntt", "kernels.exchange", "parallel.dist_ntt"]
 
 #: trailing parameters the port may add: the device its tables are built
 #: on, the row chunk of its device generators, the layout of a level
@@ -178,10 +181,20 @@ MODULES = ["transforms.core", "transforms.fourstep", "transforms.mxu",
 #: and the twiddle fusion its driver would otherwise read when it runs)
 PORT_EXTRAS = {"device", "chunk", "deep", "base_max", "fuse"}
 
+#: the reference's parameters of the TPU's tiling, which the port's kernel
+#: entries leave out (a launch plan is the port's own, computed from the
+#: card): the batch tile of the Pallas grids
+TPU_ONLY = {"batch_tile"}
+
 #: differences by design (ROADMAP): the flat drivers' tables carry the
 #: direction, so they take no ``inverse``; the parameters of
 #: NTT_RESIDENT_SPLIT (a field for the residency-aware split, ``residency``)
-#: and NTT_FACTOR_TW_MIN (``allow_factored``), which have no counterpart
+#: and NTT_FACTOR_TW_MIN (``allow_factored``), which have no counterpart;
+#: a sharded array is a list of the shards' tensors (the exchange takes the
+#: list, not a named mesh axis; the ring rotates the buffers by the shard
+#: count; a shard's scalar is taken by its index; the local transform is
+#: picked with the field, its tables built on the host; the cached dist
+#: transform is keyed by the coset too)
 DIFFERENT = {
     ("transforms.mxu", "ntt_mxu"): ["x", "field", "tws", "mats",
                                     "base_max"],
@@ -195,6 +208,13 @@ DIFFERENT = {
     ("transforms.mxu", "base_mats"): ["field", "n", "inverse"],
     ("api", "_tw_tables"): ["field", "n", "inverse", "requests", "deep",
                             "device"],
+    ("kernels.exchange", "a2a_transpose"): ["shards", "D"],
+    ("parallel.dist_ntt", "_ring_transpose"): ["C", "n1", "D"],
+    ("parallel.dist_ntt", "_device_scalar"): ["table", "d"],
+    ("parallel.dist_ntt", "_axis_fn"): ["algorithm", "field"],
+    ("parallel.dist_ntt", "_get"): ["field", "n", "mesh", "inverse",
+                                    "mont_io", "algorithm", "exchange",
+                                    "coset_shift"],
 }
 
 #: reference functions the port has no counterpart of, by design: the TPU
@@ -202,7 +222,12 @@ DIFFERENT = {
 #: plain passes), the jit wrappers, the base transforms the port names
 #: after what they run (``fourstep._base_ladder``, ``mxu._base_ntt_kernel``)
 #: and the code of the knobs without a counterpart (NTT_RADIX4,
-#: NTT_RESIDENT_SPLIT, NTT_FACTOR_TW_MIN)
+#: NTT_RESIDENT_SPLIT, NTT_FACTOR_TW_MIN); the Pallas kernel bodies (the
+#: port's are CUDA, ``csrc/``); the TPU's tile solver, compiler parameters
+#: and scoped-VMEM limits (the port's launch plans are its own; the peel
+#: arithmetic of the solver is copied as ``mxu.reference_peel_fits``); the
+#: dist step's jitted body and its tables (a closure of ``make_dist_ntt``
+#: and the ``_prepare_*`` helpers)
 MISSING = {
     "transforms.core": {"_bcast_tw", "n_chunks_for", "chunked_along_axis",
                         "dit_stage4"},
@@ -210,6 +235,14 @@ MISSING = {
     "transforms.mxu": {"_base_ntt_pallas"},
     "transforms.naive": set(),
     "api": {"_build", "_get_compiled", "_field_jits", "_factor_split"},
+    "kernels.mxu_level": {"_body", "_kernel_level", "_kernel_sub",
+                          "_kernel_stack", "_kernel_probe"},
+    "kernels.mxu_ntt": {"_kernel", "vmem_batch_tile", "compiler_params",
+                        "kernel_vmem_limit_mb", "multi_vmem_limit_mb"},
+    "kernels.vmem_ntt": {"_stage_twiddles", "_stages_body", "_kernel",
+                         "_kernel_fused"},
+    "kernels.exchange": {"_a2a_kernel"},
+    "parallel.dist_ntt": {"_local_mats", "_local_step"},
 }
 
 
@@ -226,13 +259,25 @@ def test_signatures_take_the_reference_order(mod):
     for name, fn in ref.items():
         if name in MISSING[mod]:
             continue
-        want = list(inspect.signature(fn).parameters)
+        want = [p for p in inspect.signature(fn).parameters
+                if p not in TPU_ONLY]
         got = list(inspect.signature(getattr(port, name)).parameters)
         if (mod, name) in DIFFERENT:
             assert got == DIFFERENT[(mod, name)], name
             continue
         assert got[:len(want)] == want, (name, want, got)
         assert set(got[len(want):]) <= PORT_EXTRAS, (name, got)
+
+
+def test_kernel_entries_under_the_reference_names():
+    """``ntt_tpu.kernels`` exports ``ntt_along_axis_pallas`` (K5); the
+    port's package exports it too, as its ``stage_ntt``."""
+    import ntt_tpu.kernels as jkernels
+    import ntt_tpu_torch.kernels as tkernels
+    from ntt_tpu_torch.kernels import vmem_ntt
+    assert (list(inspect.signature(jkernels.ntt_along_axis_pallas).parameters)
+            == ["x", "field", "inverse", "batch_tile"])
+    assert tkernels.ntt_along_axis_pallas is vmem_ntt.stage_ntt
 
 
 # --- errors and the debug tripwire -------------------------------------------

@@ -108,7 +108,7 @@ def test_fused_subntt_plain_equals_pallas(B, rep):
     x = _words((m, B), 5)
     T3 = _words((m, B) if rep == 1 else (B // rep, m), 6)
     mats = _mats(m)
-    got = mxu_level.fused_subntt(torch.from_numpy(x), TF, _t(mats),
+    got = mxu_level.fused_subntt(torch.from_numpy(x), TF, False, _t(mats),
                                  torch.from_numpy(T3), rep=rep)
     want = j_subntt(jnp.asarray(x), JF, False, _j(mats), jnp.asarray(T3),
                     transpose_out=False, rep=rep)
@@ -119,7 +119,7 @@ def test_wrappers_check_their_operands():
     x = torch.from_numpy(_words((32, 64), 7))
     mats = _t(_mats(32))
     with pytest.raises(ValueError):
-        mxu_level.fused_subntt(x, TF, mats, x[:, :16], rep=1)
+        mxu_level.fused_subntt(x, TF, False, mats, x[:, :16])
     with pytest.raises(ValueError):
         mxu_level.fused_level_stack(x, TF, mats[32][None], 32, mats[-32])
     with pytest.raises(ValueError, match="CUDA"):

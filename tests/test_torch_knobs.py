@@ -11,10 +11,10 @@ constant, or the environment for the knobs read live, :func:`_set`):
   matrix fold's gate and ``mxu.matfold_tw_tables``'s plan (its kinds,
   reps, stack lengths and table shapes, with both packages' table builders
   replaced by shapes, so that n up to 2^28 is cheap) on all four fields,
-  at the sizes where a plan rule changes; one by-design difference is
-  pinned: the small Proth prime's
-  ``mxu_sub`` peel under NTT_MXU_SUBBASE_LOG=10 (1024 in the JAX package,
-  512 in the port, whose multi-level kernel takes m up to 512);
+  at the sizes where a plan rule changes (the ``mxu_sub`` peel under
+  every setting too: the small Proth prime's 1024 under
+  NTT_MXU_SUBBASE_LOG=10, the 256-bit fields' 256 under
+  NTT_MXU_SUB256_LOG=9; ``test_torch_sub1024.py`` holds the whole grid);
 - the 256-bit table-plan knobs (the fold, its residual, its stacks) act
   from 2^13 at the smallest peel (BASE = 16), where one JAX transform
   costs about a minute on one CPU core: their tables are word-equal to
@@ -176,11 +176,7 @@ def _check_plans(monkeypatch, sizes=SIZES):
     for name in FIELDS:
         jf, tf = nt.get_field(name), tnt.get_field(name)
         sub = jmxu.effective_subbase(jf)
-        pinned = (name == "small-proth" and sub == 1024)
-        if pinned:
-            assert tmxu.effective_subbase(tf) == 512
-        else:
-            assert tmxu.effective_subbase(tf) == sub
+        assert tmxu.effective_subbase(tf) == sub
         for n in sizes:
             if n > 1 << tf.two_adicity:
                 continue
@@ -194,9 +190,8 @@ def _check_plans(monkeypatch, sizes=SIZES):
             assert tmxu.base_sizes(n) == jmxu.base_sizes(n, jf)
             assert tmxu.sub_base_sizes(n, sub) == jmxu.sub_base_sizes(n, sub)
             for alg in ("fourstep", "mxu_chunked", "mxu_sub"):
-                if not pinned or alg != "mxu_sub":
-                    assert (tapi._first_level(alg, tf, n)
-                            == japi._first_level(alg, jf, n)), (alg, n)
+                assert (tapi._first_level(alg, tf, n)
+                        == japi._first_level(alg, jf, n)), (alg, n)
             if tf.n_words < 8:
                 continue
             with monkeypatch.context() as m:
@@ -226,6 +221,7 @@ SETTINGS = {
     "SUBBASE_LOG=10": {"SUBBASE_LOG": 10},
     "SUB256_LOG=6": {"SUB256_LOG": 6},
     "SUB256_LOG=7": {"SUB256_LOG": 7},
+    "SUB256_LOG=9": {"SUB256_LOG": 9},
     "TW_MATFOLD=0": {"TW_MATFOLD": False},
     "TW_MATFOLD=0,FUSE_TW=0": {"TW_MATFOLD": False, "FUSE_TW": False},
     "TW_STACK_MAX_NT=32": {"TW_STACK_MAX_NT": 32},

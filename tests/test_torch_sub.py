@@ -85,9 +85,8 @@ def test_fused_subntt_multi_plain_equals_pallas(name, m, tw, inverse):
     tf = tfields.get_field(name)
     x, T3, rep, tmats, want = _multi_case(name, m, tw, inverse)
     got = mxu_level.fused_subntt(
-        torch.from_numpy(x), tf, tmats,
-        None if T3 is None else torch.from_numpy(T3), rep=rep,
-        inverse=inverse)
+        torch.from_numpy(x), tf, inverse, tmats,
+        None if T3 is None else torch.from_numpy(T3), rep=rep)
     assert got.dtype == torch.uint32
     assert np.array_equal(got.numpy(), want)
 
@@ -190,7 +189,7 @@ def test_emulated_multi_level_equals_plain_and_pallas(name, m, tw, inverse):
     Tt = None if T3 is None else torch.from_numpy(T3)
     got = _emulated_multi(xt, tf, tmats, Tt, rep, inverse)
     assert torch.equal(got, mxu_level.fused_subntt_plain(
-        xt, tf, tmats, Tt, rep=rep, inverse=inverse))
+        xt, tf, inverse, tmats, Tt, rep=rep))
     assert np.array_equal(got.numpy(), want)
 
 
@@ -210,7 +209,7 @@ def test_emulated_multi_level_equals_plain(name, m, B, rep):
             for k, v in tmxu._mats_for(tf, {32, m // 32}, True).items()}
     got = _emulated_multi(x, tf, mats, T3, rep or 1, True)
     assert torch.equal(got, mxu_level.fused_subntt_plain(
-        x, tf, mats, T3, rep=rep or 1, inverse=True))
+        x, tf, True, mats, T3, rep=rep or 1))
 
 
 @pytest.mark.parametrize("name", NARROW)
@@ -290,9 +289,9 @@ def test_multi_level_wrapper_checks_its_operands():
             for k, v in tmxu.sub_mats(tf, 512, False).items()}
     x = torch.from_numpy(_words(tf, (512, 8), 3))
     with pytest.raises(ValueError, match="T3 must be"):
-        mxu_level.fused_subntt(x, tf, mats, x[:, :64], rep=1)
+        mxu_level.fused_subntt(x, tf, False, mats, x[:, :64])
     with pytest.raises(ValueError, match="CUDA"):
-        mxu_level.fused_subntt(x.to("meta"), tf, mats)
+        mxu_level.fused_subntt(x.to("meta"), tf, False, mats)
 
 
 @pytest.mark.parametrize("name", NARROW)

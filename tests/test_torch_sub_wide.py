@@ -297,7 +297,7 @@ def test_emulated_wide_equals_plain(name, m, B, tw, inverse, sms):
     f, x, T3, rep, mats = _operands(name, m, B, tw, inverse, m + B)
     got = _emulated_wide(x, f, mats, T3, rep, inverse, sms)
     assert torch.equal(got, mxu_level.fused_subntt_plain(
-        x, f, mats, T3, rep=rep, inverse=inverse))
+        x, f, inverse, mats, T3, rep=rep))
 
 
 @functools.cache

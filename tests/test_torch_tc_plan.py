@@ -302,7 +302,8 @@ def test_emulated_subntt_equals_plain(W, m, B, rep):
     T3 = _words(field, (m, B) if rep == 1 else (B // rep, m), rep)
     mats = {k: torch.from_numpy(v)
             for k, v in tmxu._mats_for(field, {m}, False).items()}
-    want = mxu_level.fused_subntt_plain(x, field, mats, T3, rep=rep)
+    want = mxu_level.fused_subntt_plain(x, field, False, mats, T3,
+                                          rep=rep)
     got = _emulated_level(x, field, mats[m][None], B, mats.get(-m),
                           _emulated_twiddle(T3, rep, m, B), mats.get(-1))
     assert torch.equal(got, want)
@@ -375,11 +376,11 @@ def test_single_level_takes_m_64_where_the_plan_has_its_matrix(monkeypatch):
 
 def test_plan_refuses_what_the_kernel_cannot_take_multi():
     """``sub_plan`` refuses what ``launch_sub`` refuses: widths without
-    kernels, m outside 64 .. 512 or not a power of two, B < 1."""
+    kernels, m outside 64 .. 1024 or not a power of two, B < 1."""
     gold = tfields.GOLDILOCKS
     four_words = tfields.Field("m127", (1 << 127) - 1, 3, 1)
     for field, m, B in ((four_words, 64, 64), (gold, 32, 64),
-                        (gold, 1024, 64), (gold, 96, 64), (gold, 64, 0)):
+                        (gold, 2048, 64), (gold, 96, 64), (gold, 64, 0)):
         with pytest.raises(ValueError):
             mxu_level.sub_plan(field, m, B)
 
