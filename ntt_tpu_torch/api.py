@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from . import limbs
-from .config import config_key
+from .config import config_key, warn_plan_only_knobs
 from .fields import Field, get_field, inv_mod
 from .kernels import mxu_level
 from .limbs import resolve_device
@@ -308,7 +308,9 @@ def get_runner(field: Field, n: int, inverse: bool = False,
     """(run, aux): ``run(x, aux)`` transforms uint32[W, n, *batch] on
     ``aux``'s device; ``aux`` holds the tables, resident on the device.
     AssertionError for n above the field's two-adicity, as in
-    ``ntt_tpu``."""
+    ``ntt_tpu``; a UserWarning under a plan-only knob of the JAX package
+    (``config.warn_plan_only_knobs``)."""
+    warn_plan_only_knobs()
     if n & (n - 1) or n < 1:
         raise ValueError(f"transform size must be a power of two, got {n}")
     field.root_of_unity(n)          # asserts n <= 2^two_adicity

@@ -38,25 +38,30 @@ words.
 - ``NTT_DEBUG=0``          the canonicity check of the transform's input
                            and output (``limbs.debug_check``; read live)
 
-No counterpart, and the port does not read them. Three change the plan of
-the JAX package's plain ladders and four-step and never its output words;
-the JAX package measured each as a loss and leaves it off by default, and
-the port keeps the default plan: ``NTT_RADIX4`` (the ladders' stages in
-pairs, ``ntt_tpu.transforms.core.dit_stage4``), ``NTT_RESIDENT_SPLIT``
-(the four-step peels the largest length whose planes fit the TPU's VMEM,
-``ntt_tpu.transforms.fourstep._split`` given a field) and
+Three change only the plan of the JAX package's plain ladders and
+four-step, never its output words, and the port keeps its default plan
+under them: ``NTT_RADIX4=1`` (the ladders' stages in pairs,
+``ntt_tpu.transforms.core.dit_stage4``), ``NTT_RESIDENT_SPLIT=1`` (the
+four-step peels the largest length whose planes fit the TPU's VMEM,
+``ntt_tpu.transforms.fourstep._split`` given a field) and a non-zero
 ``NTT_FACTOR_TW_MIN`` (the top level's table factored into two small
-ones, ``ntt_tpu.api._factor_split``). The rest: ``NTT_MXU_BT``,
-``NTT_DIMSEM``, ``NTT_VMEM_LIMIT_MB``, ``NTT_LOOP_MIN_HALVES``,
-``NTT_LOOP_SINGLE`` and ``NTT_FORCE_MOSAIC`` shape only the TPU build (its
-batch tiles, grid semantics, VMEM cap, loop form of the limb arithmetic and
-lowering path); ``NTT_MXU_FOLD`` picks the TPU kernels' reduction, and the
-port's kernels reduce with 32-bit Montgomery steps by design.
+ones, ``ntt_tpu.api._factor_split``). The JAX package leaves each off
+by default, and no caller of the port needs one; so the port reads them
+live, under the JAX package's rule for "set", only to warn
+(:func:`warn_plan_only_knobs`) when a runner is built under one.
+
+No counterpart: ``NTT_MXU_BT``, ``NTT_DIMSEM``, ``NTT_VMEM_LIMIT_MB``,
+``NTT_LOOP_MIN_HALVES``, ``NTT_LOOP_SINGLE`` and ``NTT_FORCE_MOSAIC`` shape
+only the TPU build (its batch tiles, grid semantics, VMEM cap, loop form of
+the limb arithmetic and lowering path); ``NTT_MXU_FOLD`` picks the TPU
+kernels' reduction, and the port's kernels reduce with 32-bit Montgomery
+steps by design.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 
 from .transforms import mxu
 
@@ -68,3 +73,28 @@ def config_key() -> tuple:
             mxu.SUB256_LOG, mxu.TW_MATFOLD, mxu.TW_STACK_MAX_NT,
             mxu.TW_MERGED_MAX, mxu.TW_RESID, mxu.FUSE_TW,
             os.environ.get("NTT_DEBUG", "0"))
+
+
+def plan_only_knobs() -> list:
+    """The JAX package's plan-only knobs that the environment sets, as
+    ``NAME=value``, by the JAX package's rule: ``NTT_RADIX4`` and
+    ``NTT_RESIDENT_SPLIT`` equal to "1", ``NTT_FACTOR_TW_MIN`` a non-zero
+    integer (ValueError if it is no integer, as the JAX package's import
+    raises)."""
+    env = os.environ
+    on = [("NTT_RADIX4", env.get("NTT_RADIX4", "0") == "1"),
+          ("NTT_RESIDENT_SPLIT", env.get("NTT_RESIDENT_SPLIT", "0") == "1"),
+          ("NTT_FACTOR_TW_MIN",
+           int(env.get("NTT_FACTOR_TW_MIN", "0")) != 0)]
+    return [f"{name}={env[name]}" for name, set_ in on if set_]
+
+
+def warn_plan_only_knobs() -> None:
+    """UserWarning naming each plan-only knob that is set: the port runs
+    its default plan, whose output words are the same."""
+    on = plan_only_knobs()
+    if on:
+        warnings.warn(
+            f"{', '.join(on)}: ntt_tpu_torch does not take this plan of "
+            "ntt_tpu's and runs its default plan (the same output words)",
+            stacklevel=3)

@@ -37,7 +37,7 @@ import torch
 
 from .. import limbs
 from ..api import _as_tensor, _tw_tables, aux_from_numpy
-from ..config import config_key
+from ..config import config_key, warn_plan_only_knobs
 from ..fields import Field, inv_mod
 from ..kernels.exchange import MAX_SHARDS, a2a_transpose, a2a_transpose_plain
 from ..transforms import fourstep, mxu
@@ -316,7 +316,9 @@ def make_dist_ntt(field: Field, n: int, mesh: Mesh, inverse: bool = False,
     local transforms' tables and matrices, one step-2 twiddle table a shard
     (the static ω^{k1·j} times the shard's ω^{k1·d·n2_loc}, multiplied on
     the device), the coset table a shard likewise (with n^{-1} in it for
-    the inverse)."""
+    the inverse). A plan-only knob of the JAX package warns, as in
+    ``api.get_runner``."""
+    warn_plan_only_knobs()
     n1, n2 = split_log(n)
     D = _axis_size(mesh)
     if exchange not in EXCHANGES:

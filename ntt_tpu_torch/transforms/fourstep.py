@@ -70,8 +70,9 @@ class TwDeep:
 
 
 def _split(m: int, base_max: int):
-    """Peel base_max columns (the JAX package's default split; its
-    residency-aware split, NTT_RESIDENT_SPLIT, has no counterpart here)."""
+    """Peel base_max columns (the JAX package's default split; the port
+    does not take its residency-aware split, NTT_RESIDENT_SPLIT:
+    ``config.warn_plan_only_knobs``)."""
     return base_max, m // base_max
 
 

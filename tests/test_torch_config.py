@@ -4,8 +4,9 @@ key, its signatures and its plan rows above 2^26, against ntt_tpu.
 - ``config_key()`` changes with every knob, and ``api.ntt`` builds a fresh
   runner after a flip; a runner built before a flip, or under one, keeps
   its plan and gives the golden words after it; the knobs are read from
-  the environment at import (one subprocess), and the three that have no
-  counterpart are not read;
+  the environment at import (one subprocess), and the three plan-only
+  knobs leave the key as it is (the port warns under them when it builds
+  a runner: ``tests/test_torch_plan_knobs.py``);
 - every function that the reference's ``transforms/{core, fourstep, mxu,
   naive}.py``, ``api.py``, ``kernels/{mxu_level, mxu_ntt, vmem_ntt,
   exchange}.py`` and ``parallel/dist_ntt.py`` define and the port keeps
@@ -149,8 +150,8 @@ def test_a_runner_keeps_its_plan_across_a_flip(monkeypatch, label, flips,
 
 def test_knobs_are_read_at_import():
     """Each knob's environment variable sets its constant when the port is
-    imported (one subprocess, every knob at once), the knobs without a
-    counterpart change nothing, and JAX stays out."""
+    imported (one subprocess, every knob at once), the plan-only knobs
+    leave the key as it is, and JAX stays out."""
     env = dict(os.environ, NTT_MXU_BASE_LOG="4", NTT_MXU_SUBBASE_LOG="8",
                NTT_MXU_SUB256_LOG="7", NTT_TW_MATFOLD="0",
                NTT_TW_STACK_MAX_NT="32", NTT_TW_MERGED_MAX="65536",
@@ -189,7 +190,8 @@ TPU_ONLY = {"batch_tile"}
 #: differences by design (ROADMAP): the flat drivers' tables carry the
 #: direction, so they take no ``inverse``; the parameters of
 #: NTT_RESIDENT_SPLIT (a field for the residency-aware split, ``residency``)
-#: and NTT_FACTOR_TW_MIN (``allow_factored``), which have no counterpart;
+#: and NTT_FACTOR_TW_MIN (``allow_factored``), whose plans the port does
+#: not take (``config.warn_plan_only_knobs``);
 #: a sharded array is a list of the shards' tensors (the exchange takes the
 #: list, not a named mesh axis; the ring rotates the buffers by the shard
 #: count; a shard's scalar is taken by its index; the local transform is
@@ -221,9 +223,9 @@ DIFFERENT = {
 #: chunking helpers (a level is one launch; ``api._chunked_pass`` cuts the
 #: plain passes), the jit wrappers, the base transforms the port names
 #: after what they run (``fourstep._base_ladder``, ``mxu._base_ntt_kernel``)
-#: and the code of the knobs without a counterpart (NTT_RADIX4,
-#: NTT_RESIDENT_SPLIT, NTT_FACTOR_TW_MIN); the Pallas kernel bodies (the
-#: port's are CUDA, ``csrc/``); the TPU's tile solver, compiler parameters
+#: and the code of the plan-only knobs, whose plans the port does not take
+#: (NTT_RADIX4, NTT_RESIDENT_SPLIT, NTT_FACTOR_TW_MIN); the Pallas kernel
+#: bodies (the port's are CUDA, ``csrc/``); the TPU's tile solver, compiler parameters
 #: and scoped-VMEM limits (the port's launch plans are its own; the peel
 #: arithmetic of the solver is copied as ``mxu.reference_peel_fits``); the
 #: dist step's jitted body and its tables (a closure of ``make_dist_ntt``
