@@ -42,6 +42,7 @@ from .config import config_key, warn_plan_only_knobs
 from .fields import Field, get_field, inv_mod
 from .kernels import mxu_level
 from .limbs import resolve_device
+from .tracing import span
 from .transforms import core as _core
 from .transforms import fourstep as _fourstep
 from .transforms import mxu as _mxu
@@ -287,19 +288,20 @@ def _row_powers(field: Field, base: int, count: int, dev):
     return geometric_outer_chunked(field, base, count, dev)
 
 
-def _chunked_pass(fn, x, *vs):
+def _chunked_pass(fn, x, *vs, name: str = "ntt.pass"):
     """``fn(x, *vs)`` for an elementwise ``fn``, PASS_CHUNK elements of
     axis 1 at a time: an operand as long as x along axis 1 is cut with it,
-    a broadcast one is passed whole."""
-    n = x.shape[1]
-    step = max(1, PASS_CHUNK // max(x[0, :1].numel(), 1))
-    if n <= step:
-        return fn(x, *vs)
-    out = torch.empty_like(x)
-    for i in range(0, n, step):
-        out[:, i:i + step] = fn(x[:, i:i + step], *[
-            v[:, i:i + step] if v.shape[1] == n else v for v in vs])
-    return out
+    a broadcast one is passed whole. Traced as the span ``name``."""
+    with span(name):
+        n = x.shape[1]
+        step = max(1, PASS_CHUNK // max(x[0, :1].numel(), 1))
+        if n <= step:
+            return fn(x, *vs)
+        out = torch.empty_like(x)
+        for i in range(0, n, step):
+            out[:, i:i + step] = fn(x[:, i:i + step], *[
+                v[:, i:i + step] if v.shape[1] == n else v for v in vs])
+        return out
 
 
 def get_runner(field: Field, n: int, inverse: bool = False,
@@ -363,9 +365,11 @@ def get_runner(field: Field, n: int, inverse: bool = False,
             cs = cs.reshape(tuple(cs.shape) + tail)
         c = limbs.debug_check(c, field, "ntt input")
         if not mont_io:
-            c = _chunked_pass(lambda a: limbs.to_mont(a, field), c)
+            c = _chunked_pass(lambda a: limbs.to_mont(a, field), c,
+                              name="ntt.pass.to_mont")
         if coset_shift is not None and not inverse and not fused_coset:
-            c = _chunked_pass(lambda a, v: limbs.mont_mul(a, v, field), c, cs)
+            c = _chunked_pass(lambda a, v: limbs.mont_mul(a, v, field), c, cs,
+                              name="ntt.pass.coset")
         y = limbs.debug_check(fn(c, field, inverse, aux), field,
                               "transform output")
         if inverse:
@@ -375,9 +379,11 @@ def get_runner(field: Field, n: int, inverse: bool = False,
             def post(a, *v):
                 a = limbs.mont_mul(a, scale, field)
                 return limbs.mont_mul(a, v[0], field) if v else a
-            y = _chunked_pass(post, y, *([] if cs is None else [cs]))
+            y = _chunked_pass(post, y, *([] if cs is None else [cs]),
+                              name="ntt.pass.scale")
         if not mont_io:
-            y = _chunked_pass(lambda a: limbs.from_mont(a, field), y)
+            y = _chunked_pass(lambda a: limbs.from_mont(a, field), y,
+                              name="ntt.pass.from_mont")
         return y
 
     def run(x, aux):
@@ -448,32 +454,35 @@ def ntt(x, field: Field | str, inverse: bool = False,
     ``donate=True`` hands ``x`` over, as the dist path's ``donate`` does:
     the output is written into its storage and returned, so the caller
     keeps one buffer instead of two, and the input's contents are gone."""
-    field = _as_field(field)
-    dev = resolve_device(device)
-    x = _as_tensor(x)
-    if x.dim() >= 2:
-        n = x.shape[1]
-        if n & (n - 1) or n < 1:
+    with span("ntt.api"):
+        field = _as_field(field)
+        dev = resolve_device(device)
+        x = _as_tensor(x)
+        if x.dim() >= 2:
+            n = x.shape[1]
+            if n & (n - 1) or n < 1:
+                raise ValueError(
+                    f"transform size must be a power of two, got {n}")
+        if (x.dtype != torch.uint32 or x.dim() < 2
+                or x.shape[0] != field.n_words):
             raise ValueError(
-                f"transform size must be a power of two, got {n}")
-    if x.dtype != torch.uint32 or x.dim() < 2 or x.shape[0] != field.n_words:
-        raise ValueError(
-            f"expected limb-leading uint32[{field.n_words}, n, *batch], "
-            f"got {x.dtype}{tuple(x.shape)}")
-    x = x.to(dev)
-    # every knob is part of the key: a knob flip builds a fresh runner
-    key = (field.name, n, inverse, algorithm, mont_io, coset_shift, str(dev),
-           config_key())
-    got = _runner_cache.get(key)
-    if got is None:
-        got = _runner_cache[key] = get_runner(
-            field, n, inverse, algorithm, mont_io, coset_shift, dev)
-    run, aux = got
-    y = run(x, aux)
-    if not donate:
-        return y
-    x.copy_(y)
-    return x
+                f"expected limb-leading uint32[{field.n_words}, n, *batch], "
+                f"got {x.dtype}{tuple(x.shape)}")
+        x = x.to(dev)
+        # every knob is part of the key: a knob flip builds a fresh runner
+        key = (field.name, n, inverse, algorithm, mont_io, coset_shift,
+               str(dev), config_key())
+        got = _runner_cache.get(key)
+        if got is None:
+            with span("ntt.runner.build"):
+                got = _runner_cache[key] = get_runner(
+                    field, n, inverse, algorithm, mont_io, coset_shift, dev)
+        run, aux = got
+        y = run(x, aux)
+        if not donate:
+            return y
+        x.copy_(y)
+        return x
 
 
 def intt(x, field: Field | str, **kw) -> torch.Tensor:

@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from ..tracing import span
 from . import _build
 
 #: the most shards a launch takes (its source pointers travel by value)
@@ -97,49 +98,51 @@ def a2a_transpose(shards, D: int) -> list:
     W, n1, n2_loc = _shape(shards, D)
     if all(x.device.type == "cpu" for x in shards):
         return a2a_transpose_plain(shards, D)
-    if any(x.device.type != "cuda" for x in shards):
-        raise ValueError("K8 takes shards all on CUDA devices or all on the "
-                         f"CPU, got {[str(x.device) for x in shards]}")
-    if D > MAX_SHARDS:
-        raise ValueError(f"K8 takes at most {MAX_SHARDS} shards, got {D}")
-    for x in shards:
-        if not x.is_contiguous():
-            raise ValueError("K8 takes contiguous shards")
-    n1_loc = n1 // D
-    devs = [x.device for x in shards]
-    cards = sorted({d.index for d in devs})
-    multi = len(cards) > 1
-    ready = []
-    if multi:
-        _enable_peers(cards)
+    with span("ntt.launch.a2a_transpose"):
+        if any(x.device.type != "cuda" for x in shards):
+            raise ValueError(
+                "K8 takes shards all on CUDA devices or all on the CPU, "
+                f"got {[str(x.device) for x in shards]}")
+        if D > MAX_SHARDS:
+            raise ValueError(f"K8 takes at most {MAX_SHARDS} shards, got {D}")
         for x in shards:
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(x.device))
-            ready.append(ev)
-    vec = int(n2_loc % 4 == 0
-              and all(x.data_ptr() % 16 == 0 for x in shards))
-    srcs = (ctypes.c_void_p * D)(*[x.data_ptr() for x in shards])
-    outs, done = [], []
-    for t, dev in enumerate(devs):
-        stream = torch.cuda.current_stream(dev)
-        for s, ev in enumerate(ready):
-            if devs[s] != dev:
-                stream.wait_event(ev)
-        out = torch.empty((W, n1_loc, D * n2_loc), dtype=torch.uint32,
-                          device=dev)
-        rc = _lib().exchange_a2a_pull(
-            srcs, D, _build.ptr(out), dev.index, t, W, n1, n2_loc, vec,
-            ctypes.c_void_p(stream.cuda_stream))
-        _build.check(rc, "a2a_transpose")
-        _build.launches["a2a_transpose"] += 1
+            if not x.is_contiguous():
+                raise ValueError("K8 takes contiguous shards")
+        n1_loc = n1 // D
+        devs = [x.device for x in shards]
+        cards = sorted({d.index for d in devs})
+        multi = len(cards) > 1
+        ready = []
         if multi:
-            ev = torch.cuda.Event()
-            ev.record(stream)
-            done.append(ev)
-        outs.append(out)
-    for x in (shards if multi else ()):
-        stream = torch.cuda.current_stream(x.device)
-        for t, ev in enumerate(done):
-            if devs[t] != x.device:
-                stream.wait_event(ev)
-    return outs
+            _enable_peers(cards)
+            for x in shards:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(x.device))
+                ready.append(ev)
+        vec = int(n2_loc % 4 == 0
+                  and all(x.data_ptr() % 16 == 0 for x in shards))
+        srcs = (ctypes.c_void_p * D)(*[x.data_ptr() for x in shards])
+        outs, done = [], []
+        for t, dev in enumerate(devs):
+            stream = torch.cuda.current_stream(dev)
+            for s, ev in enumerate(ready):
+                if devs[s] != dev:
+                    stream.wait_event(ev)
+            out = torch.empty((W, n1_loc, D * n2_loc), dtype=torch.uint32,
+                              device=dev)
+            rc = _lib().exchange_a2a_pull(
+                srcs, D, _build.ptr(out), dev.index, t, W, n1, n2_loc, vec,
+                ctypes.c_void_p(stream.cuda_stream))
+            _build.check(rc, "a2a_transpose")
+            _build.launches["a2a_transpose"] += 1
+            if multi:
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                done.append(ev)
+            outs.append(out)
+        for x in (shards if multi else ()):
+            stream = torch.cuda.current_stream(x.device)
+            for t, ev in enumerate(done):
+                if devs[t] != x.device:
+                    stream.wait_event(ev)
+        return outs

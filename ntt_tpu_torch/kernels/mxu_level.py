@@ -51,6 +51,7 @@ import torch
 
 from .. import digits, limbs
 from ..fields import Field
+from ..tracing import span
 from ..transforms.core import host_power_matrix
 from . import _build
 
@@ -449,7 +450,10 @@ def t3_period(T3, W: int, m: int, B: int) -> int:
 
 def _store(y, transpose_out: bool):
     """y [W, m, B], or as [W, B, m] when ``transpose_out``."""
-    return y.transpose(1, 2).contiguous() if transpose_out else y
+    if not transpose_out:
+        return y
+    with span("ntt.copy"):
+        return y.transpose(1, 2).contiguous()
 
 
 def _output(x3, transpose_out: bool):
@@ -499,20 +503,23 @@ def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None,
     if x3.device.type == "cpu":
         return fused_level_stack_plain(x3, field, As, rep, F, T3,
                                        transpose_out)
-    _build.check_level(x3, field, LEVEL_MAX_M)
-    D, E = digits.n_digits(field), digits.out_planes(field)
-    _build.check_operand(As, "As", torch.int8, (NT, E * m, D * m), x3.device)
-    if T3 is not None:
-        _build.check_operand(T3, "T3", torch.uint32, (W, m, period),
+    with span("ntt.launch.fused_level_stack"):
+        _build.check_level(x3, field, LEVEL_MAX_M)
+        D, E = digits.n_digits(field), digits.out_planes(field)
+        _build.check_operand(As, "As", torch.int8, (NT, E * m, D * m),
                              x3.device)
-    out = _output(x3, transpose_out)
-    rc = _lib().mxu_fused_level_stack(
-        _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), period,
-        _build.ptr(out), int(transpose_out), m, B, *_build.field_args(field),
-        *plan_args(field, m, B), _build.stream(x3))
-    _build.check(rc, "fused_level_stack")
-    _build.launches["fused_level_stack"] += 1
-    return out
+        if T3 is not None:
+            _build.check_operand(T3, "T3", torch.uint32, (W, m, period),
+                                 x3.device)
+        out = _output(x3, transpose_out)
+        rc = _lib().mxu_fused_level_stack(
+            _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), period,
+            _build.ptr(out), int(transpose_out), m, B,
+            *_build.field_args(field), *plan_args(field, m, B),
+            _build.stream(x3))
+        _build.check(rc, "fused_level_stack")
+        _build.launches["fused_level_stack"] += 1
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -612,47 +619,49 @@ def fused_subntt(x3, field: Field, inverse: bool, mats, T3=None,
     if x3.device.type == "cpu":
         return fused_subntt_plain(x3, field, inverse, mats, T3,
                                   transpose_out, rep)
-    _build.check_level(x3, field, MAX_SUB)
-    D, E = digits.n_digits(field), digits.out_planes(field)
-    if T3 is not None:
-        _build.check_operand(T3, "T3", torch.uint32, T3.shape, x3.device)
-    out = _output(x3, transpose_out)
-    if single_level(m, mats):
-        A = mats[m]
-        _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
-        rc = _lib().mxu_fused_subntt(
-            _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep,
-            _build.ptr(out), int(transpose_out), m, B,
-            *_build.field_args(field), *plan_args(field, m, B),
-            _build.stream(x3))
-        _build.check(rc, "fused_subntt")
-        _build.launches["fused_subntt"] += 1
-        return out
-    m2 = m // SUB_PEEL
-    A1, A2 = mats[SUB_PEEL], mats[m2]
-    _build.check_operand(A1, "A[32]", torch.int8,
-                         (E * SUB_PEEL, D * SUB_PEEL), x3.device)
-    _build.check_operand(A2, f"A[{m2}]", torch.int8, (E * m2, D * m2),
-                         x3.device)
-    Tin = inner_twiddle(field, m, inverse, x3.device)
-    sms = _build.sm_count(x3.device)
-    if sub_wide(field, m, B, sms):
-        rc = _lib_sub().mxu_fused_subntt_wide(
+    with span("ntt.launch.fused_subntt"):
+        _build.check_level(x3, field, MAX_SUB)
+        D, E = digits.n_digits(field), digits.out_planes(field)
+        if T3 is not None:
+            _build.check_operand(T3, "T3", torch.uint32, T3.shape, x3.device)
+        out = _output(x3, transpose_out)
+        if single_level(m, mats):
+            A = mats[m]
+            _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
+            rc = _lib().mxu_fused_subntt(
+                _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep,
+                _build.ptr(out), int(transpose_out), m, B,
+                *_build.field_args(field), *plan_args(field, m, B),
+                _build.stream(x3))
+            _build.check(rc, "fused_subntt")
+            _build.launches["fused_subntt"] += 1
+            return out
+        m2 = m // SUB_PEEL
+        A1, A2 = mats[SUB_PEEL], mats[m2]
+        _build.check_operand(A1, "A[32]", torch.int8,
+                             (E * SUB_PEEL, D * SUB_PEEL), x3.device)
+        _build.check_operand(A2, f"A[{m2}]", torch.int8, (E * m2, D * m2),
+                             x3.device)
+        Tin = inner_twiddle(field, m, inverse, x3.device)
+        sms = _build.sm_count(x3.device)
+        if sub_wide(field, m, B, sms):
+            rc = _lib_sub().mxu_fused_subntt_wide(
+                _build.ptr(x3), _build.ptr(A1), _build.ptr(A2),
+                _build.ptr(Tin), _build.ptr(T3), rep, _build.ptr(out),
+                int(transpose_out), m, B,
+                *_build.field_args(field), *sub_wide_args(field, m, B, sms),
+                _build.stream(x3))
+            _build.check(rc, "fused_subntt_wide")
+            _build.launches["fused_subntt_wide"] += 1
+            return out
+        rc = _lib_sub().mxu_fused_subntt_multi(
             _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
             _build.ptr(T3), rep, _build.ptr(out), int(transpose_out), m, B,
-            *_build.field_args(field), *sub_wide_args(field, m, B, sms),
+            *_build.field_args(field), *sub_plan_args(field, m, B),
             _build.stream(x3))
-        _build.check(rc, "fused_subntt_wide")
-        _build.launches["fused_subntt_wide"] += 1
+        _build.check(rc, "fused_subntt_multi")
+        _build.launches["fused_subntt_multi"] += 1
         return out
-    rc = _lib_sub().mxu_fused_subntt_multi(
-        _build.ptr(x3), _build.ptr(A1), _build.ptr(A2), _build.ptr(Tin),
-        _build.ptr(T3), rep, _build.ptr(out), int(transpose_out), m, B,
-        *_build.field_args(field), *sub_plan_args(field, m, B),
-        _build.stream(x3))
-    _build.check(rc, "fused_subntt_multi")
-    _build.launches["fused_subntt_multi"] += 1
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -688,15 +697,16 @@ def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
     W, m, B = x3.shape
     if x3.device.type == "cpu":
         return fused_level_plain(x3, field, A, T3, transpose_out, F, F2)
-    _check_level_operands(x3, field, A, T3)
-    out = _output(x3, transpose_out)
-    rc = _lib().mxu_fused_level(
-        _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
-        int(transpose_out), m, B, *_build.field_args(field),
-        *plan_args(field, m, B), _build.stream(x3))
-    _build.check(rc, "fused_level")
-    _build.launches["fused_level"] += 1
-    return out
+    with span("ntt.launch.fused_level"):
+        _check_level_operands(x3, field, A, T3)
+        out = _output(x3, transpose_out)
+        rc = _lib().mxu_fused_level(
+            _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
+            int(transpose_out), m, B, *_build.field_args(field),
+            *plan_args(field, m, B), _build.stream(x3))
+        _build.check(rc, "fused_level")
+        _build.launches["fused_level"] += 1
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -742,12 +752,13 @@ def fused_level_probe(x3, field: Field, A, stage: str, T3=None):
     W, m, B = x3.shape
     if x3.device.type == "cpu":
         return fused_level_probe_plain(x3, field, A, stage, T3)
-    _check_level_operands(x3, field, A, T3)
-    out = torch.empty_like(x3)
-    rc = _lib().mxu_fused_level_probe(
-        _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
-        PROBE_STAGES.index(stage), m, B, *_build.field_args(field),
-        *plan_args(field, m, B), _build.stream(x3))
-    _build.check(rc, "fused_level_probe")
-    _build.launches["fused_level_probe"] += 1
-    return out
+    with span("ntt.launch.fused_level_probe"):
+        _check_level_operands(x3, field, A, T3)
+        out = torch.empty_like(x3)
+        rc = _lib().mxu_fused_level_probe(
+            _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
+            PROBE_STAGES.index(stage), m, B, *_build.field_args(field),
+            *plan_args(field, m, B), _build.stream(x3))
+        _build.check(rc, "fused_level_probe")
+        _build.launches["fused_level_probe"] += 1
+        return out

@@ -23,6 +23,7 @@ import torch
 
 from .. import digits
 from ..fields import Field
+from ..tracing import span
 from . import _build, mxu_level
 
 
@@ -43,18 +44,19 @@ def base_ntt_mxu(x, field: Field, A, F=None):
         return x
     if x.device.type == "cpu":
         return base_ntt_mxu_plain(x, field, A, F)
-    _build.check_level(x, field, mxu_level.LEVEL_MAX_M)
-    D, E = digits.n_digits(field), digits.out_planes(field)
-    _build.check_operand(A, "A", torch.int8, (E * m, D * m), x.device)
-    out = torch.empty_like(x)
-    rc = mxu_level._lib().mxu_base_ntt(
-        _build.ptr(x), _build.ptr(A), _build.ptr(out), m, B,
-        *_build.field_args(field),
-        *mxu_level.base_plan_args(field, m, B, _build.sm_count(x.device)),
-        _build.stream(x))
-    _build.check(rc, "base_ntt_mxu")
-    _build.launches["base_ntt_mxu"] += 1
-    return out
+    with span("ntt.launch.base_ntt_mxu"):
+        _build.check_level(x, field, mxu_level.LEVEL_MAX_M)
+        D, E = digits.n_digits(field), digits.out_planes(field)
+        _build.check_operand(A, "A", torch.int8, (E * m, D * m), x.device)
+        out = torch.empty_like(x)
+        rc = mxu_level._lib().mxu_base_ntt(
+            _build.ptr(x), _build.ptr(A), _build.ptr(out), m, B,
+            *_build.field_args(field),
+            *mxu_level.base_plan_args(field, m, B, _build.sm_count(x.device)),
+            _build.stream(x))
+        _build.check(rc, "base_ntt_mxu")
+        _build.launches["base_ntt_mxu"] += 1
+        return out
 
 
 def base_ntt_mxu_pallas(x, field: Field, inverse: bool, A=None, F=None):

@@ -31,6 +31,7 @@ import torch
 
 from .. import limbs
 from ..fields import Field
+from ..tracing import span
 from ..transforms.core import ntt_along_axis, twiddle_master_on
 from . import _build
 
@@ -189,16 +190,17 @@ def stage_ntt(x, field: Field, inverse: bool = False):
         return x
     if x.device.type == "cpu":
         return stage_ntt_plain(x, field, inverse)
-    _build.check_level(x, field, MAX_M)
-    tw = twiddle_master_on(field, m, inverse, x.device)
-    out = torch.empty_like(x)
-    rc = _lib().vmem_stage_ntt(
-        _build.ptr(x), _build.ptr(tw), _build.ptr(out), m, B,
-        *plan_args(W, m, B, x.device), *_build.field_args(field),
-        _build.stream(x))
-    _build.check(rc, "stage_ntt")
-    _build.launches["stage_ntt"] += 1
-    return out
+    with span("ntt.launch.stage_ntt"):
+        _build.check_level(x, field, MAX_M)
+        tw = twiddle_master_on(field, m, inverse, x.device)
+        out = torch.empty_like(x)
+        rc = _lib().vmem_stage_ntt(
+            _build.ptr(x), _build.ptr(tw), _build.ptr(out), m, B,
+            *plan_args(W, m, B, x.device), *_build.field_args(field),
+            _build.stream(x))
+        _build.check(rc, "stage_ntt")
+        _build.launches["stage_ntt"] += 1
+        return out
 
 
 #: K5 under the JAX package's entry name (``ntt_tpu.kernels``), the same
@@ -234,16 +236,17 @@ def fused_stage_level(x, field: Field, inverse: bool = False, T3=None,
         return x.transpose(1, 2).contiguous() if transpose_out else x
     if x.device.type == "cpu":
         return fused_stage_level_plain(x, field, inverse, T3, transpose_out)
-    _build.check_level(x, field, MAX_M)
-    if T3 is not None:
-        _build.check_operand(T3, "T3", torch.uint32, (W, m, B), x.device)
-    tw = twiddle_master_on(field, m, inverse, x.device)
-    out = torch.empty((W, B, m) if transpose_out else (W, m, B),
-                      dtype=torch.uint32, device=x.device)
-    rc = _lib().vmem_fused_stage_level(
-        _build.ptr(x), _build.ptr(tw), _build.ptr(T3), _build.ptr(out),
-        int(transpose_out), m, B, *plan_args(W, m, B, x.device),
-        *_build.field_args(field), _build.stream(x))
-    _build.check(rc, "fused_stage_level")
-    _build.launches["fused_stage_level"] += 1
-    return out
+    with span("ntt.launch.fused_stage_level"):
+        _build.check_level(x, field, MAX_M)
+        if T3 is not None:
+            _build.check_operand(T3, "T3", torch.uint32, (W, m, B), x.device)
+        tw = twiddle_master_on(field, m, inverse, x.device)
+        out = torch.empty((W, B, m) if transpose_out else (W, m, B),
+                          dtype=torch.uint32, device=x.device)
+        rc = _lib().vmem_fused_stage_level(
+            _build.ptr(x), _build.ptr(tw), _build.ptr(T3), _build.ptr(out),
+            int(transpose_out), m, B, *plan_args(W, m, B, x.device),
+            *_build.field_args(field), _build.stream(x))
+        _build.check(rc, "fused_stage_level")
+        _build.launches["fused_stage_level"] += 1
+        return out

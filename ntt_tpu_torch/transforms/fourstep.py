@@ -18,6 +18,7 @@ from __future__ import annotations
 from .. import limbs
 from ..fields import Field
 from ..kernels import vmem_ntt
+from ..tracing import span
 from .core import ntt_along_axis, ntt_along_axis_stockham, split_log
 
 #: largest sub-transform the ladder transforms run as one base transform;
@@ -118,12 +119,14 @@ def ntt_axis_fourstep(x, field: Field, inverse: bool, base_fn,
     base = first_base_fn or base_fn
     while m > base_max:
         n1, n2 = _split(m, base_max)
-        x = _fused_level(x.reshape((W, n1, n2) + rest), next(tws), field,
-                         inverse, base, pre_col,
-                         first_tw_base_fn or tw_base_fn)  # [W, i2, k1, ...]
+        with span("ntt.level"):                  # -> [W, i2, k1, *rest]
+            x = _fused_level(x.reshape((W, n1, n2) + rest), next(tws), field,
+                             inverse, base, pre_col,
+                             first_tw_base_fn or tw_base_fn)
         base, first_tw_base_fn, pre_col = base_fn, None, None
         m, rest = n2, (n1,) + rest
-    return base(x, field, inverse).reshape(shape)        # X[k2*n1 + k1]
+    with span("ntt.base"):
+        return base(x, field, inverse).reshape(shape)    # X[k2*n1 + k1]
 
 
 def _fused_level(x4, T, field: Field, inverse: bool, base_fn, pre_col=None,
@@ -154,7 +157,9 @@ def _fused_level(x4, T, field: Field, inverse: bool, base_fn, pre_col=None,
             c = limbs.mont_mul(c, pre_col[:, :, None, None], field)
         y = base_fn(c, field, inverse)
         y = limbs.mont_mul(y, T[:, :, :, None], field)
-        return y.transpose(1, 2).contiguous().reshape((W, n2, n1) + rest)
+        with span("ntt.copy"):
+            y = y.transpose(1, 2).contiguous()
+        return y.reshape((W, n2, n1) + rest)
     c3 = x4.reshape(W, n1, n2 * R)          # flat batch: i2 major, r minor
     if isinstance(T, TwStackResid):
         assert R == 1 and T.rep == T.Tres.shape[2], (R, T.rep, T.Tres.shape)
@@ -171,10 +176,13 @@ def _fused_level(x4, T, field: Field, inverse: bool, base_fn, pre_col=None,
         assert R > 1 and tuple(T.Tt.shape) == (W, n2, n1), (T.Tt.shape, R)
         y3 = tw_base_fn(c3, T.Tt, rep=R)
     elif R > 1:
-        y3 = tw_base_fn(c3, T.transpose(1, 2).contiguous(), rep=R)
+        with span("ntt.copy"):
+            Tt = T.transpose(1, 2).contiguous()
+        y3 = tw_base_fn(c3, Tt, rep=R)
     else:
         y3 = tw_base_fn(c3, T, rep=1)
-    y = y3.reshape(W, n1, n2, R).transpose(1, 2).contiguous()
+    with span("ntt.copy"):
+        y = y3.reshape(W, n1, n2, R).transpose(1, 2).contiguous()
     return y.reshape((W, n2, n1) + rest)
 
 
@@ -257,7 +265,9 @@ def undo_peel_order(y, remaining: int, base: int, levels: int):
     W = y.shape[0]
     if levels > 1:
         y = y.reshape((W, remaining) + (base,) * levels)
-        y = y.permute((0, 1) + tuple(range(levels + 1, 1, -1))).contiguous()
+        order = (0, 1) + tuple(range(levels + 1, 1, -1))
+        with span("ntt.copy"):
+            y = y.permute(order).contiguous()
     return y.reshape(W, -1)
 
 

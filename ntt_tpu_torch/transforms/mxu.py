@@ -38,6 +38,7 @@ from ..fields import Field
 from ..kernels import mxu_level
 from ..kernels.mxu_level import fused_level, fused_level_stack, fused_subntt
 from ..kernels.mxu_ntt import base_ntt_mxu
+from ..tracing import span
 from .core import (host_power_matrix, host_powers_fast, power_table,
                    scale_columns)
 from .fourstep import (TwMatStack, TwStackResid, check_unbatched,
@@ -545,7 +546,8 @@ def ntt_axis_mxu(x, field: Field, inverse: bool = False, tws=None,
     T = next(tws)                                             # ω_m^{k1·i2}
     y = limbs.mont_mul(y, T.reshape(tuple(T.shape) + (1,) * len(rest)),
                        field)
-    y = y.transpose(1, 2).contiguous()                   # [W, i2, k1, *rest]
+    with span("ntt.copy"):
+        y = y.transpose(1, 2).contiguous()               # [W, i2, k1, *rest]
     y = ntt_axis_mxu(y, field, inverse, tws, base_fn, mats,
                      base_max=peel)                           # over i2
     return y.reshape((W, m) + rest)                           # X[k2*n1 + k1]
