@@ -12,8 +12,10 @@ exact reference on the same inputs. It prints one line a seed and, last, a
 JSON object with the lower reading (the most mismatched elements any
 program seed gave) and the upper one (the fewest any control seed gave).
 A control that raises counts as failed and gives no reading. It reads on
-the CUDA card at the cell's configured domain, and exits with 2 without
-one. The benchmark's own runs do not run this.
+the cell's CUDA cards (``cuda:0`` .. ``cuda:{chips-1}``; over several, the
+outputs at r + S·t as a run's check compares them) at the cell's configured
+domain, and exits with 2 without them. The benchmark's own runs do not run
+this.
 """
 
 import argparse
@@ -34,21 +36,26 @@ def readings(cell: str, seeds: list, executor: str) -> list:
     from gpubench import harness, workload
     from gpubench.reference.ops import for_config
 
-    _, config, traffic, n, field = harness.cell_parts(
+    spec, config, traffic, n, field = harness.cell_parts(
         harness.load_benchmark(), cell)
-    device = torch.device("cuda")
+    devices = [torch.device("cuda", i) for i in range(spec["chips"])]
+    device = devices[0]
+    sh = (harness.sharding(traffic, field.words, n, devices)
+          if len(devices) > 1 else None)
     if executor == "program":
         from gpubench.program import Program
-        run = Program(config["field"], config["coset_shift"], device,
-                      traffic.mont_io)
+        run = Program(config["field"], config["coset_shift"],
+                      device if sh is None else devices, traffic.mont_io,
+                      options=config)
     else:
         run = for_config(config, device, lazy=True)
     quiet = lambda name: contextlib.nullcontext()  # noqa: E731
     out = []
     for seed in seeds:
-        pool = harness.make_pool(traffic, field, n, seed, device)
+        take = harness.keep_whole if sh is None else sh.take(seed)
+        pool = harness.make_pool(traffic, field, n, seed, device, sh)
         try:
-            kept = [(i, workload.run_unit(
+            kept = [take(i, workload.run_unit(
                 run, traffic, workload.unit_inputs(traffic, i, pool),
                 quiet)[0]) for i in range(traffic.check_units)]
         except RuntimeError as e:
@@ -56,11 +63,11 @@ def readings(cell: str, seeds: list, executor: str) -> list:
             out.append((seed, None, 0))
             continue
         del pool
-        checks = harness.check(traffic, config, n, seed, kept, device)
+        checks = harness.check(traffic, config, n, seed, kept, device, sh)
         m = checks["mismatched_elements"]["value"]
         k = checks["outputs_checked"]["value"]
         print(f"{cell} {executor} seed {seed}: mismatched_elements {m} "
-              f"of {k} x {n}", flush=True)
+              f"of {checks['elements']} in {k} outputs", flush=True)
         out.append((seed, m, k))
     return out
 
@@ -72,8 +79,12 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
     args = ap.parse_args(argv)
     import torch
-    if not torch.cuda.is_available():
-        print("no CUDA card", file=sys.stderr)
+
+    from gpubench import harness
+    chips = harness.find_cell(harness.load_benchmark(),
+                              args.workload)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"{args.workload} needs {chips} CUDA card(s)", file=sys.stderr)
         return 2
     prog = readings(args.workload, args.program_seeds, "program")
     ctrl = readings(args.workload, args.control_seeds, "control")

@@ -8,6 +8,16 @@ the cell reports in ``gpubench/metrics/<metric>.py``, a reader with
 ``read(run) -> float | None``; a metric ``<base>.<part>`` without a file of
 its own is read by ``gpubench/metrics/<base>.py``, in units of the cell's
 traffic. Adding any of them adds files and entries only.
+
+A cell of ``chips`` above 1 runs on the cards ``devices`` (``cuda:0`` ..;
+tests and trials may name one device several times, or the CPU). Its
+vectors are lists of per-card tensors in the layouts its one sharded
+operation declares (:class:`Sharding`); each card makes its own block of
+the pool; a unit's wait synchronises every card; the check compares the
+outputs at the indices r + S·t of each kept unit, gathered from the cards,
+with the reference's blocked form; and the memory peak, the busy time and
+the idle share are read card by card. On one device every path is the
+one-card path.
 """
 
 from __future__ import annotations
@@ -102,26 +112,45 @@ class Run:
     elem_bytes: int
     window: Window
     setup_s: float
-    peak_bytes: int
+    peak_bytes: int         # the fullest card's
     tables_s: float         # seconds in the program's runner builds
     launches: int           # the program's kernel launches in the window
     trace: TraceView | None
+    chips: int = 1
+
+
+def keep_whole(i: int, out) -> tuple:
+    """What a one-card cell keeps of a unit: (unit, a copy of its output)."""
+    return (i, out.clone())
 
 
 class _Keep:
-    """A reservoir of ``k`` completed units drawn from the seed: (unit,
-    a copy of its output)."""
+    """A reservoir of ``k`` completed units drawn from the seed: what
+    ``take(unit, output)`` keeps of each, by default (unit, a copy of its
+    output)."""
 
-    def __init__(self, k: int, seed: int):
+    def __init__(self, k: int, seed: int, take=keep_whole):
         self.k, self.rng, self.items = k, random.Random(seed), []
+        self.take = take
 
-    def offer(self, i: int, out: torch.Tensor) -> None:
+    def offer(self, i: int, out) -> None:
         if len(self.items) < self.k:
-            self.items.append((i, out.clone()))
+            self.items.append(self.take(i, out))
             return
         j = self.rng.randrange(i + 1)
         if j < self.k:
-            self.items[j] = (i, out.clone())
+            self.items[j] = self.take(i, out)
+
+
+def waiter(devices) -> callable:
+    """The wait for a cell's cards: ``torch.cuda.synchronize`` of each
+    distinct CUDA device, in order; nothing on the CPU."""
+    cards = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
+
+    def wait():
+        for d in cards:
+            torch.cuda.synchronize(d)
+    return wait
 
 
 def _span(on: bool):
@@ -130,13 +159,13 @@ def _span(on: bool):
     return torch.profiler.record_function
 
 
-def measure(executor, traffic, pool, seconds: float, device, keep: _Keep,
+def measure(executor, traffic, pool, seconds: float, wait, keep: _Keep,
             span, points: int) -> Window:
     """The closed loop: unit after unit, ``traffic.sync_every`` of them to
-    each wait for the card, until ``seconds`` have passed; the units in
-    flight then complete and count. Every time is the host's clock, each
-    unit's from its call until that wait returns."""
-    cuda = device.type == "cuda"
+    each ``wait()`` for the cards (:func:`waiter`), until ``seconds`` have
+    passed; the units in flight then complete and count. Every time is the
+    host's clock, each unit's from its call until that wait returns for
+    the last card, where the window ends too."""
     lat, starts, pending, units = [], [], [], 0
     t0 = time.perf_counter()
     while True:
@@ -150,8 +179,7 @@ def measure(executor, traffic, pool, seconds: float, device, keep: _Keep,
         last = time.perf_counter() - t0 >= seconds
         if last or len(pending) >= traffic.sync_every:
             with span("sync"):
-                if cuda:
-                    torch.cuda.synchronize(device)
+                wait()
             now = time.perf_counter()
             with span("keep"):
                 for i, h, out in pending:
@@ -185,12 +213,15 @@ def _traced(fn):
 
 
 def check(traffic, config: dict, n: int, seed: int, kept: list,
-          device) -> dict:
+          device, sharding: "Sharding | None" = None) -> dict:
     """Each kept output against the plain reference on the same inputs,
-    made again from the seed. The numbers compared, each with its limit."""
+    made again from the seed. The numbers compared, each with its limit.
+    Over several cards: :func:`check_sharded`."""
+    if sharding is not None:
+        return check_sharded(traffic, config, seed, kept, sharding)
     ref = for_config(config, device)
     f = ref.f
-    mismatched, checked = 0, 0
+    mismatched, checked, elements = 0, 0, 0
     for i, got in kept:
         inputs = [workload.make_vector(f.p, traffic.shape(f.words, n), seed,
                                        s, device)
@@ -203,8 +234,132 @@ def check(traffic, config: dict, n: int, seed: int, kept: list,
             mismatched += int((got.to(torch.int64) != want.to(torch.int64)
                                ).any(dim=0).sum())
         checked += 1
+        elements += want[0].numel()
+    return dict(_counts(mismatched, checked), elements=elements)
+
+
+def _counts(mismatched: int, checked: int) -> dict:
     return {"mismatched_elements": {"value": mismatched, "limit": 0},
             "outputs_checked": {"value": checked, "limit": 1}}
+
+
+# -- a cell over several cards -----------------------------------------------
+
+#: outputs M a kept unit of a sharded cell compares (at most n), those at
+#: r + S·t, S = n/M: the check's time grows with n and with M log M, and
+#: 2^22 keeps it near the window's length at 2^30. A cell on one card
+#: compares every output.
+CHECK_POINTS = 1 << 22
+
+
+def gather(shards: list, cards, pos, device) -> torch.Tensor:
+    """uint32[W, len(pos)]: element j is card ``cards[j]``'s flat local
+    position ``pos[j]``, gathered onto ``device``. Every card reads every
+    position (the cards' local shapes are one) and each element is taken
+    from its own card's reading, so that nothing waits for the host."""
+    got = None
+    for d, x in enumerate(shards):
+        idx = torch.unravel_index(pos.to(x.device), tuple(x.shape[1:]))
+        vals = x.view(torch.int32)[(slice(None),) + idx].to(device)
+        got = vals if got is None else torch.where(cards == d, vals, got)
+    return got.view(torch.uint32)
+
+
+@dataclasses.dataclass
+class Sharding:
+    """A cell of several cards: its one sharded operation, its cards, the
+    layouts of the operation's input and output (``gpubench/shard.py``),
+    and the M outputs a kept unit's check compares, at r + S·t."""
+    op: object
+    devices: list
+    words: int
+    n: int
+    M: int
+
+    @property
+    def S(self) -> int:
+        return self.n // self.M
+
+    @property
+    def inp(self):
+        return self.op.input_layout(self.words, self.n, len(self.devices))
+
+    @property
+    def out(self):
+        return self.op.output_layout(self.words, self.n, len(self.devices))
+
+    def residue(self, seed: int, i: int) -> int:
+        """Unit i's r, drawn from the seed."""
+        return random.Random(f"{seed}:{i}").randrange(self.S)
+
+    def checked(self, r: int, assert_cards: bool = True) -> tuple:
+        """(cards, positions) of the outputs r + S·t, t < M; raises unless
+        they lie on every card (the assertion waits for the device: the
+        window's ``take`` leaves it to the check)."""
+        k = r + self.S * torch.arange(self.M, device=self.devices[0])
+        cards, pos = self.out.locate(k)
+        if assert_cards and torch.unique(cards).numel() != len(self.devices):
+            raise ValueError(
+                f"the outputs r + {self.S}·t lie on {torch.unique(cards)} "
+                f"of {len(self.devices)} cards: raise CHECK_POINTS")
+        return cards, pos
+
+    def take(self, seed: int):
+        """The reservoir's ``take``: (unit, r, its outputs at r + S·t)."""
+        def take(i: int, out: list) -> tuple:
+            r = self.residue(seed, i)
+            cards, pos = self.checked(r, assert_cards=False)
+            return (i, r, gather(out, cards, pos, self.devices[0]))
+        return take
+
+    def pool_vector(self, p: int, seed: int, slot: int) -> list:
+        """One pool slot: each card's block, made on the card."""
+        return [workload.make_shard(p, self.inp.shape, seed, slot, d, dev)
+                for d, dev in enumerate(self.devices)]
+
+    def blocks(self, shards: list):
+        """The input's natural-order blocks x[M·b : M·(b+1)], b < S, each
+        gathered from the cards onto the first."""
+        dev = self.devices[0]
+        for b in range(self.S):
+            cards, pos = self.inp.locate(
+                self.M * b + torch.arange(self.M, device=dev))
+            yield gather(shards, cards, pos, dev)
+
+
+def sharding(traffic, words: int, n: int, devices: list) -> Sharding:
+    """The :class:`Sharding` of a cell on ``devices`` (two or more): its
+    traffic must be one step of a sharded operation, unbatched. M is
+    :data:`CHECK_POINTS`, at most n."""
+    ops = [workload.load_op(op) for op, _, _ in traffic.steps]
+    if len(ops) != 1 or not getattr(ops[0], "SHARDED", False) or (
+            traffic.batch != 1):
+        raise ValueError(f"{traffic.name}: a cell of several cards takes "
+                         "one step of a sharded operation, unbatched")
+    sh = Sharding(ops[0], list(devices), words, n, min(n, CHECK_POINTS))
+    sh.checked(0)
+    return sh
+
+
+def check_sharded(traffic, config: dict, seed: int, kept: list,
+                  sh: Sharding) -> dict:
+    """Each kept unit's outputs at r + S·t against the reference's blocked
+    form (``reference_at`` of the operation) on the unit's input, made
+    again card by card from the seed and read in natural-order blocks, one
+    at a time, on the first card."""
+    ref = for_config(config, sh.devices[0])
+    mismatched, checked, elements = 0, 0, 0
+    for i, r, got in kept:
+        sh.checked(r)
+        (slot,) = traffic.unit_slots(i)
+        shards = sh.pool_vector(ref.f.p, seed, slot)
+        want = sh.op.reference_at(ref, sh.blocks(shards), sh.n, sh.S, r)
+        del shards
+        mismatched += int((got.to(torch.int64) != want.to(torch.int64)
+                           ).any(dim=0).sum())
+        checked += 1
+        elements += want.shape[1]
+    return dict(_counts(mismatched, checked), elements=elements)
 
 
 def passed(checks: dict) -> bool:
@@ -224,39 +379,50 @@ def cell_parts(bench: dict, name: str, log_n: int | None = None):
             field_of(config))
 
 
-def make_pool(traffic, field, n: int, seed: int, device) -> list:
+def make_pool(traffic, field, n: int, seed: int, device,
+              sh: Sharding | None = None) -> list:
+    if sh is not None:
+        return [sh.pool_vector(field.p, seed, s)
+                for s in range(traffic.pool_slots)]
     return [workload.make_vector(field.p, traffic.shape(field.words, n), seed,
                                  s, device)
             for s in range(traffic.pool_slots)]
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
-             device="cuda", log_n: int | None = None, make_executor=None,
+             devices: list | None = None,
+             log_n: int | None = None, make_executor=None,
              started: float | None = None, bench: dict | None = None) -> dict:
     """One run of cell ``name``; returns the result object the command
-    prints. ``log_n`` overrides the configuration's domain (tests on the
-    CPU); ``make_executor(config, traffic, device)`` replaces the program
-    (the control, a broken program); ``started``: ``time.perf_counter()``'s
-    reading at process start, from which ``setup_s`` counts."""
+    prints. ``devices``: the cell's cards, as many as its ``chips`` (one
+    may repeat: ``["cuda:0"] * 4``, ``["cpu"] * 4``); without it the one
+    card ``cuda``. ``log_n`` overrides the configuration's domain (tests on
+    the CPU); ``make_executor(config, traffic, device)`` replaces the
+    program (the control, a broken program), given the list of devices in
+    a sharded cell; ``started``: ``time.perf_counter()``'s reading at
+    process start, from which ``setup_s`` counts."""
     started = time.perf_counter() if started is None else started
     marks = [("start", started), ("imports", time.perf_counter())]
     bench = load_benchmark() if bench is None else bench
     cell, config, traffic, n, field = cell_parts(bench, name, log_n)
-    device = torch.device(device)
+    devices = [torch.device(d) for d in (devices or ["cuda"])]
+    if len(devices) != cell["chips"]:
+        raise ValueError(f"{name} takes {cell['chips']} card(s), given "
+                         f"{len(devices)}")
+    device = devices[0]
+    sh = (sharding(traffic, field.words, n, devices) if len(devices) > 1
+          else None)
+    target = device if sh is None else devices
     if make_executor is None:
         from .program import Program
-        executor = Program(config["field"], config["coset_shift"], device,
-                           traffic.mont_io)
+        executor = Program(config["field"], config["coset_shift"], target,
+                           traffic.mont_io, options=config)
     else:
-        executor = make_executor(config, traffic, device)
+        executor = make_executor(config, traffic, target)
     marks.append(("program", time.perf_counter()))
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
-    pool = make_pool(traffic, field, n, seed, device)
-    sync()
+    wait = waiter(devices)
+    pool = make_pool(traffic, field, n, seed, device, sh)
+    wait()
     marks.append(("pool", time.perf_counter()))
     span = _span(trace)
     tables = []
@@ -266,23 +432,29 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
             out, points = workload.run_unit(
                 executor, traffic, workload.unit_inputs(traffic, i, pool),
                 span)
+            if sh is not None:          # loads the kernels of the keep
+                sh.take(seed)(i, out)
             del out
-            sync()
+            wait()
             marks.append((f"warm_unit_{i}", time.perf_counter()))
     count = getattr(executor, "launches", lambda: 0)
-    keep = _Keep(traffic.check_units, seed)
+    keep = (_Keep(traffic.check_units, seed) if sh is None
+            else _Keep(traffic.check_units, seed, sh.take(seed)))
     launches0 = count()
     setup_s = time.perf_counter() - started
 
     def window():
-        return measure(executor, traffic, pool, seconds, device, keep, span,
+        return measure(executor, traffic, pool, seconds, wait, keep, span,
                        points)
 
     view = None
     if trace:
         win, events = _traced(window)
         t = time.perf_counter()
-        view = TraceView(events)
+        cards = None if sh is None or device.type != "cuda" else sorted(
+            {torch.cuda.current_device() if d.index is None else d.index
+             for d in devices})
+        view = TraceView(events, cards)
         del events
         trace_read_s = time.perf_counter() - t
         if not view.ops:
@@ -290,8 +462,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     else:
         win = window()
     launches = count() - launches0
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else 0)
+    peaks = {str(d): torch.cuda.max_memory_allocated(d)
+             for d in dict.fromkeys(devices) if d.type == "cuda"}
+    peak = max(peaks.values(), default=0)
 
     del pool
     if hasattr(executor, "release"):
@@ -300,11 +473,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    checks = check(traffic, config, n, seed, keep.items, device)
+    checks = check(traffic, config, n, seed, keep.items, device, sh)
     check_s = time.perf_counter() - t
+    elements = checks.pop("elements")
 
     run = Run(n, 4 * field.words, win, setup_s, peak,
-              sum(tables), launches, view)
+              sum(tables), launches, view, len(devices))
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in cell_metrics(bench, name, kind):
@@ -321,6 +495,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         result["breakdown"] = view.breakdown()
     result["notes"] = _notes(run, device)
     result["notes"]["check_s"] = check_s
+    result["notes"]["elements_checked"] = elements
+    result["notes"]["tables_s"] = run.tables_s
+    result["notes"]["memory_peak_by_card"] = peaks
+    if view is not None:
+        result["notes"]["idle_share_by_card"] = {
+            str(device if c is None else c): v
+            for c, v in view.card_idle_shares().items()}
     result["notes"]["setup_phases_s"] = {
         b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
     if view is not None:
@@ -331,7 +512,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
 
 def _device(device, cell: dict, peak: int) -> dict:
     if device.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
+        return {"platform": "cpu", "kind": "cpu", "count": cell["chips"],
                 "memory_peak_bytes": peak}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
             "count": cell["chips"], "memory_peak_bytes": peak}
@@ -339,8 +520,9 @@ def _device(device, cell: dict, peak: int) -> dict:
 
 def _notes(run: Run, device) -> dict:
     """What a reader of the result wants beside the metrics: the domain, the
-    transform's least time and what bounds it, the card's power limit."""
-    t, by = roofline.least_time(run.n, run.elem_bytes)
+    transform's least time on the cell's cards and the bound that sets it
+    (operations, bytes or the exchange), the card's power limit."""
+    t, by = roofline.least_time(run.n, run.elem_bytes, run.chips)
     w = run.window
     notes = {"n": run.n, "units": w.units, "window_s": w.seconds,
              "quarter_unit_ms": workload.quarter_means(

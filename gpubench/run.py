@@ -1,10 +1,11 @@
-"""The benchmark's command: one run of one cell on the CUDA card.
+"""The benchmark's command: one run of one cell on its CUDA card(s).
 
     python3 gpubench/run.py --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-Run from the root of a checkout. It makes the cell's inputs on the card
-from the seed, builds and warms the cell's own runners (the program keeps
+Run from the root of a checkout. A cell runs on the cards ``cuda:0`` ..
+``cuda:{chips-1}``. It makes the cell's inputs on the card(s) from the
+seed, builds and warms the cell's own runners (the program keeps
 its kernel builds in ``build/kernels/`` and its host library in
 ``build/hostlib/`` inside the checkout), measures for ``--seconds``, checks
 the outputs of units drawn from the seed against the plain reference, and
@@ -62,8 +63,10 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell['chips']} CUDA card(s); "
               f"torch sees {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    result = harness.run_cell(args.workload, args.seed, args.seconds,
-                              bool(args.trace), started=_STARTED, bench=bench)
+    result = harness.run_cell(
+        args.workload, args.seed, args.seconds, bool(args.trace),
+        devices=[f"cuda:{i}" for i in range(cell["chips"])],
+        started=_STARTED, bench=bench)
     foreign = harness.foreign_modules()
     if foreign:
         print(f"the run loaded {foreign}: nothing it runs may load JAX or "

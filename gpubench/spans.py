@@ -95,7 +95,7 @@ class ProgramSpans:
         for s, e, name in self_intervals(spans):
             pieces[layer_of(name)].append((s, e))
         self.pieces = {k: sorted(v) for k, v in pieces.items()}
-        self.gaps = view.gaps()
+        self.gaps = [view.gaps(card) for card in view.cards]
 
     def self_ms(self, layer: str) -> float:
         """Host ms in the layer's spans outside their nested spans."""
@@ -103,8 +103,11 @@ class ProgramSpans:
 
     def idle_ms(self, layer: str) -> float:
         """Ms of the window with no operation on the card while the host
-        was in the layer's self intervals."""
-        return overlap(self.gaps, self.pieces.get(layer, [])) / 1e3
+        was in the layer's self intervals (over several cards, the cards'
+        mean)."""
+        pieces = self.pieces.get(layer, [])
+        return (sum(overlap(g, pieces) for g in self.gaps)
+                / len(self.gaps) / 1e3)
 
 
 def of(view) -> ProgramSpans | None:

@@ -15,10 +15,11 @@ from gpubench import harness
 BENCH = harness.load_benchmark()
 
 
-def card():
+def card(cell):
     import torch
-    if not torch.cuda.is_available():
-        pytest.skip("needs the CUDA card")
+    chips = harness.find_cell(BENCH, cell)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA card(s)")
 
 
 def command(cell, seed, trace):
@@ -34,19 +35,20 @@ def command(cell, seed, trace):
 @pytest.mark.card
 @pytest.mark.parametrize("cell", [c["name"] for c in BENCH["workloads"]])
 def test_cell_runs_correct(cell):
-    card()
+    card(cell)
     r = command(cell, 2 ** 31 + 99, 0)
     assert r["correct"] is True and r["failed"] == 0
     want = {m["name"] for m in harness.cell_metrics(BENCH, cell,
                                                     "end_to_end")}
     assert set(r["metrics"]) == want
-    assert r["device"]["platform"] == "gpu" and r["device"]["count"] == 1
+    assert r["device"]["platform"] == "gpu"
+    assert r["device"]["count"] == harness.find_cell(BENCH, cell)["chips"]
 
 
 @pytest.mark.card
 @pytest.mark.parametrize("cell", [c["name"] for c in BENCH["workloads"]])
 def test_cell_traced(cell):
-    card()
+    card(cell)
     r = command(cell, 2 ** 31 + 98, 1)
     assert r["correct"] is True
     assert 0 < r["device"]["busy_s"] <= r["device"]["window_s"]

@@ -25,7 +25,13 @@ def test_cell_resolves_by_name(cell):
                 "assumed", "deployment"):
         assert key in config, key
     traffic = workload.Traffic.load(spec["traffic"])
-    x = torch.zeros(traffic.shape(config["element_words"], 4))
+    W = config["element_words"]
+    if spec["chips"] == 1:
+        x = torch.zeros(traffic.shape(W, 4))
+    else:           # one sharded step, its input a block a card
+        sh = harness.sharding(traffic, W, 1 << 12,
+                              [torch.device("cpu")] * spec["chips"])
+        x = [torch.zeros(sh.inp.shape)] * spec["chips"]
     assert sum(workload.load_op(op).points(x)
                for op, _, _ in traffic.steps) > 0      # it transforms
     e2e = harness.cell_metrics(BENCH, cell, "end_to_end")
@@ -59,7 +65,10 @@ def test_benchmark_keys_and_bounds():
     for c in BENCH["configs"]:
         with open(os.path.join(ROOT, c["file"])) as f:
             assert json.load(f)["reduced"] == c["reduced"]
-    assert all(c["chips"] == 1 for c in BENCH["workloads"])
+    chips = [c["chips"] for c in BENCH["workloads"]]
+    assert set(chips) <= {1, 4}
+    # at most a quarter of the cells, rounded down, on four cards; one may
+    assert chips.count(4) <= max(1, len(chips) // 4)
 
 
 def test_unknown_names_raise():
@@ -144,7 +153,7 @@ def test_new_cell_is_files_and_entries_only(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     code = ("import json, sys; from gpubench import harness; "
             "r = harness.run_cell('gold-squares', 5, 0.3, False, "
-            "device='cpu'); print(json.dumps(r))")
+            "devices=['cpu']); print(json.dumps(r))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), ROOT]))
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)

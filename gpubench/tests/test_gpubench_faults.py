@@ -50,7 +50,7 @@ class Altered(Program):
 
 def run(cell, make=None):
     torch.set_num_threads(1)
-    return harness.run_cell(cell, SEED, 0.05, False, device="cpu",
+    return harness.run_cell(cell, SEED, 0.05, False, devices=["cpu"],
                             log_n=CELLS[cell], make_executor=make)
 
 

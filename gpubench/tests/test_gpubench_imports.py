@@ -33,7 +33,12 @@ def test_reference_traffic_ops_and_metrics_load_nothing_foreign():
         "x = torch.zeros((2, 16), dtype=torch.int64).to(torch.uint32)\n"
         "for p in sorted(glob.glob('gpubench/ops/*.py')):\n"
         "    name = os.path.basename(p)[:-3]\n"
-        "    r.call(name, *[x] * workload.load_op(name).ARGS)\n")
+        "    op = workload.load_op(name)\n"
+        "    v = x\n"
+        "    if getattr(op, 'SHARDED', False):\n"
+        "        v = [torch.zeros(op.input_layout(2, 16, 2).shape,\n"
+        "                         dtype=torch.int64).to(torch.uint32)] * 2\n"
+        "    r.call(name, *[v] * op.ARGS)\n")
     assert not top & set(harness.FOREIGN)
     assert "ntt_tpu_torch" not in top
 
@@ -42,7 +47,7 @@ def test_a_run_loads_nothing_foreign():
     top = modules_after(
         "from gpubench import harness\n"
         "r = harness.run_cell('bls381-hterm-2e22', 3, 0.01, False, "
-        "device='cpu', log_n=5)\n"
+        "devices=['cpu'], log_n=5)\n"
         "assert r['correct']\n")
     assert "ntt_tpu_torch" in top
     assert not top & set(harness.FOREIGN)

@@ -23,9 +23,15 @@ def launch(corr, ts):
                 dur=2, args={"correlation": corr})
 
 
-def dev(name, corr, ts, dur, cat="kernel"):
+def dev(name, corr, ts, dur, cat="kernel", card=0):
     return {"pid": 0, "tid": 7, "cat": cat, "name": name, "ts": ts,
-            "dur": dur, "args": {"correlation": corr}}
+            "dur": dur, "args": {"correlation": corr, "device": card}}
+
+
+#: a pass kernel of the program, launched inside the first step
+PASS_KERNEL = [launch(7, 260),
+               dev("void passes::field_pass_kernel<8, 1>(passes::Args)", 7,
+                   300, 30)]
 
 
 def timeline():
@@ -87,9 +93,54 @@ def test_breakdown_names_gaps_by_host_activity():
     assert len(b["device_ops"]) <= 10 and len(b["idle_gaps"]) <= 10
 
 
+def test_cards_are_read_apart():
+    """Over two cards each card's busy time and gaps are its own; busy
+    time and idle share are the cards' mean; on one timeline (cards None)
+    the operations of both cards merge, as on one card."""
+    ev = [ann("gpubench.window", 0, 100), ann("step.ntt", 0, 100),
+          launch(1, 0), launch(2, 1), launch(3, 2),
+          dev("void k1()", 1, 10, 50, card=0),
+          dev("void k2()", 2, 30, 50, card=1),
+          dev("void k3()", 3, 90, 10, card=1)]
+    v = TraceView(ev, cards=[0, 1])
+    assert v.card_busy_s == pytest.approx({0: 50e-6, 1: 60e-6})
+    assert v.busy_s == pytest.approx(55e-6)
+    assert v.idle_share() == pytest.approx(0.45)
+    assert v.card_idle_shares() == pytest.approx({0: 0.5, 1: 0.4})
+    assert v.gaps(0) == [(0, 10), (60, 100)]
+    assert v.gaps(1) == [(0, 30), (80, 90)]
+    gaps = dict(v.breakdown()["idle_gaps"])
+    assert gaps["step.ntt > python"] == pytest.approx(45e-6)
+    one = TraceView(ev)
+    assert one.busy_s == pytest.approx(80e-6)
+    assert one.gaps() == [(0, 10), (80, 90)]
+    # a card with no operation is idle all the window
+    assert TraceView(ev, cards=[0, 1, 2]).card_idle_shares()[2] == 1.0
+
+
 def test_window_span_required():
     with pytest.raises(ValueError):
         TraceView([ann("unit", 0, 10)])
+
+
+def test_four_cards_roofline_and_kernel_names():
+    """Over four cards the roofline takes the least time on all four (the
+    exchange at BLS 2^30) over the cards' mean busy time; a kernel in an
+    anonymous namespace keeps its name in the breakdown."""
+    ev = [ann("gpubench.window", 0, 1e6), ann("step.dist_ntt", 0, 1e6)]
+    for card in range(4):
+        ev += [launch(card + 1, card),
+               dev("void (anonymous namespace)::a2a_pull_kernel<8>(int)",
+                   card + 1, 0, 5e5, card=card)]
+    v = TraceView(ev, cards=[0, 1, 2, 3])
+    assert v.busy_s == pytest.approx(0.5)
+    win = harness.Window(10, 1.0, [1.0] * 10, 10 << 30)
+    run = harness.Run(1 << 30, 32, win, 1.0, 1, 0.0, 0, v, 4)
+    least, by = roofline.least_time(1 << 30, 32, 4)
+    assert by == "exchange"
+    assert read("ntt_roofline", run) == pytest.approx(100 * least * 10 / 0.5)
+    assert dict(v.breakdown()["device_ops"]) == pytest.approx(
+        {"port a2a_pull_kernel<8>": 2.0})
 
 
 def test_library_names():
@@ -139,6 +190,12 @@ def test_layer_readers():
     least, _ = roofline.least_time(1 << 22, 32)
     assert read("ntt_roofline", run) == pytest.approx(
         100 * least * 2 / 400e-6)
+    # the program's pass kernels, by name, with the PyTorch pass: (40 +
+    # 30) us over two units; they read under kernel_ms too
+    run = run_of([1.0, 1.0], view=TraceView(timeline() + PASS_KERNEL),
+                 n=1 << 22)
+    assert read("pass_ms.hterm", run) == pytest.approx(0.035)
+    assert read("kernel_ms.hterm", run) == pytest.approx(0.165)
 
 
 def test_readers_find_nothing_to_read():
@@ -147,6 +204,9 @@ def test_readers_find_nothing_to_read():
     run = run_of([1.0], view=TraceView(ev))
     assert read("copy_ms.ntt", run) is None
     assert read("pass_ms.hterm", run) is None
+    passes = run_of([1.0], view=TraceView(ev + [launch(7, 5), dev(
+        "void passes::field_pass_kernel<2, 0>(passes::Args)", 7, 60, 30)]))
+    assert read("pass_ms.hterm", passes) == pytest.approx(0.03)
     run.launches, run.tables_s = 0, 0.0
     assert read("launches.ntt", run) is None
     assert read("tables_s", run) is None
@@ -188,7 +248,8 @@ def test_measure_times_every_unit_on_the_host_clock(sync_every):
     pool = [torch.zeros(2, 4), torch.ones(2, 4)]
     keep = harness._Keep(2, 7)
     ex = _Sink()
-    win = harness.measure(ex, t, pool, 0.05, torch.device("cpu"), keep,
+    win = harness.measure(ex, t, pool, 0.05,
+                          harness.waiter([torch.device("cpu")]), keep,
                           lambda name: contextlib.nullcontext(), 8)
     assert win.units == len(ex.calls) == len(win.latencies_ms)
     assert len(win.starts_s) == win.units and win.points == 8 * win.units

@@ -20,6 +20,11 @@ falls in one class:
 - ``pass``: launched under any other PyTorch operation inside a step: the
   plain elementwise passes;
 - ``harness``: launched outside every step (the benchmark's own copies).
+
+Each operation also carries its card (the trace's ``args.device``). Over a
+cell of several cards the busy time and the idle gaps are each card's own,
+and the window's busy time and idle share are the cards' mean; on one card
+every operation counts toward the one timeline.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ class DeviceOp:
     start: float        # us
     end: float          # us
     cls: str            # port, copy, pass, harness
+    card: int | None = None     # the trace's args.device
 
 
 class _Intervals:
@@ -77,14 +83,17 @@ def _outermost(events) -> list:
 
 def _short(name: str) -> str:
     name = name[5:] if name.startswith("void ") else name
+    name = name.replace("(anonymous namespace)::", "")
     return name.split("(")[0][:100]
 
 
 class TraceView:
     """The traced window: its device operations by class, its host spans,
-    its busy time and its idle gaps."""
+    its busy time and its idle gaps. ``cards``: the indices of the cell's
+    cards, whose timelines are taken apart; None on one card, where every
+    operation falls on the one timeline."""
 
-    def __init__(self, events: list):
+    def __init__(self, events: list, cards: list | None = None):
         win = [e for e in events if e.get("cat") == "user_annotation"
                and e.get("name") == WINDOW]
         if not win:
@@ -125,10 +134,15 @@ class TraceView:
                 continue
             self.ops.append(DeviceOp(e["name"], float(e["ts"]),
                                      float(e["ts"]) + float(e.get("dur", 0)),
-                                     self._classify(e, t)))
+                                     self._classify(e, t),
+                                     e.get("args", {}).get("device")))
         self.window_s = (self.w1 - self.w0) / 1e6
-        self.busy = self._busy()
-        self.busy_s = sum(e - s for s, e in self.busy) / 1e6
+        self.cards = [None] if cards is None else list(cards)
+        self.busy_by_card = {c: self._busy(c) for c in self.cards}
+        #: each card's busy seconds
+        self.card_busy_s = {c: sum(e - s for s, e in b) / 1e6
+                            for c, b in self.busy_by_card.items()}
+        self.busy_s = sum(self.card_busy_s.values()) / len(self.cards)
 
     def _classify(self, e: dict, t: float) -> str:
         if e.get("cat") == "kernel" and not is_library_kernel(e["name"]):
@@ -139,11 +153,13 @@ class TraceView:
         op = self._ops.at(t)
         return "copy" if op is not None and op[2] in LAYOUT_OPS else "pass"
 
-    def _busy(self) -> list:
-        """The union of the device operations' intervals, cut to the
-        window."""
+    def _busy(self, card) -> list:
+        """The union of the intervals of one card's device operations (of
+        every operation where ``card`` is None), cut to the window."""
         merged = []
-        for op in sorted(self.ops, key=lambda o: o.start):
+        ops = (self.ops if card is None
+               else [o for o in self.ops if o.card == card])
+        for op in sorted(ops, key=lambda o: o.start):
             s, e = max(op.start, self.w0), min(op.end, self.w1)
             if e <= s:
                 continue
@@ -159,18 +175,32 @@ class TraceView:
         """Device milliseconds of the operations of one class."""
         return sum(o.end - o.start for o in self.ops if o.cls == cls) / 1e3
 
+    def named_ms(self, fragment: str) -> float:
+        """Device milliseconds of the operations whose name holds
+        ``fragment``."""
+        return sum(o.end - o.start for o in self.ops
+                   if fragment in o.name) / 1e3
+
     def span_ms(self, prefix: str) -> float:
         """Host milliseconds inside the spans whose name starts so."""
         return sum(e - s for s, e, name in self.spans
                    if name.startswith(prefix)) / 1e3
 
     def idle_share(self) -> float:
+        """The share of the window with no operation on a card, the cards'
+        mean."""
         return 1.0 - self.busy_s / self.window_s
 
-    def gaps(self) -> list:
-        """(start, end) of the window's stretches with no device operation."""
+    def card_idle_shares(self) -> dict:
+        """Each card's idle share of the window, by its index."""
+        return {c: 1.0 - b / self.window_s
+                for c, b in self.card_busy_s.items()}
+
+    def gaps(self, card=None) -> list:
+        """(start, end) of the window's stretches with no device operation
+        on one card (on the one timeline where ``cards`` is None)."""
         out, t = [], self.w0
-        for s, e in self.busy:
+        for s, e in self.busy_by_card[card]:
             if s > t:
                 out.append((t, s))
             t = max(t, e)
@@ -191,7 +221,9 @@ class TraceView:
         for o in self.ops:
             ops[f"{o.cls} {_short(o.name)}"] += (o.end - o.start) / 1e6
         gaps = collections.Counter()
-        for s, e in self.gaps():
-            gaps[self.host_activity((s + e) / 2)] += (e - s) / 1e6
+        for card in self.cards:         # each card's gaps, the cards' mean
+            for s, e in self.gaps(card):
+                gaps[self.host_activity((s + e) / 2)] += (
+                    (e - s) / 1e6 / len(self.cards))
         return {"device_ops": [[k, v] for k, v in ops.most_common(top)],
                 "idle_gaps": [[k, v] for k, v in gaps.most_common(top)]}

@@ -27,7 +27,12 @@ A traffic mix is a JSON file ``gpubench/traffic/<mix>.json``:
   many units and then waiting for the card; each unit's time runs from its
   call until that wait returns;
 - ``check_units``: how many completed units, drawn from the seed, the check
-  compares with the reference after the window.
+  compares with the reference after the window;
+
+In a cell of several cards a vector is a list of per-card tensors, and the
+unit is one step of a sharded operation: one that declares ``SHARDED =
+True`` and the layouts of its input and output (``gpubench/shard.py``). The
+pool's vectors are then made card by card (:func:`make_shard`).
 
 A new mix is a new file, and a new operation one more module beside the
 others; no code changes.
@@ -75,7 +80,8 @@ class Traffic:
     sync_every: int = 1
 
     @classmethod
-    def load(cls, name: str, directory: str = TRAFFIC_DIR) -> "Traffic":
+    def load(cls, name: str, directory: str | None = None) -> "Traffic":
+        directory = TRAFFIC_DIR if directory is None else directory
         with open(os.path.join(directory, f"{name}.json")) as f:
             d = json.load(f)
         t = cls(name=name, inputs=tuple(d["inputs"]),
@@ -135,6 +141,44 @@ def make_vector(p: int, shape: tuple, seed: int, slot: int,
                                  dtype=torch.int64, generator=g,
                                  device=device)
     return x.to(torch.uint32)
+
+
+def shard_seed(seed: int, slot: int, card: int) -> int:
+    """A 63-bit generator seed for one card's block of one pool slot."""
+    h = hashlib.blake2b(f"{seed}:{slot}:{card}".encode(),
+                        digest_size=8).digest()
+    return int.from_bytes(h, "little") >> 1
+
+
+#: columns a chunk of :func:`make_shard` draws at most
+SHARD_CHUNK = 1 << 22
+
+
+def make_shard(p: int, shape: tuple, seed: int, slot: int, card: int,
+               device) -> torch.Tensor:
+    """One card's block of a pool slot, canonical random words uint32[W,
+    ...] made on ``device`` from (seed, slot, card), in its local order. It
+    is drawn in chunks of at most half its columns (and at most
+    :data:`SHARD_CHUNK`), so that the int64 draw of a chunk is never larger
+    than the block."""
+    words = shape[0]
+    out = torch.empty(shape, dtype=torch.uint32, device=device)
+    flat = out.view(words, -1)
+    cols = flat.shape[1]
+    chunk = max(1, min(SHARD_CHUNK, cols // 2))
+    top = p >> (32 * (words - 1))
+    g = torch.Generator(device=device)
+    g.manual_seed(shard_seed(seed, slot, card))
+    for c0 in range(0, cols, chunk):
+        c = min(chunk, cols - c0)
+        x = torch.randint(0, 1 << 32, (words - 1, c), dtype=torch.int64,
+                          generator=g, device=device)
+        flat[:words - 1, c0:c0 + c] = x.to(torch.uint32)
+        del x
+        flat[words - 1, c0:c0 + c] = torch.randint(
+            0, top, (c,), dtype=torch.int64, generator=g,
+            device=device).to(torch.uint32)
+    return out
 
 
 def unit_inputs(traffic: Traffic, i: int, pool: list) -> list:
