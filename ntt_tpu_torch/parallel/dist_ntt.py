@@ -40,8 +40,9 @@ from ..api import _as_tensor, _tw_tables, aux_from_numpy
 from ..config import config_key, warn_plan_only_knobs
 from ..fields import Field, inv_mod
 from ..kernels.exchange import MAX_SHARDS, a2a_transpose, a2a_transpose_plain
-from ..transforms import fourstep, mxu
-from ..transforms.core import host_powers_fast, power_matrix, split_log
+from ..tracing import span
+from ..transforms import core, fourstep, mxu
+from ..transforms.core import host_powers_fast, power_table, split_log
 
 AXIS = "ntt"
 
@@ -240,16 +241,19 @@ def _device_scalar(table: np.ndarray, d: int) -> torch.Tensor:
 def shard_twiddle(field: Field, omega: int, n1: int, n2_loc: int, d: int,
                   device, Ts=None) -> torch.Tensor:
     """Shard d's step-2 twiddle ω^{k1·(d·n2_loc + j)}, uint32[W, n1, n2_loc]
-    on ``device``: the static ω^{k1·j} (``Ts``, the same on every shard,
-    built here when not given) times the shard's column (ω^{d·n2_loc})^{k1},
-    one Montgomery product on the device; row k1 = 1 at j = 0 holds the
-    shard's base ω^{d·n2_loc}. The JAX package applies the two factors as
-    two passes over the data each call."""
+    on ``device``: the static ω^{k1·j} (``Ts``, the same on every shard;
+    when not given, :func:`core.power_table` makes it, on the host up to
+    ``HOST_TW_LIMIT`` entries and generated on ``device`` above) times the
+    shard's column (ω^{d·n2_loc})^{k1}, one Montgomery product on the
+    device; row k1 = 1 at j = 0 holds the shard's base ω^{d·n2_loc}. The
+    JAX package applies the two factors as two passes over the data each
+    call."""
     if Ts is None:
-        Ts = power_matrix(field, omega, n1, n2_loc, "cpu")
+        Ts = power_table(field, omega, n1, n2_loc, device)
     col = torch.from_numpy(host_powers_fast(
         field, pow(omega, d * n2_loc, field.p), n1)).to(device)
-    return limbs.mont_mul(Ts.to(device), col[:, :, None], field)
+    return limbs.mont_mul(torch.as_tensor(Ts).to(device), col[:, :, None],
+                          field)
 
 
 def coset_tables(field: Field, n: int, D: int, shift: int,
@@ -315,8 +319,10 @@ def make_dist_ntt(field: Field, n: int, mesh: Mesh, inverse: bool = False,
     Every table is built here, once, and kept on each shard's device: the
     local transforms' tables and matrices, one step-2 twiddle table a shard
     (the static ω^{k1·j} times the shard's ω^{k1·d·n2_loc}, multiplied on
-    the device), the coset table a shard likewise (with n^{-1} in it for
-    the inverse). A plan-only knob of the JAX package warns, as in
+    the device; the static table built once on the host up to
+    ``core.HOST_TW_LIMIT`` entries, above it generated on each shard's
+    device), the coset table a shard likewise (with n^{-1} in it for the
+    inverse). A plan-only knob of the JAX package warns, as in
     ``api.get_runner``."""
     warn_plan_only_knobs()
     n1, n2 = split_log(n)
@@ -334,7 +340,8 @@ def make_dist_ntt(field: Field, n: int, mesh: Mesh, inverse: bool = False,
     p = field.p
     n1_loc, n2_loc = n1 // D, n2 // D
     omega = field.inv_root_of_unity(n) if inverse else field.root_of_unity(n)
-    Ts = power_matrix(field, omega, n1, n2_loc, "cpu")
+    Ts = (power_table(field, omega, n1, n2_loc)
+          if n1 * n2_loc <= core.HOST_TW_LIMIT else None)
     n_inv = field.to_mont_int(inv_mod(n, p)) if inverse else None
     coset = (None if coset_shift is None
              else coset_tables(field, n, D, coset_shift, inverse))
@@ -385,27 +392,37 @@ def make_dist_ntt(field: Field, n: int, mesh: Mesh, inverse: bool = False,
             xs[d] = None
             with _on(x.device):
                 if not mont_io:
-                    x = limbs.to_mont(x, field)
+                    with span("ntt.pass.to_mont"):
+                        x = limbs.to_mont(x, field)
                 if coset is not None and not inverse:
-                    x = limbs.mont_mul(x, tab["coset"], field)
-                B = fn(x, field, inverse, tab["a1"])
-                C.append(limbs.mont_mul(B, tab["tw"], field))
-        Ca = transpose(C)
+                    with span("ntt.pass.coset"):
+                        x = limbs.mont_mul(x, tab["coset"], field)
+                with span("ntt.dist.local"):
+                    B = fn(x, field, inverse, tab["a1"])
+                with span("ntt.dist.twiddle"):
+                    C.append(limbs.mont_mul(B, tab["tw"], field))
+        with span("ntt.dist.exchange"):
+            Ca = transpose(C)
         del C, x, B
         out = []
         for d, tab in enumerate(row_tables):
             Cd = Ca[d]
             Ca[d] = None
             with _on(Cd.device):
-                Ct = Cd.transpose(1, 2).contiguous()         # [W, n2, n1_loc]
-                y = fn(Ct, field, inverse, tab["a4"])
+                with span("ntt.copy"):
+                    Ct = Cd.transpose(1, 2).contiguous()     # [W, n2, n1_loc]
+                with span("ntt.dist.local"):
+                    y = fn(Ct, field, inverse, tab["a4"])
                 if coset is not None and inverse:
-                    y = limbs.mont_mul(y, tab["coset"], field)
+                    with span("ntt.pass.coset"):
+                        y = limbs.mont_mul(y, tab["coset"], field)
                 elif n_inv is not None:
-                    y = limbs.mont_mul(y, limbs.const_planes(
-                        n_inv, field, 2, device=y.device), field)
+                    with span("ntt.pass.scale"):
+                        y = limbs.mont_mul(y, limbs.const_planes(
+                            n_inv, field, 2, device=y.device), field)
                 if not mont_io:
-                    y = limbs.from_mont(y, field)
+                    with span("ntt.pass.from_mont"):
+                        y = limbs.from_mont(y, field)
                 out.append(y)
         return out
 
@@ -432,24 +449,27 @@ def _get(field: Field, n: int, mesh: Mesh, inverse: bool, mont_io: bool,
     key = (field.name, n, mesh, inverse, mont_io, algorithm, exchange,
            coset_shift, config_key())
     if key not in _dist_cache:
-        _dist_cache[key] = make_dist_ntt(field, n, mesh, inverse, mont_io,
-                                         algorithm, coset_shift=coset_shift,
-                                         exchange=exchange)
+        with span("ntt.runner.build"):
+            _dist_cache[key] = make_dist_ntt(
+                field, n, mesh, inverse, mont_io, algorithm,
+                coset_shift=coset_shift, exchange=exchange)
     return _dist_cache[key]
 
 
 def dist_ntt(x_sharded, field: Field, mesh: Mesh, n: int,
              mont_io: bool = True, algorithm: str = "jnp",
              exchange: str = "all_to_all") -> list:
-    return _get(field, n, mesh, False, mont_io, algorithm,
-                exchange)(x_sharded)
+    with span("ntt.api"):
+        return _get(field, n, mesh, False, mont_io, algorithm,
+                    exchange)(x_sharded)
 
 
 def dist_intt(x_sharded, field: Field, mesh: Mesh, n: int,
               mont_io: bool = True, algorithm: str = "jnp",
               exchange: str = "all_to_all") -> list:
-    return _get(field, n, mesh, True, mont_io, algorithm,
-                exchange)(x_sharded)
+    with span("ntt.api"):
+        return _get(field, n, mesh, True, mont_io, algorithm,
+                    exchange)(x_sharded)
 
 
 def dist_lde(x_sharded, field: Field, mesh: Mesh, n: int, blowup: int = 4,
@@ -461,15 +481,16 @@ def dist_lde(x_sharded, field: Field, mesh: Mesh, n: int, blowup: int = 4,
     Input: the :func:`shard_for_ntt` list of size n, Montgomery form.
     Output: the coset evaluations in the distributed output layout for
     N = blowup·n, one uint32[W, N2, N1/D] a shard, value X[k2·N1 + k1]."""
-    shift = field.generator if shift is None else shift
-    N = blowup * n
-    W = field.n_words
-    coeffs = _get(field, n, mesh, True, True, algorithm)(x_sharded)
-    # coeffs: [W, n2, n1_loc] a shard, natural order once gathered
-    dev = coeffs[0].device
-    flat = torch.cat([c.to(dev) for c in coeffs], dim=2).reshape(W, n)
-    expanded = shard_for_ntt(torch.cat([flat, flat.new_zeros((W, N - n))],
-                                       dim=1), field, mesh)
-    del coeffs, flat
-    return _get(field, N, mesh, False, True, algorithm,
-                coset_shift=shift)(expanded)
+    with span("ntt.api"):
+        shift = field.generator if shift is None else shift
+        N = blowup * n
+        W = field.n_words
+        coeffs = _get(field, n, mesh, True, True, algorithm)(x_sharded)
+        # coeffs: [W, n2, n1_loc] a shard, natural order once gathered
+        dev = coeffs[0].device
+        flat = torch.cat([c.to(dev) for c in coeffs], dim=2).reshape(W, n)
+        expanded = shard_for_ntt(torch.cat(
+            [flat, flat.new_zeros((W, N - n))], dim=1), field, mesh)
+        del coeffs, flat
+        return _get(field, N, mesh, False, True, algorithm,
+                    coset_shift=shift)(expanded)

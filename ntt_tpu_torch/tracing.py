@@ -10,8 +10,13 @@ spans and writes them out when its owner exports the trace; nothing here
 records or writes anything of its own.
 
 Every name starts with ``ntt.``: ``ntt.api``, ``ntt.runner.build``,
-``ntt.level``, ``ntt.base``, ``ntt.copy``, ``ntt.pass.<pass>`` and
-``ntt.launch.<wrapper>``.
+``ntt.level``, ``ntt.base``, ``ntt.copy``, ``ntt.pass.<pass>``,
+``ntt.dist.local``, ``ntt.dist.twiddle``, ``ntt.dist.exchange`` and
+``ntt.launch.<wrapper>``. The distributed entries (``dist_ntt``,
+``dist_intt``, ``dist_lde``) open ``ntt.api`` too, and ``ntt.runner.build``
+on a miss of their runner cache; inside, each shard's local transforms
+(steps 1 and 4), its step-2 product and the exchange (step 3) are the
+``ntt.dist.*`` spans, the local transpose an ``ntt.copy``.
 """
 
 from __future__ import annotations

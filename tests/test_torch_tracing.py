@@ -2,8 +2,10 @@
 records under the PyTorch profiler and how they nest, the runner build on a
 cache miss only, nothing recorded and ``record_function`` never called with
 no profiler, the same words either way, and names apart from the
-benchmark's own."""
+benchmark's own; the same for the distributed entries (``dist_ntt``,
+``dist_intt``, ``dist_lde``) and their steps."""
 
+import importlib
 import inspect
 import pathlib
 import re
@@ -15,6 +17,11 @@ from torch.profiler import ProfilerActivity, profile
 from ntt_tpu_torch import api, tracing
 from ntt_tpu_torch.fields import get_field
 from ntt_tpu_torch.kernels import exchange, mxu_level, mxu_ntt, vmem_ntt
+from ntt_tpu_torch.parallel import (dist_intt, dist_lde, dist_ntt, make_mesh,
+                                    shard_for_ntt)
+
+# the module (the package's name dist_ntt is the function)
+tdist = importlib.import_module("ntt_tpu_torch.parallel.dist_ntt")
 
 torch.set_num_threads(1)
 
@@ -115,6 +122,7 @@ def test_no_profiler_no_record_function(monkeypatch):
     x = _words(GOLD, 1 << 10)
     api.intt(x, GOLD, device="cpu")
     api.coset_intt(x, GOLD, device="cpu")
+    _dist_call("dist_ntt", x, make_mesh(["cpu"] * 4))
     assert calls == []
     assert tracing.span("ntt.api") is tracing.span("ntt.level")
     with profile(activities=[ProfilerActivity.CPU]):
@@ -137,7 +145,8 @@ def test_span_names_stay_apart_from_the_benchmarks():
     names = _source_names()
     assert {"ntt.api", "ntt.runner.build", "ntt.level", "ntt.base",
             "ntt.copy", "ntt.pass.to_mont", "ntt.pass.coset",
-            "ntt.pass.scale", "ntt.pass.from_mont"} <= names
+            "ntt.pass.scale", "ntt.pass.from_mont", "ntt.dist.local",
+            "ntt.dist.twiddle", "ntt.dist.exchange"} <= names
     for name in names:
         assert name.startswith("ntt."), name
         assert not name.startswith(BENCH_PREFIX) and name not in BENCH_NAMES
@@ -159,3 +168,52 @@ def test_every_launching_wrapper_records_its_launch(module):
         head = src.split(f'span("ntt.launch.{name}")')[0]
         assert "_build.launches[" not in head, name
     assert found >= 1
+
+
+#: each distributed entry on four CPU shards at 2^10, the local transform
+#: and the exchange of the benchmark's four-card cell, and its transforms
+DIST = {"dist_ntt": (dist_ntt, 1), "dist_intt": (dist_intt, 1),
+        "dist_lde": (dist_lde, 2)}
+
+
+def _dist_call(op, x, mesh):
+    fn, _ = DIST[op]
+    kw = {"algorithm": "mxu_sub"}
+    if op != "dist_lde":
+        kw["exchange"] = "pallas"
+    return torch.cat(fn(shard_for_ntt(x, GOLD, mesh), GOLD, mesh,
+                        x.shape[1], **kw), dim=2)
+
+
+@pytest.mark.parametrize("op", sorted(DIST))
+def test_a_dist_transform_records_its_steps(monkeypatch, op):
+    """``ntt.api`` outermost, once; the runner build on a miss of the
+    distributed runner cache only; each transform's one exchange; the
+    local transforms (two a shard), the step-2 products (one a shard) and
+    the local transposes inside the API span; the same words as the call
+    without the profiler."""
+    monkeypatch.setattr(tdist, "_dist_cache", {})
+    D, transforms = 4, DIST[op][1]
+    mesh = make_mesh(["cpu"] * D)
+    x = _words(GOLD, 1 << 10)
+    first, built = _traced(_dist_call, op, x, mesh)
+    plain = _dist_call(op, x, mesh)
+    traced, spans = _traced(_dist_call, op, x, mesh)
+    assert torch.equal(first, plain) and torch.equal(plain, traced)
+    for got in (built, spans):
+        names = [name for name, _, _ in got]
+        assert names[0] == "ntt.api" and names.count("ntt.api") == 1
+        assert names.count("ntt.dist.exchange") == transforms
+        assert names.count("ntt.dist.local") == 2 * D * transforms
+        assert names.count("ntt.dist.twiddle") == D * transforms
+        assert names.count("ntt.copy") >= D * transforms
+        for inner in ("ntt.dist.local", "ntt.dist.twiddle",
+                      "ntt.dist.exchange", "ntt.copy", "ntt.level",
+                      "ntt.runner.build"):
+            assert _inside(got, inner, "ntt.api"), inner
+        assert _inside(got, "ntt.level", "ntt.dist.local")
+    assert [n for n, _, _ in built].count("ntt.runner.build") == transforms
+    assert "ntt.runner.build" not in [n for n, _, _ in spans]
+    names = [name for name, _, _ in spans]
+    assert ("ntt.pass.scale" in names) == (op != "dist_ntt")
+    assert ("ntt.pass.coset" in names) == (op == "dist_lde")
