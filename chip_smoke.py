@@ -8,7 +8,12 @@ result line. ``--passes`` runs only the elementwise pass kernels: at small
 shapes on the four fields, then at the benchmark cells' shapes, timed (the
 ``pass`` lines and a ``{"passes": ...}`` JSON line). ``--cross-cards`` runs only the multi-device forward across
 distinct cards (on a machine with two or more) and what it is compared
-with, and prints no result line.
+with, and prints no result line. ``--persist`` runs only the persistent
+form of the 256-bit m = 32 level (``csrc/mxu_persist.cu``): at small shapes
+on BLS12-381 Fr and BN254 Fr (in ``--quick`` and the full run too), then at
+the cells' shapes (``check_persist``), word-equal to the present form and
+the plain version and timed in both forms (the ``persist`` lines and a
+``{"persist": ...}`` JSON line).
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``ntt_tpu_torch/csrc`` (one nvcc per source, in
@@ -241,7 +246,7 @@ def check_sass() -> None:
     from ntt_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for lib in ("mxu_level", "mxu_sub"):
+    for lib in ("mxu_level", "mxu_sub", "mxu_persist"):
         out = subprocess.run([tool, "-sass", _build._target(lib)],
                              check=True, capture_output=True, text=True,
                              timeout=300).stdout
@@ -250,10 +255,12 @@ def check_sass() -> None:
                 len(re.findall(r"\b(?:IGMMA|HGMMA|IMMA)\b", part)),
                 len(re.findall(r"\bIDP\.?4A", part)))
     for kernel in (k.rstrip("<") for k in (*TENSOR_CORE.values(),
-                                           SHORT_FORM)):
+                                           SHORT_FORM,
+                                           *PERSIST_NAMES.values())):
         got = [c for name, c in counts.items() if kernel + "I" in name]
         imma, dp4a = sum(c[0] for c in got), sum(c[1] for c in got)
-        want = (2 if kernel == "fused_subntt_wide_kernel" else
+        want = (1 if kernel + "<" in PERSIST_NAMES.values() else
+                2 if kernel == "fused_subntt_wide_kernel" else
                 3 if kernel in ("fused_subntt_multi_kernel",
                                 SHORT_FORM.rstrip("<")) else 6)
         print(f"sass {kernel}: {len(got)} instantiations, {imma} tensor-core "
@@ -944,6 +951,178 @@ def check_narrow_short_bases(dev, results) -> None:
               f"{call['bound_ms']:.4f} ms ({call['bound_by']})", flush=True)
         del x, lib
         torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def level_form(which: str):
+    """While the block runs, the W = 8, m = 32 launches take the form
+    ``which``: "present" (the one-level block, ``tc_level``) or "persist"
+    (``csrc/mxu_persist.cu`` at every tile count, the plan's ``waves``
+    threshold set to 0)."""
+    import functools
+
+    from ntt_tpu_torch.kernels import mxu_level
+    own = mxu_level.persist_plan
+    mxu_level.persist_plan = (functools.partial(own, waves=0)
+                              if which == "persist" else
+                              lambda *a, **k: None)
+    try:
+        yield
+    finally:
+        mxu_level.persist_plan = own
+
+
+#: the kernel names of the two forms of each W = 8, m = 32 launch
+PERSIST_NAMES = {"fused_level_stack": "fused_level_stack_persist_kernel<",
+                 "fused_subntt": "fused_subntt_persist_kernel<",
+                 "fused_level": "fused_level_persist_kernel<",
+                 "base_ntt_mxu": "base_ntt_mxu_persist_kernel<"}
+PRESENT_NAMES = {"fused_level_stack": "fused_level_stack_kernel<",
+                 "fused_subntt": "fused_subntt_kernel<",
+                 "fused_level": "fused_level_kernel<",
+                 "base_ntt_mxu": "base_ntt_mxu_kernel<"}
+
+
+def persist_cases(f, dev, big: bool) -> list:
+    """(label, wrapper name, x, the wrapper's and the plain version's
+    keyword arguments) of the W = 8, m = 32 launches: with ``big`` the
+    2^22 levels and the 2^30 local K3 (``tc_knockout.BIG_SHAPES``), two
+    levels of 2^20 (K2 level 0, K3 level 1: two waves of tiles) and the
+    m = 32 levels of 2^18 (K2 levels 0 and 2, K3 level 1), which keep the
+    present form (here forced; they and 2^20 set
+    ``mxu_level.PERSIST_WAVES``), and K4 (T3, the direct store) and K1 at
+    [8,32,2^17]; else small shapes (ragged B, a
+    stack entry of one and of two tiles, the periodic residual, K3 at rep
+    1 and 4)."""
+    import tc_knockout
+    from ntt_tpu_torch import digits
+    D, E = digits.n_digits(f), digits.out_planes(f)
+    mats = sub_mats_on(f, {32}, False, dev)
+    A, F, F2 = mats[32], mats[-32], mats[-1]
+    sub = {32: A, -32: F, -1: F2}
+    xs = {}
+
+    def x_of(B):
+        if B not in xs:
+            xs[B] = random_on_card(f, (32, B), dev, seed=SEED + B)
+        return xs[B]
+
+    def stack(NT, seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + seed)
+        return torch.randint(0, 128, (NT, E * 32, D * 32), generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    def K2(label, B, NT, T3=None):
+        return (label, "fused_level_stack", x_of(B),
+                {"As": stack(NT, NT), "rep": B // NT, "F": F, "T3": T3})
+
+    def K3(label, B, shape, rep):
+        T = random_on_card(f, shape, dev, seed=SEED + rep)
+        return (label, "fused_subntt", x_of(B),
+                {"inverse": False, "mats": sub, "T3": T, "rep": rep})
+
+    if not big:
+        return [K2("K2 [8,32,256] stack 2 rep 128", 256, 2),
+                K2("K2 [8,32,512] stack 2 rep 256 periodic T3 s0 128", 512, 2,
+                   random_on_card(f, (32, 128), dev, seed=SEED + 3)),
+                K2("K2 [8,32,384] stack 3 rep 128 T3", 384, 3,
+                   random_on_card(f, (32, 384), dev, seed=SEED + 4)),
+                K3("K3 [8,32,300] rep 1", 300, (32, 300), 1),
+                K3("K3 [8,32,1000] rep 4", 1000, (250, 32), 4),
+                ("K4 [8,32,130] T3", "fused_level", x_of(130),
+                 {"A": A, "T3": random_on_card(f, (32, 130), dev),
+                  "transpose_out": False, "F": F, "F2": F2}),
+                ("K1 [8,32,129]", "base_ntt_mxu", x_of(129),
+                 {"A": A, "F": F})]
+    cases = []
+    for label, kind, B, arg in tc_knockout.BIG_SHAPES:
+        cases.append(K2(label, B, arg) if kind == "stack" else
+                     K3(label, B, *arg))
+    cases += [K2("K2 2^20 level 0 [8,32,2^15] stack 32 rep 1024", 1 << 15,
+                 32),
+              K3("K3 2^20 level 1 [8,32,2^15] merged table rep 1", 1 << 15,
+                 (32, 1 << 15), 1),
+              K2("K2 2^18 level 0 [8,32,8192] stack 32 rep 256", 8192, 32),
+              K3("K3 2^18 level 1 [8,32,8192] merged table rep 1", 8192,
+                 (32, 8192), 1),
+              K2("K2 2^18 level 2 [8,32,8192] stack 8 rep 1024", 8192, 8),
+              ("K4 [8,32,2^17] T3, direct store", "fused_level",
+               x_of(1 << 17), {"A": A, "T3": random_on_card(
+                   f, (32, 1 << 17), dev), "transpose_out": False,
+                   "F": F, "F2": F2}),
+              ("K1 [8,32,2^17]", "base_ntt_mxu", x_of(1 << 17),
+               {"A": A, "F": F})]
+    return cases
+
+
+def check_persist(f, dev, big: bool) -> list:
+    """Each of :func:`persist_cases` in the persistent form, its launch
+    counted under ``<wrapper>_persist``, word-equal to the present form
+    and to the plain version (whole at small shapes; on three spans of
+    2048 columns with ``big``); with ``big`` both forms timed (median of
+    events, and device time by the profiler) beside the launch's bound.
+    Returns the rows of the ``persist`` lines."""
+    from ntt_tpu_torch.kernels import _build
+    kernels = path_kernels()
+    rows = []
+    for label, name, x, args in persist_cases(f, dev, big):
+        kern, plain = kernels[name]
+        call = (lambda kern=kern, x=x, kw=args: kern(x, f, **kw))
+        y = {}
+        for which in ("persist", "present"):
+            with level_form(which):
+                _build.launches.clear()
+                y[which] = call()
+                torch.cuda.synchronize()
+                got = dict(_build.launches)
+            want = {f"{name}_persist" if which == "persist" else name: 1}
+            if got != want:
+                raise AssertionError(f"{label}: {which} form launched {got}")
+        if not torch.equal(y["persist"], y["present"]):
+            raise AssertionError(f"{label}: persistent form != present form")
+        B = x.shape[2]
+        L = min(B, 2048) if big else B
+        for a in sorted({0, B // 2 // L * L, B - L}):
+            want = plain(x[:, :, a:a + L].contiguous(), f,
+                         **span_args(name, args, a, L))
+            if not torch.equal(y["persist"][:, :, a:a + L], want):
+                raise AssertionError(f"{label}: persistent form != plain, "
+                                     f"columns {a}..{a + L - 1}")
+        del y
+        line = f"persist {label}: word-equal to the present form and plain"
+        if not big:
+            rows.append({"what": label})
+            continue
+        row = {"what": label}
+        for which in ("present", "persist"):
+            key = (PERSIST_NAMES if which == "persist" else
+                   PRESENT_NAMES)[name]
+            with level_form(which):
+                row[which] = (time_ms(call, iters=5, warmup=1),
+                              kernel_device_ms(call, key, iters=5))
+        T3 = args.get("T3")
+        nbytes = 2 * x.numel() * 4 + (0 if T3 is None else T3.numel() * 4)
+        mads = 0 if T3 is None else mont_mul_mads(f) * x.shape[1] * B
+        A0 = args["As"][0] if "As" in args else (
+            args["A"] if "A" in args else args["mats"][32])
+        nbytes += args["As"].numel() if "As" in args else A0.numel()
+        row["bound"] = bound(nbytes, conv_macs(f, A0, B), mads)
+        rows.append(row)
+
+        def show(v):
+            return "-" if v is None else f"{v:.4f}"
+        print(f"{line}; present {show(row['present'][0])} ms "
+              f"(device {show(row['present'][1])}), persistent "
+              f"{show(row['persist'][0])} ms (device "
+              f"{show(row['persist'][1])}), bound {row['bound'][0]:.4f} ms "
+              f"({row['bound'][1]})", flush=True)
+        torch.cuda.empty_cache()
+    if not big:
+        print(f"small shapes {f.name}: {len(rows)} persistent-form calls "
+              "word-equal to the present form and the plain versions",
+              flush=True)
+    return rows
 
 
 def random_stack(f, NT, m, rng, dev):
@@ -1850,10 +2029,21 @@ def check_path_launches(seen, dev, cols: int = 1 << 21,
         torch.cuda.empty_cache()
 
 
-def expect_counts(what, counts, want) -> None:
+def expect_counts(what, counts, want, persist=None) -> None:
+    """The launch counts of a path against ``want``, by wrapper: a
+    launch in the persistent form (``<wrapper>_persist``) counts as its
+    wrapper's; where ``persist`` is given, that many launches took it."""
     print(f"launches {what}: {counts}", flush=True)
-    if counts != want:
+    by_wrapper = {}
+    for k, v in counts.items():
+        k = k.removesuffix("_persist")
+        by_wrapper[k] = by_wrapper.get(k, 0) + v
+    if by_wrapper != want:
         raise AssertionError(f"{what}: launch counts {counts} != {want}")
+    took = sum(v for k, v in counts.items() if k.endswith("_persist"))
+    if persist is not None and took != persist:
+        raise AssertionError(f"{what}: {took} launches in the persistent "
+                             f"form, not {persist}")
 
 
 def wide_paths(rng, dev, run, aux, path_ms) -> dict:
@@ -1921,8 +2111,9 @@ def wide_paths(rng, dev, run, aux, path_ms) -> dict:
 
 #: launches of one BLS12-381 Fr forward transform above 2^20: level 0 a
 #: 32-entry stack, level 1 the merged table, the deeper levels a stack or,
-#: at 2^24 level 2, a deep table at rep 1024; the last base m = 4 (2^22) or
-#: m = 16 (2^24) over 2^20 columns
+#: at 2^24 level 2, a deep table at rep 1024 (the four m = 32 levels in the
+#: persistent form); the last base m = 4 (2^22) or m = 16 (2^24) over 2^20
+#: columns
 WIDE_LARGE_COUNTS = {
     22: {"fused_level_stack": 3, "fused_subntt": 1, "base_ntt_mxu": 1},
     24: {"fused_level_stack": 2, "fused_subntt": 2, "base_ntt_mxu": 1},
@@ -1960,7 +2151,7 @@ def wide_large_paths(rng, dev, path_ms) -> None:
             r, a = get_runner(f, 1 << log_n, device=dev)
             y, c = counted(lambda: r(xm, a))
             expect_counts(f"{f.name} 2^{log_n} forward", c,
-                          WIDE_LARGE_COUNTS[log_n])
+                          WIDE_LARGE_COUNTS[log_n], persist=4)
             same_words(tag, limbs.from_mont(y, f), want[log_n].result())
             ms = path_ms[tag] = time_ms(lambda: r(xm, a), iters=5, warmup=1)
             print(f"path {tag}  golden-equal  {ms:.4f} ms/transform (tables "
@@ -3499,7 +3690,8 @@ def tools_phase(card) -> None:
         print("\n".join(f"  {ln}" for ln in buf.getvalue().splitlines()),
               flush=True)
     counts = dict(_build.launches)
-    missing = [k for k in KERNELS if counts.get(k, 0) < 1]
+    missing = [k for k in KERNELS
+               if counts.get(k, 0) + counts.get(f"{k}_persist", 0) < 1]
     print(f"tools launches: {json.dumps(counts)}; phase "
           f"{time.time() - t_phase:.1f} s", flush=True)
     if missing:
@@ -4090,6 +4282,7 @@ def main() -> int:
         return 1
     quick = "--quick" in sys.argv[1:]
     passes_only = "--passes" in sys.argv[1:]
+    persist_only = "--persist" in sys.argv[1:]
     cross_only = "--cross-cards" in sys.argv[1:]
     t_start = time.time()
     from ntt_tpu_torch import (BLS12_381_FR, BN254_FR, GOLDILOCKS, SMALL,
@@ -4108,13 +4301,21 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s ({', '.join(_build.LIBRARIES)})")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "warning" in line:
+            if ("registers" in line or "spill" in line or "warning" in line
+                    or "wgmma" in line):
                 print(f"  ptxas {name}: {line.strip()}")
     check_sass()
 
     rng = np.random.default_rng(SEED)
     if cross_only:
         return cross_cards_only(rng, dev, card)
+    for f in (BLS12_381_FR, BN254_FR):
+        check_persist(f, dev, big=False)
+    if persist_only:
+        rows = check_persist(BLS12_381_FR, dev, big=True)
+        print(f"card: {card}")
+        print(json.dumps({"persist": rows}))
+        return 0
     small = [(name, 10) for name in ("bls12-381-fr", "bn254-fr",
                                      "goldilocks", "small-proth")]
     check_passes(dev, small, timed=False)
@@ -4181,6 +4382,7 @@ def main() -> int:
           f"{time.time() - t0:.1f} s", flush=True)
     results = {}
     check_kernels(BLS12_381_FR, aux, rng, dev, results)
+    check_persist(BLS12_381_FR, dev, big=True)
     check_periodic_t3(rng, dev, results)
     check_base_m2(rng, dev, results)
     check_table_generators(dev)

@@ -35,8 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: library -> its source; every library also includes the shared header
 LIBRARIES = {"mxu_level": "mxu_level.cu", "mxu_sub": "mxu_sub.cu",
-             "vmem_ntt": "vmem_ntt.cu", "exchange": "exchange.cu",
-             "passes": "passes.cu"}
+             "mxu_persist": "mxu_persist.cu", "vmem_ntt": "vmem_ntt.cu",
+             "exchange": "exchange.cu", "passes": "passes.cu"}
 _HEADERS = ("mxu_core.cuh",)
 
 launches: collections.Counter = collections.Counter()

@@ -37,8 +37,10 @@ block); the launch plans (:func:`tc_plan` for the one-level kernels,
 :func:`base_plan` for K1, which takes its short form where
 :func:`short_form`, :func:`sub_plan` for the multi-level K3, whose block
 runs both levels on its own row chunk and columns, and
-:func:`sub_wide_plan` for its wide form) are computed here and checked by
-the C launchers.
+:func:`sub_wide_plan` for its wide form, :func:`persist_plan` for the
+persistent block that takes the W = 8, m = 32 launches of K1-K4 above one
+wave of column tiles, ``csrc/mxu_persist.cu``) are computed here and
+checked by the C launchers.
 """
 
 from __future__ import annotations
@@ -90,6 +92,17 @@ def _lib() -> ctypes.CDLL:
         vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ll,
         *_build.FIELD_ARGTYPES, *plan, vp]
     lib.mxu_fused_level_probe.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_persist() -> ctypes.CDLL:
+    lib = _build.load("mxu_persist")
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.mxu_persist_level.argtypes = [
+        i, vp, vp, ll, vp, ll, ll, vp, i, ll, *_build.FIELD_ARGTYPES,
+        i, i, i, ll, i, vp]
+    lib.mxu_persist_level.restype = ctypes.c_int
     return lib
 
 
@@ -242,6 +255,89 @@ def base_plan_args(field: Field, m: int, B: int, sms: int = TC_SMS) -> tuple:
     """The plan of :func:`base_plan` as ``mxu_base_ntt`` takes it."""
     plan = base_plan(field, m, B, sms)
     return (plan.kt, plan.k_pad, plan.m_pad, plan.blocks, plan.smem_bytes)
+
+
+#: the persistent form of the 256-bit level (``csrc/mxu_persist.cu``): W = 8
+#: at m = 32 alone (K1, K2, K3 single-level and K4); chunks of PERSIST_KT
+#: output rows (E * 4 = 148 GEMM rows, one wgmma N half), their conv-matrix
+#: rows through a ring of PERSIST_RING_BYTES in TMA boxes of
+#: PERSIST_SWIZZLE bytes of depth (the ring rows' swizzle), one block an SM
+#: walking the column tiles; taken where the tiles number more than
+#: PERSIST_WAVES times the card's SMs, the digit tile staged once a tile
+#: and each chunk's epilogue run from registers under the other
+#: warpgroup's wgmma steps
+PERSIST_WORDS = 8
+PERSIST_M = 32
+PERSIST_KT = 4
+PERSIST_SWIZZLE = 128
+PERSIST_RING_BYTES = 16 * 4864
+PERSIST_WAVES = 1
+#: the C entry's kind of each wrapper's kernel
+PERSIST_KINDS = {"base_ntt_mxu": 0, "fused_level_stack": 1,
+                 "fused_subntt": 2, "fused_level": 3}
+
+
+class PersistPlan(NamedTuple):
+    """Launch plan of the persistent form on uint32[8, 32, B]: kt output
+    rows a chunk, the contraction depth (unpadded, 37 steps of TC_BK), the
+    ring's stages (boxes of PERSIST_SWIZZLE bytes of depth), ``col_tiles``
+    column tiles of TC_COLS walked grid-stride by ``blocks`` blocks (one an
+    SM, none without a tile), and the block's dynamic shared bytes (the
+    digit tile, the ring, the rows the last stage's wgmma reads past it,
+    the slack that aligns the base to a swizzle atom of 8 rows)."""
+    kt: int
+    k_pad: int
+    stages: int
+    col_tiles: int
+    blocks: int
+    smem_bytes: int
+
+
+def persist_plan(field: Field, m: int, B: int, rep: int | None = None,
+                 transpose_out: bool = False, sms: int = TC_SMS,
+                 waves: int = PERSIST_WAVES):
+    """The plan of the persistent form for a launch on uint32[W, m, B] of
+    ``field`` on a card of ``sms`` SMs, or None where the present form
+    (:func:`tc_plan`, :func:`base_plan`) takes it: any W but 8, any m but
+    32, the transposed store, a stack entry (``rep`` columns) that is not
+    whole column tiles, or at most ``waves`` * ``sms`` tiles: a block an
+    SM on one tile is slower than the present form's four (at BLS12-381
+    Fr 2^18 a level is 64 tiles of TC_COLS columns, 256 blocks of the
+    present form; at 2^20 256 tiles take the persistent form, 0.214 ms
+    against 0.276 for K2's level 0 on an H100). ``waves`` 0 takes every
+    launch of the right shape (the card's checks)."""
+    tiles = -(-B // TC_COLS)
+    if (field.n_words != PERSIST_WORDS or m != PERSIST_M or transpose_out
+            or B < 1 or (rep is not None and rep % TC_COLS)
+            or tiles <= waves * sms):
+        return None
+    D, E = digits.n_digits(field), digits.out_planes(field)
+    k_pad, rows, swz = D * m, -(-E * PERSIST_KT // 8) * 8, PERSIST_SWIZZLE
+    stages = PERSIST_RING_BYTES // (rows * swz)
+    smem = (max(TC_ALIGN, 8 * swz) + TC_COLS * k_pad + stages * rows * swz
+            + (TC_ROWS_PAD // 2 - rows) * swz)
+    if k_pad % TC_BK or smem > TC_MAX_SMEM:
+        raise ValueError(f"W = 8, m = {m}: the persistent block exceeds "
+                         f"the SM ({smem} bytes)")
+    return PersistPlan(PERSIST_KT, k_pad, stages, tiles, min(sms, tiles),
+                       smem)
+
+
+def launch_persist(name: str, plan: PersistPlan, x3, field: Field, A,
+                   out, rep: int = 0, T3=None, t_rep: int = 1,
+                   t_period: int = 0):
+    """The persistent form of wrapper ``name`` (a key of PERSIST_KINDS)
+    under ``plan``, into ``out``: ``A`` the conv matrix or, for the
+    stack, its first entry (``rep`` columns an entry); T3 at t_rep (1:
+    [W, m, t_period], t_period B unless periodic; > 1: [W, B / t_rep,
+    m]). The wrapper counts the launch, under ``<name>_persist``."""
+    _, m, B = x3.shape
+    rc = _lib_persist().mxu_persist_level(
+        PERSIST_KINDS[name], _build.ptr(x3), _build.ptr(A), rep,
+        _build.ptr(T3), t_rep, t_period or B, _build.ptr(out), m, B,
+        *_build.field_args(field), plan.kt, plan.k_pad, plan.stages,
+        plan.blocks, plan.smem_bytes, _build.stream(x3))
+    _build.check(rc, f"{name} (persistent form)")
 
 
 #: rows k1 a block of the multi-level K3 owns (level A's row chunk), by
@@ -512,6 +608,13 @@ def fused_level_stack(x3, field: Field, As, rep: int, F=None, T3=None,
             _build.check_operand(T3, "T3", torch.uint32, (W, m, period),
                                  x3.device)
         out = _output(x3, transpose_out)
+        plan = persist_plan(field, m, B, rep, transpose_out,
+                            _build.sm_count(x3.device))
+        if plan is not None:
+            launch_persist("fused_level_stack", plan, x3, field, As, out,
+                           rep, T3, 1, period)
+            _build.launches["fused_level_stack_persist"] += 1
+            return out
         rc = _lib().mxu_fused_level_stack(
             _build.ptr(x3), _build.ptr(As), rep, _build.ptr(T3), period,
             _build.ptr(out), int(transpose_out), m, B,
@@ -628,6 +731,13 @@ def fused_subntt(x3, field: Field, inverse: bool, mats, T3=None,
         if single_level(m, mats):
             A = mats[m]
             _build.check_operand(A, "A", torch.int8, (E * m, D * m), x3.device)
+            plan = persist_plan(field, m, B, None, transpose_out,
+                                _build.sm_count(x3.device))
+            if plan is not None:
+                launch_persist("fused_subntt", plan, x3, field, A, out, 0,
+                               T3, rep)
+                _build.launches["fused_subntt_persist"] += 1
+                return out
             rc = _lib().mxu_fused_subntt(
                 _build.ptr(x3), _build.ptr(A), _build.ptr(T3), rep,
                 _build.ptr(out), int(transpose_out), m, B,
@@ -700,6 +810,12 @@ def fused_level(x3, field: Field, A, T3=None, transpose_out: bool = True,
     with span("ntt.launch.fused_level"):
         _check_level_operands(x3, field, A, T3)
         out = _output(x3, transpose_out)
+        plan = persist_plan(field, m, B, None, transpose_out,
+                            _build.sm_count(x3.device))
+        if plan is not None:
+            launch_persist("fused_level", plan, x3, field, A, out, 0, T3)
+            _build.launches["fused_level_persist"] += 1
+            return out
         rc = _lib().mxu_fused_level(
             _build.ptr(x3), _build.ptr(A), _build.ptr(T3), _build.ptr(out),
             int(transpose_out), m, B, *_build.field_args(field),

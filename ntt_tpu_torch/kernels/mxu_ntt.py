@@ -49,6 +49,12 @@ def base_ntt_mxu(x, field: Field, A, F=None):
         D, E = digits.n_digits(field), digits.out_planes(field)
         _build.check_operand(A, "A", torch.int8, (E * m, D * m), x.device)
         out = torch.empty_like(x)
+        plan = mxu_level.persist_plan(field, m, B,
+                                      sms=_build.sm_count(x.device))
+        if plan is not None:
+            mxu_level.launch_persist("base_ntt_mxu", plan, x, field, A, out)
+            _build.launches["base_ntt_mxu_persist"] += 1
+            return out
         rc = mxu_level._lib().mxu_base_ntt(
             _build.ptr(x), _build.ptr(A), _build.ptr(out), m, B,
             *_build.field_args(field),

@@ -20,6 +20,14 @@ A variant's outputs are wrong by construction; only its time is read.
 line a variant and last a JSON object of all the times (ms). Needs a CUDA
 device; imports neither JAX nor ``ntt_tpu``.
 
+The default run also times, with the same phases of the same block (the
+present one, at every launch), the m = 32 levels of the cells' BLS12-381 Fr
+paths (``BIG_SHAPES``: the four levels of the 2^22 transform and one K3 of
+the 2^30 transform's local step on one of four cards), each with its bound.
+``python3 tc_knockout.py --persist`` does the same for the persistent form
+(``mxu_persist.cu``) at ``BIG_SHAPES`` (``PERSIST_PHASES``: the digit
+staging, the ring, the wgmma steps, the epilogue's pieces).
+
 ``python3 tc_knockout.py --sub`` does the same for the multi-level K3 alone
 at the launches of the narrow fields' paths (``SUB_SHAPES``: the last bases
 of Goldilocks 2^24, 2^25, 2^26, the levels of Goldilocks 2^24 and
@@ -33,10 +41,11 @@ and ``mxu_sub`` libraries built from the checkout at DIR (another commit of
 this repository, unpacked with ``git archive``) with this one's, in one
 process, in the order parent, change, change, parent: each library's
 device time for K1 at [8,8,32768], [8,4,2^20], [8,2,2^22] and
-[8,2,2^25], for K2, K3 and K4 at the BLS12-381 Fr 2^18 shapes and for the
-multi-level K3 at ``SUB_SHAPES``, every output word-equal between the
-two, each under this tree's plans; the multi-level K3 runs DIR's
-present form and this tree's choice of form. DIR's C entries must take
+[8,2,2^25], for K2, K3 and K4 at the BLS12-381 Fr 2^18 shapes, for the
+multi-level K3 at ``SUB_SHAPES`` and for the launches of ``BIG_SHAPES``,
+every output word-equal between the two, each under this tree's plans;
+the multi-level K3 and the m = 32 levels run DIR's present form and this
+tree's choice of form. DIR's C entries must take
 this tree's arguments (its wrappers call both libraries): since the
 transposed store of K2 and K3, each takes a ``transpose`` flag after
 ``out``.
@@ -136,6 +145,141 @@ SUB_PHASES = {
 SUB_ENTRIES = ("mxu_fused_subntt_multi", "mxu_fused_subntt_wide")
 SUB_VARIANTS = {"base": [], **{f"no_{p}": [p] for p in SUB_PHASES},
                 "skeleton": list(SUB_PHASES)}
+
+
+#: the m = 32 tensor-core levels of the cells' BLS12-381 Fr paths, which
+#: the default run and ``--parent`` time beside the 2^18 ones: (label,
+#: kernel, x columns, stack entries (K2) or twiddle shape and rep (K3)).
+#: The four levels of the 2^22 transform (K2 levels 0, 2 and 3 with their
+#: stacks, K3 level 1 on the merged batch-resolution table) and one K3 of
+#: the 2^30 transform's local step on one of four cards (2^23 columns, the
+#: i2-resolution table of a 2^15-point level, rep 2^13)
+BIG_SHAPES = (
+    ("K2 2^22 level 0 [8,32,2^17] stack 32 rep 4096", "stack", 1 << 17, 32),
+    ("K3 2^22 level 1 [8,32,2^17] merged table rep 1", "sub", 1 << 17,
+     ((32, 1 << 17), 1)),
+    ("K2 2^22 level 2 [8,32,2^17] stack 128 rep 1024", "stack", 1 << 17,
+     128),
+    ("K2 2^22 level 3 [8,32,2^17] stack 4 rep 32768", "stack", 1 << 17, 4),
+    ("K3 2^30/4 local [8,32,2^23] deep table rep 8192", "sub", 1 << 23,
+     ((1024, 32), 8192)),
+)
+
+
+def big_calls(dev) -> dict:
+    """{label: (call, kernel key, bound ms, what bounds it)} of the launches
+    of ``BIG_SHAPES`` through their wrappers, on random canonical words and
+    random stacks drawn on the card (their outputs are only compared)."""
+    import chip_smoke as cs
+    from ntt_tpu_torch import BLS12_381_FR as f
+    from ntt_tpu_torch import digits
+    from ntt_tpu_torch.kernels import mxu_level
+
+    D, E = digits.n_digits(f), digits.out_planes(f)
+    A = cs.sub_mats_on(f, {32}, False, dev)[32]
+    xs, calls = {}, {}
+    for label, kind, B, arg in BIG_SHAPES:
+        x = xs.get(B)
+        if x is None:
+            x = xs[B] = cs.random_on_card(f, (32, B), dev)
+        nbytes, mads = 2 * f.n_words * 32 * B * 4, 0
+        if kind == "stack":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(cs.SEED + arg)
+            As = torch.randint(0, 128, (arg, E * 32, D * 32), generator=gen,
+                               device=dev, dtype=torch.int8)
+            nbytes += As.numel()
+            fn, key = (lambda x=x, As=As, rep=B // arg:
+                       mxu_level.fused_level_stack(x, f, As, rep),
+                       "fused_level_stack_kernel<")
+        else:
+            shape, rep = arg
+            T = cs.random_on_card(f, shape, dev, seed=cs.SEED + 1)
+            nbytes += T.numel() * 4 + A.numel()
+            mads = cs.mont_mul_mads(f) * 32 * B
+            fn, key = (lambda x=x, T=T, rep=rep:
+                       mxu_level.fused_subntt(x, f, False, {32: A}, T,
+                                              rep=rep),
+                       "fused_subntt_kernel<")
+        calls[label] = (fn, key, *cs.bound(nbytes, cs.conv_macs(f, A, B),
+                                           mads))
+    return calls
+
+
+#: phase of the persistent form (``mxu_persist.cu``) -> (statement, what
+#: takes its place) for ``--persist``: the digit staging, the ring (its TMA
+#: loads and the waits on them), the wgmma steps, the epilogue slices. With
+#: its epilogue out, a variant still reads one accumulator on a condition
+#: the compiler cannot decide, so that the wgmma steps stay in it
+PERSIST_PHASES = {
+    "stage": [("stage(L, b0, dig);", ";")],
+    "aload": [(s, ";") for s in (
+        "if (issuer) R.issue(g - 1 + STAGES);",
+        "if (issuer) R.issue(g0 + NB - 1 + STAGES);",
+        "for (int g = 0; g < STAGES; ++g) R.issue(g);",
+        "tc::mbar_wait(&R.full[st], (int)((g / STAGES) & 1));")],
+    "mma": [("wgmma_s8(acc0, desc(dig + k * (N * BK)), db, k > 0);", ";"),
+            ("wgmma_s8(acc1, desc(dig + k * (N * BK) + NM * BK), db, k > 0);",
+             ";")],
+    "epi": [("epilogue(L, pending, CHUNKS - 1, acc0, acc1);",
+             "if (acc0[0] == 0x7fffffff) L.out[0] = acc1[1];"),
+            ("epilogue(L, b0, c, acc0, acc1);",
+             "if (acc0[c] == 0x7fffffff) L.out[c] = acc1[c + 1];")],
+}
+
+
+def persist_knockout() -> int:
+    """``--persist``: the persistent form at ``BIG_SHAPES`` under every
+    variant of ``VARIANTS`` (the phases of ``PERSIST_PHASES``)."""
+    import chip_smoke as cs
+    from ntt_tpu_torch.kernels import _build, mxu_level
+
+    print(f"card: {cs.card_line()}", flush=True)
+    dev = torch.device("cuda", 0)
+    calls = {what: fn for what, (fn, *_rest) in big_calls(dev).items()}
+    built = mxu_level._lib_persist()
+    src = open(os.path.join(_build.CSRC, "mxu_persist.cu")).read()
+    for phase, stmts in PERSIST_PHASES.items():
+        for stmt, instead in stmts:
+            if stmt not in src:
+                raise RuntimeError(f"tc_knockout: source changed, not found: "
+                                   f"{stmt}")
+            src = src.replace(stmt, f"\n#ifndef NO_{phase.upper()}\n{stmt}"
+                              f"\n#else\n{instead}\n#endif\n")
+    print("variant     device ms: " + " | ".join(calls), flush=True)
+    times = {}
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
+        with open(os.path.join(work, "mxu_persist.cu"), "w") as f:
+            f.write(src)
+        with open(os.path.join(work, "mxu_core.cuh"), "w") as f:
+            f.write(open(os.path.join(_build.CSRC, "mxu_core.cuh")).read())
+        procs = []
+        for variant, off in VARIANTS.items():
+            out = os.path.join(work, f"libmxu_persist_{variant}.so")
+            procs.append((variant, out, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS,
+                 *[f"-DNO_{p.upper()}" for p in off], "-o", out,
+                 os.path.join(work, "mxu_persist.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for variant, out, proc in procs:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{variant}: nvcc exit {proc.returncode}"
+                                   f"\n{log}")
+            lib = ctypes.CDLL(out)
+            lib.mxu_persist_level.argtypes = built.mxu_persist_level.argtypes
+            lib.mxu_persist_level.restype = ctypes.c_int
+            mxu_level._lib_persist = lambda lib=lib: lib
+            times[variant] = {what: cs.kernel_device_ms(fn, "_persist_kernel<",
+                                                        iters=10)
+                              for what, fn in calls.items()}
+            print(f"{variant:11s} " + "  ".join(
+                "-" if ms is None else f"{ms:.4f}"
+                for ms in times[variant].values()), flush=True)
+    mxu_level._lib_persist = lambda: built
+    print(json.dumps({"device_ms": times}))
+    return 0
 
 
 def guarded(src: str, macro: str, stmts) -> str:
@@ -336,11 +480,17 @@ def parent_against_change(parent: str) -> int:
     # (the wide one above one wave of blocks)
     calls.update({what: (fn, "fused_subntt_")
                   for what, fn in sub_calls(dev).items()})
+    # the cells' m = 32 levels: the parent's present block, the change's
+    # form (the persistent one where it takes them), by the name both
+    # forms' kernels start with
+    calls.update({what: (fn, key.split("kernel<")[0])
+                  for what, (fn, key, *_b) in big_calls(dev).items()})
     change = {"mxu_level": mxu_level._lib(), "mxu_sub": mxu_level._lib_sub()}
     entries = {"mxu_level": ("mxu_fused_level_stack", "mxu_fused_level",
                              "mxu_fused_subntt", "mxu_base_ntt"),
                "mxu_sub": ("mxu_fused_subntt_multi",)}
     own_wide = mxu_level.sub_wide
+    own_persist = mxu_level.persist_plan
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     times, outs = {}, {}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
@@ -358,6 +508,8 @@ def parent_against_change(parent: str) -> int:
             mxu_level._lib_sub = lambda lib=libs["mxu_sub"]: lib
             mxu_level.sub_wide = (own_wide if which == "change" else
                                   lambda *a, **k: False)
+            mxu_level.persist_plan = (own_persist if which == "change" else
+                                      lambda *a, **k: None)
             got = {}
             for what, (fn, key) in calls.items():
                 y = fn()
@@ -374,6 +526,7 @@ def parent_against_change(parent: str) -> int:
     mxu_level._lib = lambda: change["mxu_level"]
     mxu_level._lib_sub = lambda: change["mxu_sub"]
     mxu_level.sub_wide = own_wide
+    mxu_level.persist_plan = own_persist
     outs.clear()
     # the wide multi-level K3 under other spans: one tile a block (the
     # matrices staged for every tile, as the present form does), two waves
@@ -431,6 +584,8 @@ def main() -> int:
         return 1
     if "--sub" in sys.argv[1:]:
         return sub_knockout()
+    if "--persist" in sys.argv[1:]:
+        return persist_knockout()
     if "--parent" in sys.argv[1:]:
         return parent_against_change(sys.argv[sys.argv.index("--parent") + 1])
     import chip_smoke as cs
@@ -480,6 +635,11 @@ def main() -> int:
             lambda: mxu_ntt.base_ntt_mxu(x2, f, mats[2]),
             "base_ntt_mxu_short_kernel<"),
     }
+    for what, (fn, key, b_ms, b_by) in big_calls(dev).items():
+        calls[what] = (fn, key)
+        print(f"bound  {what}: {b_ms:.4f} ms ({b_by})", flush=True)
+    # the phases here are the present block's: its form at every launch
+    mxu_level.persist_plan = lambda *a, **k: None
     built = {"mxu_level": mxu_level._lib(), "mxu_sub": mxu_level._lib_sub()}
     entries = {"mxu_level": ("mxu_fused_level_stack", "mxu_fused_level",
                              "mxu_fused_subntt", "mxu_base_ntt"),
